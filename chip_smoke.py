@@ -9,13 +9,21 @@ Phases, each printing its own line with its seconds:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port, with nvcc, in parallel;
 3. kernels: each kernel against its plain torch version on the card, at the
-   shapes of the serving path plus other supported ones, with its device
-   time (torch.profiler), the plain version's and the card's bound for the
-   same work;
+   shapes of the serving and the training paths plus other supported ones,
+   with its device time (torch.profiler; CUDA events where a profiler
+   session twice records no kernel), the plain version's and the card's
+   bound for the same work; the Gumbel kernels' drawn fields against
+   the Gumbel distribution, and B2's id frequencies against the softmax;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
-   against the same policy with every kernel replaced by its plain version.
+   against the same policy with every kernel replaced by its plain version;
+5. training: the full-width SLATE OCR (seed 0) takes pretraining steps on
+   uint8 batches of 24 through OCR.update_many, timed, with the launch
+   counts reset just before and read just after; one step is checked
+   against the same model with every kernel replaced by its plain version,
+   fed the Gumbel fields the kernels drew; and the loss on one fixed batch
+   falls.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -34,8 +42,10 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from ocrl_tpu_torch.config import PolicyConfig
-from ocrl_tpu_torch.ops import LAUNCHES, build, reset_launches, slot_routing
+from ocrl_tpu_torch.config import EnvConfig, OCRConfig, PolicyConfig
+from ocrl_tpu_torch.models import create_ocr
+from ocrl_tpu_torch.models.slate import GROUP_OF
+from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.rl import PPO, build_policy
 
 # kernel vs plain, per output: max |kernel - plain| <= SWEEP_TOL * max |plain|.
@@ -43,8 +53,28 @@ from ocrl_tpu_torch.rl import PPO, build_policy
 # so the error scales with the magnitude of what is summed, not of each entry.
 SWEEP_TOL = 1e-5
 POLICY_TOL = dict(rtol=1e-4, atol=1e-4)  # whole policy: the recurrence carries them on
+# B1: y in [0, 1] from expf and a reordered row sum against torch's exp and
+# sum, a few ulps. B2: the same fp32 sums logits + g on both sides, so the
+# ids agree exactly.
+SOFT_TOL = 1e-5
+# A drawn Gumbel field of n values: its mean (Euler's gamma) and variance
+# (pi^2 / 6) within 8 standard errors, 1.2825 / sqrt(n) for the mean and
+# 3.45 / sqrt(n) for the variance (excess kurtosis 2.4): at the training
+# shape's 25.2 M draws, 2.0e-3 and 5.5e-3.
+GUMBEL_MEAN, GUMBEL_VAR = 0.5772156649015329, float(np.pi ** 2 / 6)
+GUMBEL_SIGMAS = 8.0
+FREQ_TOL = 0.01      # id frequencies over 65536 draws, 4-5 standard errors
+# One training step, kernels against plain versions fed the same fields and
+# dropout masks: the loss to 1e-5 relative; each gradient to 1e-3 of its
+# own largest entry plus 1e-6 of the model's largest (fp32 sums reordered
+# through the 3-iteration recurrence and cuDNN's backward algorithms); the
+# parameters' change over the group's lr to 1e-2 where the plain gradient
+# exceeds 1e-6, i.e. 100 x Adam's eps (below that, Adam's first step
+# g / (|g| + eps) turns rounding of the gradient into any value in [-1, 1]).
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_MOVE_TOL = 1e-5, 1e-3, 1e-6, 1e-2
 REQUESTS = 20
 BATCHES = (16, 64)
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -96,16 +126,33 @@ def profiled(fn, reps: int):
     return wall, prof.key_averages()
 
 
-def device_ms(averages, name_part: str = "") -> float:
+def device_ms(averages, name_part: str = "") -> float | None:
     """Summed device time (ms) of the CUDA kernels whose name holds
-    ``name_part``."""
+    ``name_part``, or None where the profiler recorded none of them."""
     from torch.autograd import DeviceType
 
     us = sum(e.self_device_time_total for e in averages
-             if e.device_type == DeviceType.CUDA and name_part in e.key)
-    if us <= 0:
-        raise SystemExit(f"the profiler saw no device time for '{name_part}'")
-    return us / 1e3
+             if e.device_type == DeviceType.CUDA and name_part in e.key
+             and not getattr(e, "is_user_annotation", False))  # e.g. Optimizer.step
+    return us / 1e3 if us > 0 else None
+
+
+def per_call_ms(fn, *name_parts: str, reps: int = 20) -> tuple[float, ...]:
+    """Device ms per call of ``fn``, summed over the CUDA kernels whose name
+    holds each of ``name_parts`` ("" for all of them), by torch.profiler.
+    CUPTI now and then hands a profiler session no kernel records at all;
+    then the session is taken once more, and if that misses too, each
+    number is the span between CUDA events around ``reps`` calls, which
+    holds every kernel of the call and the gaps between them."""
+    name_parts = name_parts or ("",)
+    for _ in range(2):
+        _, averages = profiled(fn, reps)
+        got = [device_ms(averages, part) for part in name_parts]
+        if all(ms is not None for ms in got):
+            return tuple(ms / reps for ms in got)
+    print(f"    (the profiler saw no device time for {name_parts} twice: "
+          f"CUDA events instead)", flush=True)
+    return (wall_ms(fn, reps),) * len(name_parts)
 
 
 def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
@@ -134,17 +181,155 @@ def check_sweep(shape, bw, flops, gen):
           f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise SystemExit(f"route_sweep disagrees with its plain version at {shape}")
-    reps = 20
-    _, kernel_avg = profiled(lambda: slot_routing.route_sweep(k, v, q), reps)
-    _, plain_avg = profiled(lambda: slot_routing.route_sweep_reference(k, v, q), reps)
-    ms = device_ms(kernel_avg) / reps            # the kernel and its two sums
-    kernel_alone_ms = device_ms(kernel_avg, "sweep_fwd_kernel") / reps
-    plain_ms = device_ms(plain_avg) / reps
+    ms, kernel_alone_ms = per_call_ms(     # the kernel with its two sums, and alone
+        lambda: slot_routing.route_sweep(k, v, q), "", "sweep_fwd_kernel")
+    plain_ms, = per_call_ms(lambda: slot_routing.route_sweep_reference(k, v, q))
     call_ms = wall_ms(lambda: slot_routing.route_sweep(k, v, q))
     bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops)
     print(f"    device ms: route_sweep {ms:.4f} (kernel alone {kernel_alone_ms:.4f}), "
           f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
           f"wall per call {call_ms:.4f} ms", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def gumbel_bound_ms(R: int, V: int, soft: bool, bw: float, flops: float):
+    """Least time for one Gumbel kernel: read the logits and the seed once,
+    write y [R, V] (soft) or the ids [R]; per value about 10 fp32
+    operations (the uniform, two logs, the add and for the soft sample the
+    divide, max, exp, sum and normalise), the Philox integer work aside."""
+    nbytes = 4 * R * V + 8 + (4 * R * V if soft else 4 * R)
+    ops = (10 if soft else 5) * R * V
+    t_bytes, t_ops = nbytes / bw, ops / flops
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sweep_bwd_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
+    """Least time for the sweep's backward: read k, v, a, g_a, q, g_av once,
+    write gk, gv, gq once; per token 8 S D operations (v . g_av, dl q,
+    a g_av and the dl^T k partial)."""
+    nbytes = 4 * (4 * B * N * D + 2 * B * N * S + 3 * B * S * D)
+    ops = 8 * B * N * S * D + 6 * B * N * S
+    t_bytes, t_ops = nbytes / bw, ops / flops
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def timed(kernel_fn, plain_fn, kernel_name: str = ""):
+    """Device ms per call of the kernel's wrapper, of the kernel alone (the
+    kernels whose name holds ``kernel_name``) and of the plain version, and
+    the wrapper's wall ms per call (CUDA events)."""
+    ms, kernel_alone_ms = per_call_ms(kernel_fn, "", kernel_name)
+    plain_ms, = per_call_ms(plain_fn)
+    return ms, kernel_alone_ms, plain_ms, wall_ms(kernel_fn)
+
+
+def check_gumbel(R, V, bw, flops, gen, time_it=True):
+    """B1 and B2 at [R, V] against their plain versions fed the fields the
+    kernels drew (g_out); the fields against the Gumbel distribution."""
+    mean_tol = GUMBEL_SIGMAS * 1.2825 / np.sqrt(R * V)
+    var_tol = GUMBEL_SIGMAS * 3.45 / np.sqrt(R * V)
+    logits = torch.randn(R, V, device="cuda", generator=gen) * 3
+    tau = 0.55
+    results = {}
+    for soft in (True, False):
+        g = torch.empty_like(logits)
+        if soft:
+            got = gumbel.gumbel_softmax_sample(logits, tau, generator=gen, g_out=g)
+            want = gumbel.gumbel_softmax_sample_reference(logits, g, tau)
+            err = (got - want).abs().max().item()
+            ok = err <= SOFT_TOL
+        else:
+            got = gumbel.gumbel_argmax_ids(logits, generator=gen, g_out=g)
+            want = gumbel.gumbel_argmax_ids_reference(logits, g)
+            err = float((got != want).sum().item())
+            ok = err == 0
+        g64 = g.double()
+        mean, var = g64.mean().item(), g64.var().item()
+        dist_ok = abs(mean - GUMBEL_MEAN) <= mean_tol and abs(var - GUMBEL_VAR) <= var_tol
+        name = gumbel.SOFT_KERNEL if soft else gumbel.IDS_KERNEL
+        what = f"max_abs_err {err:.3e} (tolerance {SOFT_TOL})" if soft else \
+            f"{int(err)} ids differ (tolerance 0)"
+        print(f"  {name} R={R} V={V}: {what} {'ok' if ok else 'MISMATCH'}; field mean "
+              f"{mean:.5f} (gamma {GUMBEL_MEAN:.5f} +- {mean_tol:.1e}), var {var:.5f} "
+              f"(pi^2/6 {GUMBEL_VAR:.5f} +- {var_tol:.1e}) {'ok' if dist_ok else 'OFF'}",
+              flush=True)
+        if not (ok and dist_ok):
+            raise SystemExit(f"{name} disagrees with its plain version or the "
+                             f"Gumbel distribution at {(R, V)}")
+        if not time_it:
+            continue
+        if soft:
+            kernel_fn = lambda: gumbel.gumbel_softmax_sample(logits, tau, generator=gen)
+            plain_fn = lambda: gumbel.gumbel_softmax_sample_reference(
+                logits, gumbel.gumbel_field(logits.shape, gen, logits.device), tau)
+        else:
+            kernel_fn = lambda: gumbel.gumbel_argmax_ids(logits, generator=gen)
+            plain_fn = lambda: gumbel.gumbel_argmax_ids_reference(
+                logits, gumbel.gumbel_field(logits.shape, gen, logits.device))
+        ms, _, plain_ms, call_ms = timed(kernel_fn, plain_fn)
+        bound_ms, bound_by = gumbel_bound_ms(R, V, soft, bw, flops)
+        note = ""
+        if soft:   # a yardstick only: softmax of an already noised copy
+            noised = (logits + g) / tau
+            note = f"; torch.softmax of a pre-noised copy " \
+                f"{per_call_ms(lambda: torch.softmax(noised, -1))[0]:.4f}"
+        print(f"    device ms: {name} {ms:.4f}, plain (torch field + "
+              f"{'softmax' if soft else 'argmax'}) {plain_ms:.4f}, bound {bound_ms:.4f} "
+              f"({bound_by}){note}; wall per call {call_ms:.4f} ms", flush=True)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    return results
+
+
+def check_id_frequencies(gen):
+    """One row repeated: B2's id frequencies ~ softmax(row) (as
+    tests/test_ops.py holds the JAX version)."""
+    row = torch.full((1, 128), -1e9, device="cuda")
+    row[0, :4] = torch.tensor([2.0, 1.0, 0.0, -1.0], device="cuda")
+    ids = gumbel.gumbel_argmax_ids(row.repeat(65536, 1), generator=gen)
+    freq = (torch.bincount(ids, minlength=4)[:4].double() / 65536).cpu()
+    want = torch.softmax(torch.tensor([2.0, 1.0, 0.0, -1.0], dtype=torch.float64), 0)
+    err = (freq - want).abs().max().item()
+    print(f"  gumbel_ids frequencies {[round(f, 4) for f in freq.tolist()]} vs softmax "
+          f"{[round(f, 4) for f in want.tolist()]}: max diff {err:.4f} (tolerance "
+          f"{FREQ_TOL}) {'ok' if err <= FREQ_TOL else 'OFF'}", flush=True)
+    if err > FREQ_TOL:
+        raise SystemExit("gumbel_ids frequencies disagree with the softmax")
+
+
+def check_sweep_bwd(shape, bw, flops, gen):
+    """B4 against autograd of the plain sweep, given the same cotangents."""
+    B, N, S, D = shape
+    k = torch.randn(B, N, D, device="cuda", generator=gen) * D ** -0.5
+    v = torch.randn(B, N, D, device="cuda", generator=gen)
+    q = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_sa = torch.randn(B, S, device="cuda", generator=gen)
+    g_av = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_a = torch.randn(B, N, S, device="cuda", generator=gen)
+    _, _, a = slot_routing.route_sweep(k, v, q)
+    kernel_fn = lambda: slot_routing._sweep_bwd(  # noqa: E731 - the Function's backward
+        k, v, q, a, g_av, (g_a + g_sa[:, None, :]).contiguous())
+    got = kernel_fn()
+    leaves = [x.clone().requires_grad_() for x in (k, v, q)]
+    outs = slot_routing.route_sweep_reference(*leaves)
+    plain_fn = lambda: torch.autograd.grad(outs, leaves, (g_sa, g_av, g_a),  # noqa: E731
+                                           retain_graph=True)
+    want = plain_fn()
+    torch.cuda.synchronize()
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    scales = [w.abs().max().item() for w in want]
+    ok = all(e <= SWEEP_TOL * s for e, s in zip(errs, scales))
+    rel = ", ".join(f"{name} {e:.2e}/{s:.2e}" for name, e, s
+                    in zip(("gk", "gv", "gq"), errs, scales))
+    print(f"  route_sweep backward B={B} N={N} S={S} D={D}: max_abs_err/max_abs ({rel}), "
+          f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit(f"the sweep's backward disagrees with its plain version at {shape}")
+    ms, kernel_alone_ms, plain_ms, call_ms = timed(kernel_fn, plain_fn, "sweep_bwd_kernel")
+    bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops)
+    print(f"    device ms: backward {ms:.4f} (kernel alone {kernel_alone_ms:.4f}), plain "
+          f"(autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); wall per call "
+          f"{call_ms:.4f} ms", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -195,14 +380,104 @@ def serve(algo: PPO, requests: list[np.ndarray]) -> float:
     return time.perf_counter() - t0
 
 
-def profile(algo: PPO, obs: np.ndarray, reps: int = 5) -> None:
-    """Device time by kernel and the device's busy share over a few requests."""
-    wall, averages = profiled(lambda: algo.predict(obs), reps)
-    busy = 1e-3 * device_ms(averages)
-    print(averages.table(sort_by="self_device_time_total", row_limit=15), flush=True)
-    print(f"  E={obs.shape[0]}: {reps} requests in {1e3 * wall:.3f} ms under the "
-          f"profiler; device busy {1e3 * busy:.3f} ms ({100 * busy / wall:.1f} %)",
+def profile(label: str, fn, reps: int, rows: int) -> None:
+    """Device time by kernel and the device's busy share over ``reps`` calls."""
+    wall, averages = profiled(fn, reps)
+    busy = device_ms(averages)
+    print(averages.table(sort_by="self_device_time_total", row_limit=rows), flush=True)
+    share = "not measured (the profiler saw no device time)" if busy is None else \
+        f"{busy:.3f} ms ({100 * busy / (1e3 * wall):.1f} %)"
+    print(f"  {label} in {1e3 * wall:.3f} ms under the profiler; device busy {share}",
           flush=True)
+
+
+@contextmanager
+def plain_kernels(fields: dict):
+    """The OCR with every kernel replaced by its plain version: the routing
+    sweep by autograd of the plain sweep, the Gumbel kernels by their plain
+    versions fed ``fields`` (those the kernels drew). Each still draws the
+    seed its kernel would, so that the generator, and with it the slot noise
+    and the dropout masks, stays in step with the kernel run."""
+    saved = (slot_routing.route_sweep, gumbel.gumbel_softmax_sample,
+             gumbel.gumbel_argmax_ids)
+
+    def soft(logits, tau, *, generator=None, noise=None, g_out=None):
+        gumbel.draw_seed(generator, logits.device)
+        return gumbel.gumbel_softmax_sample_reference(logits, fields["soft"], tau)
+
+    def ids(logits, *, generator=None, noise=None, g_out=None):
+        gumbel.draw_seed(generator, logits.device)
+        return gumbel.gumbel_argmax_ids_reference(logits.detach(), fields["ids"])
+
+    slot_routing.route_sweep = slot_routing.route_sweep_reference
+    gumbel.gumbel_softmax_sample, gumbel.gumbel_argmax_ids = soft, ids
+    try:
+        yield
+    finally:
+        (slot_routing.route_sweep, gumbel.gumbel_softmax_sample,
+         gumbel.gumbel_argmax_ids) = saved
+
+
+def check_step(ocr_cfg, env_cfg, obs: np.ndarray):
+    """One update of a fresh model through the kernels against the same
+    update through the plain versions, from identical params and generator
+    state, the plain side fed the Gumbel fields the kernels drew."""
+    kernel_ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+    plain_ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+    start = {k: v.clone() for k, v in kernel_ocr.module.state_dict().items()}
+    drawn = {}
+    got = kernel_ocr.update(obs, None, 0, noise=drawn)
+    fields = {k: drawn[k] for k in ("soft", "ids")}
+    plain_drawn = dict(fields)
+    with plain_kernels(fields):
+        want = plain_ocr.update(obs, None, 0, noise=plain_drawn)
+    torch.cuda.synchronize()
+    if not torch.equal(plain_drawn["slots"], drawn["slots"]):
+        raise SystemExit("the plain run drew other slot noise: generators out of step")
+    loss, want_loss = got["loss"].item(), want["loss"].item()
+    loss_ok = abs(loss - want_loss) <= STEP_LOSS_RTOL * abs(want_loss) and np.isfinite(loss)
+    grads = dict(kernel_ocr.module.named_parameters())
+    plain_grads = dict(plain_ocr.module.named_parameters())
+    top = max(p.grad.abs().max().item() for p in plain_grads.values())
+    worst_grad, grad_ok = 0.0, True
+    for name, p in plain_grads.items():
+        err = (grads[name].grad - p.grad).abs().max().item()
+        limit = STEP_GRAD_TOL * p.grad.abs().max().item() + STEP_GRAD_FLOOR * top
+        worst_grad = max(worst_grad, err / max(limit, 1e-30))
+        grad_ok &= err <= limit
+    lrs = {g["group"]: g["lr"] for g in plain_ocr.optimizer.adam.param_groups}
+    after, plain_after = kernel_ocr.module.state_dict(), plain_ocr.module.state_dict()
+    worst_move, compared, total = 0.0, 0, 0
+    for name, p in plain_grads.items():
+        lr = lrs[GROUP_OF[name.split(".")[0]]]
+        sure = p.grad.abs() > 1e-6
+        moved = ((after[name] - start[name]) - (plain_after[name] - start[name])) / lr
+        if sure.any():
+            worst_move = max(worst_move, moved[sure].abs().max().item())
+        compared += int(sure.sum())
+        total += p.numel()
+    move_ok = worst_move <= STEP_MOVE_TOL
+    print(f"  step check against the plain versions: loss {loss:.6f} vs {want_loss:.6f} "
+          f"(rtol {STEP_LOSS_RTOL}); gradients worst {worst_grad:.3f} of their tolerance "
+          f"({STEP_GRAD_TOL} of each leaf's max + {STEP_GRAD_FLOOR} of the model's "
+          f"{top:.3e}); parameter change over lr worst {worst_move:.3e} (tolerance "
+          f"{STEP_MOVE_TOL}) on {compared} of {total} entries with |g| > 1e-6",
+          flush=True)
+    if not (loss_ok and grad_ok and move_ok):
+        raise SystemExit("the training step disagrees with its plain version")
+
+
+def train_steps(ocr, batches: list[np.ndarray], step0: int) -> tuple[float, dict]:
+    """update_many in superbatches of TRAIN_K; (seconds, stacked metrics)."""
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(batches), TRAIN_K):
+        metrics.append(ocr.update_many(np.concatenate(batches[i:i + TRAIN_K]), None,
+                                       step0 + i, TRAIN_K))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return seconds, {k: torch.cat([m[k].cpu() for m in metrics]) for k in metrics[0]}
 
 
 def main() -> int:
@@ -217,7 +492,8 @@ def main() -> int:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60)
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card, flush=True)
         kind = torch.cuda.get_device_name(0)
         rates_key, bw, flops = card_rates(kind)
         print(f"  {kind}, {torch.cuda.device_count()} device(s); torch "
@@ -232,12 +508,22 @@ def main() -> int:
     cfg = PolicyConfig()
     sa = cfg.ocr.slotattr
     serving_shape = (BATCHES[0], cfg.env.obs_size ** 2, sa.num_slots, sa.slot_size)
+    ocr_cfg, env_cfg = OCRConfig(), EnvConfig()
+    train_shape = (TRAIN_BATCH,) + serving_shape[1:]
+    tokens = TRAIN_BATCH * (env_cfg.obs_size // 4) ** 2
     with phase("kernels"):
         gen = torch.Generator(device="cuda").manual_seed(0)
         sweep = check_sweep(serving_shape, bw, flops, gen)
-        for shape in [(BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
+        for shape in [train_shape, (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep(shape, bw, flops, gen)
+        sweep_bwd = check_sweep_bwd(train_shape, bw, flops, gen)
+        for shape in [serving_shape, (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
+                      (3, 333, 5, 192), (2, 100, 16, 64)]:
+            check_sweep_bwd(shape, bw, flops, gen)
+        soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
+        check_gumbel(1000, 512, bw, flops, gen, time_it=False)
+        check_id_frequencies(gen)
 
     with phase("serving"):
         policy = build_policy(cfg, seed=0)
@@ -262,18 +548,67 @@ def main() -> int:
         for E in BATCHES:
             check_request(algo, requests[E][0], sa.num_slots, sa.slot_size)
 
+    with phase("training"):
+        rng = np.random.default_rng(0)
+        shape = (TRAIN_BATCH, env_cfg.obs_size, env_cfg.obs_size, env_cfg.obs_channels)
+        batch = rng.integers(0, 256, shape, dtype=np.uint8)
+        check_step(ocr_cfg, env_cfg, batch)
+        ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+        start = {k: v.clone() for k, v in ocr.module.state_dict().items()}
+        _, warm = train_steps(ocr, [batch] * TRAIN_WARMUP, 0)   # outside the count
+        reset_launches()
+        train_seconds, timed_metrics = train_steps(ocr, [batch] * TRAIN_STEPS, TRAIN_WARMUP)
+        train_launches = dict(LAUNCHES)
+        per_step = {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1,
+                    slot_routing.KERNEL: sa.num_iterations,
+                    slot_routing.BWD_KERNEL: sa.num_iterations}
+        train_expected = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+        ms_step = 1e3 * train_seconds / TRAIN_STEPS
+        print(f"  {card}: {TRAIN_STEPS} steps at batch "
+              f"{TRAIN_BATCH} (update_many k={TRAIN_K}), {ms_step:.3f} ms/step, "
+              f"{TRAIN_BATCH * TRAIN_STEPS / train_seconds:.1f} images/s", flush=True)
+        print(f"  launches {train_launches}, expected {train_expected}", flush=True)
+        if train_launches != train_expected:
+            raise SystemExit("the training path did not launch each kernel as expected")
+        losses = torch.cat([warm["loss"], timed_metrics["loss"]])
+        after = ocr.module.state_dict()
+        moved = {GROUP_OF[k.split(".")[0]] for k in after
+                 if not torch.equal(after[k], start[k])}
+        print(f"  loss on one fixed batch: step 0 {losses[0].item():.4f}, step "
+              f"{len(losses) - 1} {losses[-1].item():.4f}; groups moved {sorted(moved)}; "
+              f"norm {timed_metrics['norm'][-1].item():.4f}, tau "
+              f"{timed_metrics['tau'][-1].item():.6f}", flush=True)
+        if not (torch.isfinite(losses).all() and losses[-1] < losses[0]
+                and moved == set(GROUP_OF.values())):
+            raise SystemExit("training did not lower the loss or move every group")
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
-                profile(algo, requests[E][0])
+                obs = requests[E][0]
+                profile(f"E={E}: 5 requests", lambda: algo.predict(obs), 5, 15)
+            superbatch = np.concatenate([batch] * TRAIN_K)
+            profile(f"training: {2 * TRAIN_K} steps",
+                    lambda: ocr.update_many(superbatch, None, 0, TRAIN_K), 2, 25)
 
-    kernels = [dict(name=slot_routing.KERNEL, route="cuda",
-                    source="ocrl_tpu_torch/ops/csrc/slot_routing.cu",
-                    replaces="ocrl_tpu/ops/slot_routing.py:79",
-                    launches=launches[slot_routing.KERNEL],
-                    max_abs_err=sweep["max_abs_err"], ms=sweep["ms"],
-                    plain_ms=sweep["plain_ms"], bound_ms=sweep["bound_ms"],
-                    bound_by=sweep["bound_by"], library_ms=None)]
+    def row(name, source, replaces, result):
+        # launches: summed over the two main-path runs, serving and training
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches.get(name, 0) + train_launches.get(name, 0),
+                    max_abs_err=result["max_abs_err"], ms=result["ms"],
+                    plain_ms=result["plain_ms"], bound_ms=result["bound_ms"],
+                    bound_by=result["bound_by"], library_ms=None)
+
+    routing, gumbel_cu = ("ocrl_tpu_torch/ops/csrc/slot_routing.cu",
+                          "ocrl_tpu_torch/ops/csrc/gumbel.cu")
+    kernels = [
+        row(gumbel.SOFT_KERNEL, gumbel_cu, "ocrl_tpu/ops/gumbel.py:50",
+            soft_ids[gumbel.SOFT_KERNEL]),
+        row(gumbel.IDS_KERNEL, gumbel_cu, "ocrl_tpu/ops/gumbel.py:112",
+            soft_ids[gumbel.IDS_KERNEL]),
+        row(slot_routing.KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:79", sweep),
+        row(slot_routing.BWD_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:86", sweep_bwd),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,13 +1,109 @@
-"""Observation preprocessing (counterpart of ocrl_tpu/models/base.py:289-295)."""
+"""The OCR wrapper (counterpart of ocrl_tpu/models/base.py): owns the module,
+its optimizer and its random state, and takes training steps.
+
+A step is the JAX train step of base.py:138-149: the loss and its gradients,
+the ``norm`` metric and the clip by the inf-norm over every group together,
+then the optimizer. ``update_many`` takes k such steps in a Python loop on
+the device, where JAX scans them in one program. Random state is one
+``torch.Generator`` on the model's device, seeded from ``seed``.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch import nn
 
 
 def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
     """uint8 images become float32 in [0, 1] on their device; float inputs
-    are taken as already in [0, 1]."""
+    are taken as already in [0, 1] (base.py:289-295)."""
     if obs.dtype == torch.uint8:
         return obs.to(torch.float32) / 255.0
     return obs.to(torch.float32)
+
+
+def clip_by_total_norm(params: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale the gradients of ``params`` in place by
+    min(1, max_norm / (max |g| + 1e-6)), the max over all of them together,
+    and return that max: the inf-norm clip and the ``norm`` metric of
+    base.py:22-52. torch's clip_grad_norm_ computes exactly this formula."""
+    return nn.utils.clip_grad_norm_(params, max_norm, norm_type=float("inf"))
+
+
+def _stack(values: list) -> torch.Tensor:
+    if isinstance(values[0], torch.Tensor):
+        return torch.stack(values)
+    return torch.tensor(values)
+
+
+class OCR:
+    """Host-side handle of one OCR model: ``update``, ``update_many``,
+    ``get_loss``, ``save`` / ``load``."""
+
+    def __init__(self, module: nn.Module, optimizer, clip: float | None,
+                 seed: int, device: torch.device):
+        self.module = module
+        self.optimizer = optimizer
+        self.clip = clip
+        self.device = device
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self._last_step = 0
+
+    def _obs(self, obs) -> torch.Tensor:
+        obs = torch.as_tensor(np.asarray(obs)) if not isinstance(obs, torch.Tensor) else obs
+        return normalize_obs(obs.to(self.device, non_blocking=True))
+
+    def _step(self, obs: torch.Tensor, step: int, noise: dict | None) -> dict:
+        self.module.train()
+        self.optimizer.zero_grad()
+        loss, metrics = self.module.loss(obs, None, step, True,
+                                         generator=self.generator, noise=noise)
+        loss.backward()
+        if self.clip is not None:
+            metrics["norm"] = clip_by_total_norm(list(self.module.parameters()),
+                                                 self.clip)
+        self.optimizer.step()
+        return {k: v.detach() if isinstance(v, torch.Tensor) else v
+                for k, v in metrics.items()}
+
+    def update(self, obs, masks, step: int, *, noise: dict | None = None) -> dict:
+        """One optimizer step on a batch of observations (uint8 or float in
+        [0, 1], NHWC). Returns the metrics, tensors left on the device."""
+        if masks is not None:
+            raise NotImplementedError("training with masks (ARI) comes with the "
+                                      "evaluation slice")
+        self._last_step = int(step)
+        return self._step(self._obs(obs), int(step), noise)
+
+    def update_many(self, obs, masks, step: int, k: int) -> dict:
+        """k optimizer steps (step .. step+k-1) over a superbatch of k*B
+        observations, one batch each. Returns the metrics stacked (k,)."""
+        if masks is not None:
+            raise NotImplementedError("training with masks (ARI) comes with the "
+                                      "evaluation slice")
+        obs = self._obs(obs)
+        if obs.shape[0] % k:
+            raise ValueError(f"superbatch of {obs.shape[0]} is not k={k} batches")
+        batches = obs.reshape((k, obs.shape[0] // k) + obs.shape[1:])
+        steps = [self._step(batches[i], int(step) + i, None) for i in range(k)]
+        self._last_step = int(step) + k - 1
+        return {key: _stack([m[key] for m in steps]) for key in steps[0]}
+
+    @torch.no_grad()
+    def get_loss(self, obs, masks=None, step: int | None = None) -> dict:
+        """Eval metrics at the current training step's schedules."""
+        self.module.eval()
+        step = self._last_step if step is None else step
+        _, metrics = self.module.loss(self._obs(obs), masks, step, False,
+                                      generator=self.generator)
+        return metrics
+
+    def save(self) -> dict:
+        return {"ocr_module_state_dict": self.module.state_dict(),
+                "ocr_opt_state_dict": self.optimizer.state_dict()}
+
+    def load(self, checkpoint: dict) -> None:
+        self.module.load_state_dict(checkpoint["ocr_module_state_dict"])
+        if "ocr_opt_state_dict" in checkpoint:
+            self.optimizer.load_state_dict(checkpoint["ocr_opt_state_dict"])

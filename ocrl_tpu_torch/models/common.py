@@ -115,3 +115,68 @@ class FusedGRUCell(nn.Module):
         z = torch.sigmoid(zi[..., D:2 * D] + zh[..., D:2 * D])
         n = torch.tanh(zi[..., 2 * D:] + r * zh[..., 2 * D:])
         return (1.0 - z) * n + z * h
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """[B, H, W, C*f*f] -> [B, H*f, W*f, C] in the sub-pixel order of
+    ocrl_tpu/models/common.py:68-79 (torch's PixelShuffle order, NHWC)."""
+    B, H, W, C = x.shape
+    f = factor
+    x = x.reshape(B, H, W, C // (f * f), f, f)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(B, H * f, W * f, C // (f * f))
+
+
+def cosine_anneal(step: int, start_value: float, final_value: float,
+                  start_step: int, final_step: int) -> float:
+    """ocrl_tpu/models/common.py:103-111, as a function of a Python step."""
+    if step < start_step:
+        return start_value
+    if step >= final_step:
+        return final_value
+    a = 0.5 * (start_value - final_value)
+    b = 0.5 * (start_value + final_value)
+    progress = (step - start_step) / max(final_step - start_step, 1)
+    return a * math.cos(math.pi * progress) + b
+
+
+def linear_warmup(step: int, start_value: float, final_value: float,
+                  start_step: int, final_step: int) -> float:
+    """ocrl_tpu/models/common.py:114-121 (note the ``step + 1``)."""
+    if step < start_step:
+        return start_value
+    if step >= final_step:
+        return final_value
+    progress = (step + 1 - start_step) / max(final_step - start_step, 1)
+    return (final_value - start_value) * progress + start_value
+
+
+def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor, tau: float = 1.0,
+                   hard: bool = False) -> torch.Tensor:
+    """Gumbel-softmax over the last axis given the Gumbel field ``noise``,
+    with the straight-through one-hot when ``hard``
+    (ocrl_tpu/models/common.py:126-137)."""
+    y_soft = torch.softmax((logits + noise) / tau, dim=-1)
+    if not hard:
+        return y_soft
+    index = y_soft.argmax(-1, keepdim=True)
+    y_hard = torch.zeros_like(y_soft).scatter_(-1, index, 1.0)
+    return y_hard - y_soft.detach() + y_soft
+
+
+def keep_mask(shape, keep_prob: float, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep_prob) mask of a dropout, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate and scale the kept
+    values by 1 / (1 - rate); the identity unless training with rate > 0.
+    Unlike F.dropout, the mask comes from an explicit generator."""
+    if not train or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    mask = keep_mask(x.shape, keep_prob, generator, x.device)
+    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))

@@ -1,13 +1,84 @@
-"""CNN encoder of SLATE / Slot-Attention (counterpart of
-ocrl_tpu/models/dvae.py:79-91). The dVAE and both decoders come with the
-training slice."""
+"""Discrete VAE and CNN encoder of SLATE / Slot-Attention (counterpart of
+ocrl_tpu/models/dvae.py:15-91). The broadcast decoder (``use_bcdec``
+training) comes with a later slice."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .common import Conv2dBlock, conv2d, conv_nhwc
+from ..ops import gumbel
+from .common import Conv2dBlock, conv2d, conv_nhwc, gumbel_softmax, pixel_shuffle
+
+_SHUFFLE_AFTER = (4, 8)   # decoder blocks followed by pixel_shuffle(2)
+
+
+class dVAE(nn.Module):
+    """Gumbel-softmax discrete VAE over a 4x-downsampled token grid
+    (ocrl_tpu/models/dvae.py:15-76). NHWC in and out.
+
+    Encoder: a 4x4 stride-4 conv block, six 1x1 conv blocks, a 1x1 conv to
+    the vocabulary. Decoder: nine conv blocks, ``pixel_shuffle(2)`` after
+    blocks 4 and 8, then a 1x1 conv to the image channels."""
+
+    def __init__(self, vocab_size: int, img_channels: int, hidden: int = 64):
+        super().__init__()
+        self.encoder = nn.Sequential(
+            Conv2dBlock(img_channels, hidden, 4, 4),
+            *(Conv2dBlock(hidden, hidden, 1, 1) for _ in range(6)),
+            conv2d(hidden, vocab_size, 1),
+        )
+        shuffled = hidden * 2 * 2
+        self.decoder_blocks = nn.ModuleList([
+            Conv2dBlock(vocab_size, hidden, 1),
+            Conv2dBlock(hidden, hidden, 3, 1, 1), Conv2dBlock(hidden, hidden, 1, 1),
+            Conv2dBlock(hidden, hidden, 1, 1), Conv2dBlock(hidden, shuffled, 1),
+            Conv2dBlock(hidden, hidden, 3, 1, 1), Conv2dBlock(hidden, hidden, 1, 1),
+            Conv2dBlock(hidden, hidden, 1, 1), Conv2dBlock(hidden, shuffled, 1),
+        ])
+        self.decoder_out = conv2d(hidden, img_channels, 1)
+
+    def encode_logits(self, obs: torch.Tensor) -> torch.Tensor:
+        x = obs
+        for layer in self.encoder:
+            x = layer(x) if isinstance(layer, Conv2dBlock) else conv_nhwc(layer, x)
+        return x
+
+    def sample(self, flat_logits: torch.Tensor, tau: float, hard: bool,
+               generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None,
+               g_out: torch.Tensor | None = None) -> torch.Tensor:
+        """Gumbel sample of logits [R, vocab]. ``hard=False`` is kernel B1
+        (``ops.gumbel``); ``hard=True`` the straight-through one-hot on the
+        plain noise path. ``noise`` is the Gumbel field to use instead of a
+        draw from ``generator``; ``g_out`` receives the field used."""
+        if not hard:
+            return gumbel.gumbel_softmax_sample(flat_logits, tau, generator=generator,
+                                                noise=noise, g_out=g_out)
+        if noise is None:
+            noise = gumbel.gumbel_field(flat_logits.shape, generator, flat_logits.device)
+        if g_out is not None:
+            g_out.copy_(noise)
+        return gumbel_softmax(flat_logits, noise, tau, True)
+
+    def forward(self, obs: torch.Tensor, tau: float = 1.0, hard: bool = True,
+                generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None,
+                g_out: torch.Tensor | None = None):
+        """obs [B, H, W, C] -> (z [B, h, w, vocab], z_logits); see ``sample``."""
+        z_logits = self.encode_logits(obs)
+        B, H, W, V = z_logits.shape
+        z = self.sample(z_logits.reshape(-1, V).contiguous(), tau, hard, generator,
+                        noise, g_out)
+        return z.reshape(B, H, W, V), z_logits
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        x = z
+        for i, block in enumerate(self.decoder_blocks):
+            x = block(x)
+            if i in _SHUFFLE_AFTER:
+                x = pixel_shuffle(x, 2)
+        return conv_nhwc(self.decoder_out, x)
 
 
 class SlotAttnCNNEncoder(nn.Module):

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ocrl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,12 +95,28 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, function: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C function ``function`` of ``csrc/<name>.cu``, typed: every
+    entry point returns its launch's CUDA error code as an int."""
+    fn = getattr(library(name), function)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(kernel: str, fn, *args) -> None:
     """Call a C entry point, raise on its CUDA error code, count the launch."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+
+
+def launch_on(device: torch.device, kernel: str, fn, *args) -> None:
+    """``launch`` on ``device``'s current stream, passed as the last
+    argument."""
+    with torch.cuda.device(device):
+        launch(kernel, fn, *args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def reset_launches() -> None:

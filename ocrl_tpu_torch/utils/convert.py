@@ -12,10 +12,16 @@ built by the JAX package (nested dicts of numpy arrays, as
   ``[heads, hd, out]`` -> ``[out, heads*hd]``;
 - FusedGRUCell ``wi``/``wh [D, 3D]`` -> ``wi.weight``/``wh.weight [3D, D]``,
   ``bi``/``bh`` -> ``wi.bias``/``wh.bias``;
-- ``slot_mu``, ``slot_log_sigma`` and ``cls_token`` as they are.
+- Embed ``embedding [V, d]`` -> ``weight [V, d]``;
+- ``slot_mu``, ``slot_log_sigma``, ``cls_token``, ``bos`` and ``pe`` as they
+  are.
 
-A key this slice does not build raises, except the OCR subtrees that later
-slices build (``LATER_SLICES``), which are skipped.
+``ocr_from_flax(params)`` does the same for an OCR's own tree, as
+``OCR.params`` of the JAX package holds it, and returns the ``state_dict``
+of the port's ``SLATE_Module(..., decoder=True)``.
+
+A key the port does not build raises, except the OCR subtrees that later
+slices build (``LATER_SLICES``: the broadcast decoder), which are skipped.
 """
 
 from __future__ import annotations
@@ -25,22 +31,36 @@ import re
 import numpy as np
 import torch
 
-LATER_SLICES = ("dvae", "tfdec", "dictionary", "bos", "z_pos", "slotproj",
-                "out", "bcdec")
+LATER_SLICES = ("bcdec",)
 
 _SA = "ocr_module/slotattn/slot_attention"
 _LAYER = r"pooling_module/CoreTransformer_0/TorchEncoderLayer_(\d+)"
+_DEC = r"ocr_module/tfdec/blocks_(\d+)"
 # (flax module path, port module path); full matches over "/"-joined paths
 _MODULES = [
     (r"ocr_module/enc/Conv2dBlock_(\d+)/Conv_0", r"ocr_module.enc.blocks.\1.conv"),
     (r"ocr_module/enc/Conv_0", "ocr_module.enc.out"),
     (r"ocr_module/enc_pos/channels_map", "ocr_module.enc_pos.channels_map"),
+    (r"ocr_module", "ocr_module"),
     (r"ocr_module/slotattn", "ocr_module.slotattn"),
     (r"ocr_module/slotattn/layer_norm", "ocr_module.slotattn.layer_norm"),
     (r"ocr_module/slotattn/mlp/layers_(\d+)", r"ocr_module.slotattn.mlp.\1"),
     (_SA + r"/(norm_inputs|norm_slots|norm_mlp|project_q|project_k|project_v|gru)",
      r"ocr_module.slotattn.slot_attention.\1"),
     (_SA + r"/mlp/layers_(\d+)", r"ocr_module.slotattn.slot_attention.mlp.\1"),
+    (r"ocr_module/dvae/encoder/layers_(\d+)/Conv_0", r"ocr_module.dvae.encoder.\1.conv"),
+    (r"ocr_module/dvae/encoder/layers_(\d+)", r"ocr_module.dvae.encoder.\1"),
+    (r"ocr_module/dvae/decoder_blocks_(\d+)/Conv_0",
+     r"ocr_module.dvae.decoder_blocks.\1.conv"),
+    (r"ocr_module/dvae/decoder_out", "ocr_module.dvae.decoder_out"),
+    (r"ocr_module/(dictionary|z_pos|slotproj|out)", r"ocr_module.\1"),
+    (_DEC + r"/(self_attn|encoder_decoder_attn)/(proj_[qkvo])",
+     r"ocr_module.tfdec.blocks.\1.\2.\3"),
+    (_DEC + r"/(self_attn_layer_norm|encoder_decoder_attn_layer_norm|ffn_layer_norm)",
+     r"ocr_module.tfdec.blocks.\1.\2"),
+    (_DEC + r"/ffn/Dense_0", r"ocr_module.tfdec.blocks.\1.ffn.fc1"),
+    (_DEC + r"/ffn/Dense_1", r"ocr_module.tfdec.blocks.\1.ffn.fc2"),
+    (r"ocr_module/tfdec/layer_norm", "ocr_module.tfdec.layer_norm"),
     (r"pooling_module/CoreTransformer_0", "pooling_module.core"),
     (r"pooling_module/CoreTransformer_0/Dense_0", "pooling_module.core.proj"),
     (_LAYER + r"/MultiHeadDotProductAttention_0/(query|key|value|out)",
@@ -52,7 +72,7 @@ _MODULES = [
     (r"acnet/(shared|policy|value)_(\d+)", r"acnet.\1.\2"),
     (r"(action_net|value_net_out)", r"\1"),
 ]
-_KEPT = ("slot_mu", "slot_log_sigma", "cls_token")
+_KEPT = ("slot_mu", "slot_log_sigma", "cls_token", "bos", "pe")
 
 
 def _flatten(tree: dict, prefix: tuple = ()):
@@ -81,7 +101,7 @@ def _leaf(module: str, name: str, x: np.ndarray) -> tuple[str, np.ndarray]:
         return "weight", x.T
     if name == "bias":
         return "bias", x.reshape(-1)
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return "weight", x
     if name in ("wi", "wh"):
         return f"{name}.weight", x.T
@@ -106,3 +126,10 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
                            f"'{'/'.join(path)}'") from None
         state[f"{module}.{name}"] = torch.from_numpy(np.array(x, order="C"))
     return state
+
+
+def ocr_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX OCR's parameter tree (``OCR.params``) -> the port OCR module's
+    ``state_dict``."""
+    prefix = "ocr_module."
+    return {k[len(prefix):]: v for k, v in from_flax({"ocr_module": params}).items()}

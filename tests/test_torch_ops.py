@@ -80,3 +80,34 @@ def test_pick_chunk_covers_any_n():
     assert tsr.pick_chunk(4099) == tsr.CHUNK   # ragged last chunk is masked
     assert tsr.sweep_supports(5, 192) and tsr.sweep_supports(16, 32)
     assert not tsr.sweep_supports(17, 192) and not tsr.sweep_supports(5, 48)
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_sweep_gradient_matches_jax(S):
+    """The port's sweep gradient off the card (autograd of the plain sweep,
+    B4's plain version) against jax.grad of the JAX sweep, whose custom VJP
+    runs the Pallas backward kernel in interpret mode over 4 chunks. All
+    three outputs carry a cotangent, as tests/test_ops.py:99-127 does."""
+    B, N, D = 2, 64, 32
+    k, v, q = _inputs(B, N, S, D, seed=10 + S)
+    rng = np.random.default_rng(20 + S)
+    t_sa = rng.standard_normal((B, S)).astype(np.float32)
+    t_av = rng.standard_normal((B, S, D)).astype(np.float32)
+    t_a = rng.standard_normal((B, N, S)).astype(np.float32)
+
+    def jloss(k, v, q):
+        sa, av, a = jsr.route_sweep(jsr.pick_chunk(N, target=16), k, v, q)
+        return (jnp.sum(sa * t_sa) + jnp.sum(jnp.tanh(av) * t_av)
+                + jnp.sum(jnp.tanh(a) * t_a))
+
+    with jax.default_matmul_precision("highest"):
+        want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (k, v, q)))
+    tk, tv, tq = (torch.from_numpy(x).requires_grad_() for x in (k, v, q))
+    sa, av, a = tsr.route_sweep(tk, tv, tq)
+    loss = ((sa * torch.from_numpy(t_sa)).sum()
+            + (torch.tanh(av) * torch.from_numpy(t_av)).sum()
+            + (torch.tanh(a) * torch.from_numpy(t_a)).sum())
+    got = torch.autograd.grad(loss, (tk, tv, tq))
+    for name, g, w in zip(("gk", "gv", "gq"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   rtol=1e-5, atol=1e-5)
