@@ -7,13 +7,16 @@
 Phases, each printing its own line with its seconds:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: every CUDA source of the port, with nvcc, in parallel;
+2. build: every CUDA source of the port, with nvcc, in parallel; each
+   kernel's registers and spill bytes from ptxas -v (a spill fails the run);
 3. kernels: each kernel against its plain torch version on the card, at the
    shapes of the serving and the training paths plus other supported ones,
    with its device time (torch.profiler; CUDA events where a profiler
    session twice records no kernel), the plain version's and the card's
-   bound for the same work; the Gumbel kernels' drawn fields against
-   the Gumbel distribution, and B2's id frequencies against the softmax;
+   bound for the same work; B3 and B4 launched twice on the same inputs
+   must give bitwise-equal outputs; the Gumbel kernels' drawn fields against
+   the Gumbel distribution, B2's id frequencies against the softmax, and
+   B2 on rows with NaN against its plain version (the first NaN's index);
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -46,6 +49,7 @@ from ocrl_tpu_torch.config import EnvConfig, OCRConfig, PolicyConfig
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
+from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
 from ocrl_tpu_torch.rl import PPO, build_policy
 
 # kernel vs plain, per output: max |kernel - plain| <= SWEEP_TOL * max |plain|.
@@ -155,13 +159,27 @@ def per_call_ms(fn, *name_parts: str, reps: int = 20) -> tuple[float, ...]:
     return (wall_ms(fn, reps),) * len(name_parts)
 
 
+def sweep_bytes(B: int, N: int, S: int, D: int) -> int:
+    """Bytes route_sweep must move: read k, v, q once, write a, S_a, A_v once."""
+    return 4 * (2 * B * N * D + B * S * D + B * N * S + B * S + B * S * D)
+
+
 def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
-    """Least time for route_sweep: read k, v, q once, write a, S_a, A_v once;
-    two [N, S, D] products and the softmax over S per token."""
-    nbytes = 4 * (2 * B * N * D + B * S * D + B * N * S + B * S + B * S * D)
+    """Least time for route_sweep: its bytes; two [N, S, D] products and the
+    softmax over S per token."""
     ops = 4 * B * N * S * D + 4 * B * N * S
-    t_bytes, t_ops = nbytes / bw, ops / flops
+    t_bytes, t_ops = sweep_bytes(B, N, S, D) / bw, ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_repeatable(name: str, fn, first) -> None:
+    """A second launch on the same inputs gives bitwise the same outputs."""
+    again = fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, again))
+    print(f"    {name}: second launch bitwise equal: {'yes' if same else 'NO'}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} is not deterministic")
 
 
 def check_sweep(shape, bw, flops, gen):
@@ -181,13 +199,15 @@ def check_sweep(shape, bw, flops, gen):
           f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise SystemExit(f"route_sweep disagrees with its plain version at {shape}")
-    ms, kernel_alone_ms = per_call_ms(     # the kernel with its two sums, and alone
+    check_repeatable("route_sweep", lambda: slot_routing.route_sweep(k, v, q), got)
+    ms, kernel_alone_ms = per_call_ms(     # the sweep with its row sums, and alone
         lambda: slot_routing.route_sweep(k, v, q), "", "sweep_fwd_kernel")
     plain_ms, = per_call_ms(lambda: slot_routing.route_sweep_reference(k, v, q))
     call_ms = wall_ms(lambda: slot_routing.route_sweep(k, v, q))
     bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: route_sweep {ms:.4f} (kernel alone {kernel_alone_ms:.4f}), "
-          f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
+    print(f"    device ms: route_sweep {ms:.4f} (sweep kernel alone {kernel_alone_ms:.4f}), "
+          f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f} % of it, {sweep_bytes(B, N, S, D) / ms / 1e9:.3f} TB/s; "
           f"wall per call {call_ms:.4f} ms", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -204,13 +224,17 @@ def gumbel_bound_ms(R: int, V: int, soft: bool, bw: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sweep_bwd_bytes(B: int, N: int, S: int, D: int) -> int:
+    """Bytes the sweep's backward must move: read k, v, a, g_a, q, g_av once,
+    write gk, gv, gq once."""
+    return 4 * (4 * B * N * D + 2 * B * N * S + 3 * B * S * D)
+
+
 def sweep_bwd_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
-    """Least time for the sweep's backward: read k, v, a, g_a, q, g_av once,
-    write gk, gv, gq once; per token 8 S D operations (v . g_av, dl q,
-    a g_av and the dl^T k partial)."""
-    nbytes = 4 * (4 * B * N * D + 2 * B * N * S + 3 * B * S * D)
+    """Least time for the sweep's backward: its bytes; per token 8 S D
+    operations (v . g_av, dl q, a g_av and the dl^T k partial)."""
     ops = 8 * B * N * S * D + 6 * B * N * S
-    t_bytes, t_ops = nbytes / bw, ops / flops
+    t_bytes, t_ops = sweep_bwd_bytes(B, N, S, D) / bw, ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -297,6 +321,50 @@ def check_id_frequencies(gen):
         raise SystemExit("gumbel_ids frequencies disagree with the softmax")
 
 
+def check_ids_nan(R: int, V: int, gen) -> None:
+    """B2 on rows that hold NaN, given a zero field: the plain version's ids
+    (the first NaN's index, as jnp.argmax), every id below V."""
+    logits = torch.randn(R, V, device="cuda", generator=gen)
+    cols = torch.randint(0, V, (R // 2, 3), device="cuda", generator=gen)
+    logits[torch.arange(R // 2, device="cuda")[:, None], cols] = float("nan")
+    logits[R // 2:R // 2 + 4] = float("nan")     # whole rows of NaN
+    logits[R - 1] = -float("inf")                # a row of -inf: id 0
+    zeros = torch.zeros_like(logits)
+    got = gumbel.gumbel_argmax_ids(logits, noise=zeros)
+    want = gumbel.gumbel_argmax_ids_reference(logits, zeros)
+    differ = int((got != want).sum().item())
+    top = int(got.max().item())
+    ok = differ == 0 and top < V
+    print(f"  gumbel_ids R={R} V={V} with NaN rows: {differ} ids differ from the plain "
+          f"version (tolerance 0), largest id {top} (< {V}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("gumbel_ids mishandles NaN")
+
+
+def report_ptxas(names: list[str]) -> None:
+    """Registers and spill bytes of every kernel of the named sources, from
+    the ptxas report kept beside each library (built now or earlier); a
+    spill anywhere, or a library without its report, fails the run."""
+    spilled = []
+    for name in names:
+        families: dict[str, list[str]] = {}
+        for kernel, use in ptxas_usage(build_log(name)).items():
+            family, _, arg = kernel.partition("<")
+            families.setdefault(family, []).append(
+                f"{arg.rstrip('>') or '-'}:{use['registers']}r/"
+                f"{use['spill_stores'] + use['spill_loads']}B")
+            if use["spill_stores"] or use["spill_loads"]:
+                spilled.append(kernel)
+        if not families:
+            raise SystemExit(f"the ptxas report of {name}.cu names no kernel")
+        for family, entries in families.items():
+            print(f"  ptxas {name}.cu {family} (template argument: registers/spill "
+                  f"bytes): {' '.join(entries)}", flush=True)
+    if spilled:
+        raise SystemExit(f"register spills in {spilled}")
+
+
 def check_sweep_bwd(shape, bw, flops, gen):
     """B4 against autograd of the plain sweep, given the same cotangents."""
     B, N, S, D = shape
@@ -325,11 +393,13 @@ def check_sweep_bwd(shape, bw, flops, gen):
           f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise SystemExit(f"the sweep's backward disagrees with its plain version at {shape}")
+    check_repeatable("route_sweep backward", kernel_fn, got)
     ms, kernel_alone_ms, plain_ms, call_ms = timed(kernel_fn, plain_fn, "sweep_bwd_kernel")
     bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: backward {ms:.4f} (kernel alone {kernel_alone_ms:.4f}), plain "
-          f"(autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); wall per call "
-          f"{call_ms:.4f} ms", flush=True)
+    print(f"    device ms: backward {ms:.4f} (sweep kernel alone {kernel_alone_ms:.4f}), plain "
+          f"(autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f} % of it, {sweep_bwd_bytes(B, N, S, D) / ms / 1e9:.3f} "
+          f"TB/s; wall per call {call_ms:.4f} ms", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -504,6 +574,7 @@ def main() -> int:
     with phase("build"):
         for name, seconds in build().items():
             print(f"  nvcc {name}.cu: {seconds:.2f} s", flush=True)
+        report_ptxas(sources())
 
     cfg = PolicyConfig()
     sa = cfg.ocr.slotattr
@@ -524,6 +595,8 @@ def main() -> int:
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
         check_gumbel(1000, 512, bw, flops, gen, time_it=False)
         check_id_frequencies(gen)
+        check_ids_nan(tokens, ocr_cfg.dvae.vocab_size, gen)
+        check_ids_nan(1000, 512, gen)
 
     with phase("serving"):
         policy = build_policy(cfg, seed=0)

@@ -6,8 +6,9 @@ slots), then renormalised over the inputs with an epsilon, as in JAX.
 Two routes compute the same function:
 
 - the sweep (``ops.route_sweep``): one head, S <= 16 slots, slot size a
-  multiple of 32. On a CUDA tensor it is the hand-written kernel; on the CPU
-  its plain version. The renormalisation is then done from the sweep's sums:
+  multiple of 32 up to 256. On a CUDA tensor it is the hand-written kernel;
+  on the CPU its plain version. The renormalisation is then done from the
+  sweep's sums:
   ``upd = (A_v + eps * sum_n v) / (S_a + N * eps)``;
 - the einsum route, the plain version of the whole loop, for any head count.
 
@@ -76,7 +77,7 @@ class SlotAttention(nn.Module):
                     f"heads={self.num_heads}, slots={self.num_slots}, "
                     f"slot_size={self.slot_size}: the routing kernel takes one "
                     "head, at most 16 slots and a slot size that is a multiple "
-                    "of 32")
+                    "of 32 up to 256")
         return eligible and self.fused != "never"
 
     def forward(self, inputs: torch.Tensor, slots: torch.Tensor):

@@ -3,9 +3,9 @@
 from ._build import LAUNCHES, build, reset_launches
 from .gumbel import (gumbel_argmax_ids, gumbel_argmax_ids_reference,
                      gumbel_softmax_sample, gumbel_softmax_sample_reference)
-from .slot_routing import pick_chunk, route_sweep, route_sweep_reference
+from .slot_routing import route_sweep, route_sweep_reference, sweep_supports
 
 __all__ = ["LAUNCHES", "build", "reset_launches", "gumbel_argmax_ids",
            "gumbel_argmax_ids_reference", "gumbel_softmax_sample",
-           "gumbel_softmax_sample_reference", "pick_chunk", "route_sweep",
-           "route_sweep_reference"]
+           "gumbel_softmax_sample_reference", "route_sweep",
+           "route_sweep_reference", "sweep_supports"]

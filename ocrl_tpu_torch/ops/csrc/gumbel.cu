@@ -4,7 +4,8 @@
 //   gumbel_soft  <- _soft_kernel (launched by _soft_pallas):
 //       y[r, :] = softmax((logits[r, :] + g[r, :]) / tau)
 //   gumbel_ids   <- _ids_kernel (launched by _ids_pallas):
-//       ids[r]  = argmax(logits[r, :] + g[r, :])   (first index on ties)
+//       ids[r]  = argmax(logits[r, :] + g[r, :])   (first index on ties;
+//                 NaN ranks above every number, as in jnp.argmax)
 // with g = -log(-log(u) + tiny), u uniform strictly inside (0, 1), made in
 // the kernel. The TPU draws its bits with the core's own generator seeded by
 // seed + program_id; a GPU has none, so here the bits come from a
@@ -162,9 +163,25 @@ gumbel_soft_kernel(const float* __restrict__ logits,
   }
 }
 
-// Keeps the larger value; on a tie the smaller index, as jnp.argmax does.
+// Keeps the larger value; NaN counts as larger than any number, and on a
+// tie (two NaN included) the smaller index wins, as jnp.argmax and
+// torch.argmax do. Any candidate beats the start (-inf, V), so a row of V
+// values never ends with the id V.
 __device__ __forceinline__ void keep_max(float& best, int& idx, float v, int i) {
-  if (v > best || (v == best && i < idx)) {
+  const bool v_nan = isnan(v), best_nan = isnan(best);
+  const bool take = v_nan ? (!best_nan || i < idx)
+                          : (!best_nan && (v > best || (v == best && i < idx)));
+  if (take) {
+    best = v;
+    idx = i;
+  }
+}
+
+// keep_max for a thread's own values, which it visits in rising index
+// order from a real first value: an equal later value never wins, so the
+// index needs no comparison.
+__device__ __forceinline__ void keep_later(float& best, int& idx, float v, int i) {
+  if (v > best || (isnan(v) && !isnan(best))) {
     best = v;
     idx = i;
   }
@@ -186,7 +203,7 @@ gumbel_ids_kernel(const float* __restrict__ logits,
   float4* gr = g_out ? reinterpret_cast<float4*>(g_out) + off : nullptr;
   const Key key = key_of(seed, kIdsStream);
 
-  float best = -INFINITY;
+  float best = -INFINITY;   // a thread without values keeps (-inf, V)
   int idx = V;
 #pragma unroll
   for (int j = 0; j < G; ++j) {
@@ -194,10 +211,15 @@ gumbel_ids_kernel(const float* __restrict__ logits,
     if (c4 < v4) {
       const float4 l = lr[c4];
       const float4 g = field(nr, gr, key, c4, row);
-      keep_max(best, idx, l.x + g.x, 4 * c4);
-      keep_max(best, idx, l.y + g.y, 4 * c4 + 1);
-      keep_max(best, idx, l.z + g.z, 4 * c4 + 2);
-      keep_max(best, idx, l.w + g.w, 4 * c4 + 3);
+      if (j == 0) {            // the thread's first value, whatever it is
+        best = l.x + g.x;
+        idx = 4 * c4;
+      } else {
+        keep_later(best, idx, l.x + g.x, 4 * c4);
+      }
+      keep_later(best, idx, l.y + g.y, 4 * c4 + 1);
+      keep_later(best, idx, l.z + g.z, 4 * c4 + 2);
+      keep_later(best, idx, l.w + g.w, 4 * c4 + 3);
     }
   }
 #pragma unroll

@@ -1,341 +1,806 @@
 // Slot-attention routing sweep, forward and backward, for Hopper (sm_90a).
 //
-// Forward: replaces the TPU kernel
+// Forward (B3): replaces the TPU kernel
 // ocrl_tpu/ops/slot_routing.py::_sweep_fwd_kernel (launched by
-// _route_sweep_fwd). It computes the same function:
-//   a[b, n, :]        = softmax over slots of k[b, n, :] . q[b, s, :]
-//   partial[b, c, s, :] = sum over the tokens n of chunk c of a[b, n, s] v[b, n, :]
-// The sums over chunks (A_v) and over tokens (S_a) stay in torch, as they
-// stay in jnp on the TPU.
-//
+// _route_sweep_fwd) and the jnp sums around it:
+//   a[b, n, :]  = softmax over slots of k[b, n, :] . q[b, s, :]
+//   S_a[b, s]   = sum over n of a[b, n, s]
+//   A_v[b, s, :] = sum over n of a[b, n, s] v[b, n, :]
 // What bounds it: k and v, [B, N, D] fp32, are each read once; everything
-// else is slot-sized. At B = 16, N = 4096, D = 192 that is 100.7 MB against
-// about 0.25 GFLOP of fp32 work, so the kernel is memory-bound (about 30 us
-// at 3.35 TB/s on an H100 SXM).
+// else is slot-sized. At B = 24, N = 4096, D = 192 that is 151 MB against
+// 0.38 GFLOP (2.5 FLOP a byte, far below the fp32 ridge), so it is bound by
+// device-memory bytes (46 us at 3.35 TB/s). Tensor cores cannot help, and
+// TF32 would break the fp32 parity with the JAX package.
 //
-// Design: one block per (chunk of tokens, batch row); the TPU's sequential
-// grid carried nothing between programs, so neither does this. q[b] sits in
-// shared memory. Phase 1: each warp takes one token at a time; its lanes read
-// the token's k row coalesced, form the S dot products, reduce them with an
-// xor butterfly (every lane ends with the same sum), take the softmax over S
-// in registers and write a to device memory and to shared memory. Phase 2:
-// one thread per feature column reads v coalesced down the chunk and keeps S
-// partial sums in registers, then writes the chunk's [S, D] partial once.
-// No atomics anywhere, so the result is deterministic.
-//
-// Backward: replaces ocrl_tpu/ops/slot_routing.py::_sweep_bwd_kernel
+// Backward (B4): replaces ocrl_tpu/ops/slot_routing.py::_sweep_bwd_kernel
 // (launched by _route_sweep_bwd), the VJP of the forward given the
 // cotangents g_av [B, S, D] and g_a [B, N, S] (the caller has folded the
 // cotangent of S_a into g_a). Per token:
 //   da_s = v_n . g_av_s + g_a_ns,   dl = a_n * (da - sum_s da_s a_ns)
-//   gk_n = dl q,   gv_n = a_n g_av,   and per chunk the [S, D] partial dl^T k
-// whose sum over chunks (gq) stays in torch.
+//   gk_n = dl q,   gv_n = a_n g_av,   gq = sum over n of dl_n^T k_n
+// What bounds it: k and v read once and gk and gv written once, four
+// [B, N, D] fp32 streams (302 MB at B = 24), against 0.75 GFLOP: bytes
+// again (91 us at 3.35 TB/s).
 //
-// What bounds it: k and v are read once and gk and gv written once, four
-// [B, N, D] fp32 streams (302 MB at B = 24, N = 4096, D = 192) against about
-// 0.5 GFLOP, so it is memory-bound too (about 92 us at 3.35 TB/s).
-//
-// Design: the forward's grid and its two phases. q[b] and g_av[b] sit in
-// shared memory. Phase 1, one warp per token: the lanes read v's row
-// coalesced for the S dot products with g_av (xor butterfly), every lane
-// forms dl in registers, then writes its columns of gk and gv coalesced;
-// dl goes to shared memory. Phase 2, one thread per feature column, reads k
-// down the chunk for the partial dl^T k. No atomics: deterministic.
+// Design, both kernels: a bandwidth skeleton.
+// - Grid: persistent, one block per SM (the wrapper passes the SM count; a
+//   small input takes one block per tile). The B * N tokens, taken as one
+//   stream, are cut into G equal contiguous ranges; block g walks its range
+//   in tiles of T tokens, a tile never crossing a batch row. The C entry
+//   chooses T: the largest of kFwdTiles (B3; at most 32 for S > 8) or
+//   kBwdTiles (B4) whose ring fits in the card's shared memory a block; at
+//   S = 5, D = 192, B3 takes 64 tokens and B4 32.
+// - Stream: one producer thread (warp 8) keeps a ring of tiles in shared
+//   memory (B3 2 stages, B4 4) filled with 1-D bulk copies (cp.async.bulk,
+//   completion on an mbarrier per stage). A tile of k and the same tile of
+//   v arrive together (B4 also takes the tile's span of a and g_a), so both
+//   streams always move. Rows of [B, N, D] are contiguous, so a tile is one
+//   span; D % 32 == 0 keeps it 16-byte aligned and a multiple of 16 bytes.
+//   The [T, S] spans of a and g_a start anywhere: the producer fetches the
+//   16-byte-aligned span that covers them, cut at the last whole 16 bytes of
+//   the tensor, and reads the 1-3 floats after that cut with plain loads.
+// - Compute: 8 consumer warps. The S dot products per token (k . q in B3,
+//   v . g_av in B4) take 8 lanes per token (16 for S > 8), with 16-byte
+//   shared loads and an xor butterfly; lane s of the token's lanes then
+//   forms the softmax (B3) or dl (B4) of slot s. Then the tile's tokens are
+//   walked per feature column: in B3 a thread takes four columns and every
+//   4th token, adding a_t v_t into an [S] float4 accumulator in registers
+//   (the warp's 4 token groups are summed with shuffles at the end); in B4
+//   a thread takes one column, forms gk and gv (q and g_av of its column in
+//   registers), writes them over k and v in the stage, and adds dl_t k_t
+//   into its [S] accumulator. B4's producer sends gk and gv out with bulk
+//   stores (cp.async.bulk.global.shared::cta) before it refills the stage;
+//   dl never leaves the block.
+// - Reduction: one partial per (block, batch row) it touches, kept in
+//   registers across the block's tiles and written once to a scratch slot
+//   (g + b). A second small kernel, launched from the same C entry, sums the
+//   slots of each row in block order and writes S_a and A_v (B3) or gq (B4).
+//   No atomics: the result is bitwise the same from run to run.
+// PERF.md has the times against the bound and how the counts were chosen.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kConsumers = 256;               // 8 consumer warps
+constexpr int kThreads = kConsumers + 32;     // and one producer warp
+constexpr int kFwdStages = 2;                 // tiles in each kernel's ring
+constexpr int kBwdStages = 4;
+// Tokens a tile, the largest first; the C entry takes the first that fits.
+constexpr int kFwdTiles[] = {64, 48, 32, 24, 16, 8};
+constexpr int kBwdTiles[] = {32, 24, 16, 8};
+constexpr int kFwdMaxTile = kFwdTiles[0];
+constexpr int kFwdMaxTileManySlots = 32;      // B3 for S > 8
+constexpr int kBwdMaxTile = kBwdTiles[0];
+constexpr int kMaxWidth = kConsumers;         // one feature column a thread
+constexpr int kHeaderBytes = 128;             // the mbarriers
+constexpr int kReduceThreads = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int S>
-__global__ void __launch_bounds__(kMaxThreads)
-sweep_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ q, float* __restrict__ a,
-                 float* __restrict__ partial, int N, int D, int chunk) {
-  extern __shared__ float smem[];
-  float* sq = smem;           // [S, D]
-  float* sa = smem + S * D;   // [chunk, S]
+__host__ __device__ constexpr int padded(int S) { return (S + 3) & ~3; }
 
-  const int b = blockIdx.y;
-  const int c = blockIdx.x;
-  const int num_chunks = gridDim.x;
-  const int n0 = c * chunk;
-  const int count = min(chunk, N - n0);   // the last chunk may be ragged
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
+// The forward's A_v phase: lane l of a warp takes 4 feature columns,
+// 4 (8 w + l % 8).., and every kTokenGroups-th token from l / 8; the four
+// groups of a warp are summed with shuffles before the partial is written.
+constexpr int kTokenGroups = 4;
 
-  const float* qb = q + static_cast<size_t>(b) * S * D;
-  for (int i = tid; i < S * D; i += blockDim.x) sq[i] = qb[i];
-  __syncthreads();
+// Floats of one stage's span of a (or g_a): T * S values that may start up
+// to 3 floats after a 16-byte boundary and end up to 3 before one.
+__host__ __device__ inline int span_floats(int T, int S) {
+  return (T * S + 6 + 3) & ~3;
+}
 
-  // Phase 1: a = softmax over slots of k q^T, one token per warp at a time.
-  for (int t = warp; t < count; t += num_warps) {
-    const size_t row = static_cast<size_t>(b) * N + n0 + t;
-    const float* kr = k + row * D;
-    float dot[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) dot[s] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float kv = kr[d];
-#pragma unroll
-      for (int s = 0; s < S; ++s) dot[s] = fmaf(kv, sq[s * D + d], dot[s]);
+__host__ __device__ inline size_t fwd_smem_bytes(int S, int D, int T) {
+  return kHeaderBytes +
+         sizeof(float) * (static_cast<size_t>(kFwdStages) * 2 * T * D + S * D +
+                          2 * T * padded(S) + kConsumers / 8 * padded(S));
+}
+
+__host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int T) {
+  return kHeaderBytes +
+         sizeof(float) * (static_cast<size_t>(kBwdStages) *
+                              (2 * T * D + 2 * span_floats(T, S)) +
+                          S * D + 4 * T * padded(S));
+}
+
+// -- PTX wrappers: mbarriers, bulk copies, the consumers' named barrier ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {   // sources free again
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {    // writes done
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before later bulk copies.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Sets up the stage barriers: `full` completes when a tile has landed (one
+// arrival with its byte count), `empty` when every consumer warp is done.
+template <int kStages>
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot[s] += __shfl_xor_sync(kFullMask, dot[s], off);
-    }
-    float m = dot[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) m = fmaxf(m, dot[s]);
-    float sum = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      dot[s] = expf(dot[s] - m);
-      sum += dot[s];
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float as = dot[s] / sum;
-      if (lane == s) mine = as;
-    }
-    if (lane < S) {
-      a[row * S + lane] = mine;
-      sa[t * S + lane] = mine;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
 
-  // Phase 2: the chunk's partial a^T v, one thread per feature column.
-  const float* vb = v + (static_cast<size_t>(b) * N + n0) * D;
-  float* pb = partial + (static_cast<size_t>(b) * num_chunks + c) * S * D;
-  for (int d = tid; d < D; d += blockDim.x) {
-    float acc[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < count; ++t) {
-      const float vv = vb[static_cast<size_t>(t) * D + d];
-#pragma unroll
-      for (int s = 0; s < S; ++s) acc[s] = fmaf(sa[t * S + s], vv, acc[s]);
+// A consumer warp gives its stage back (after its reads, and writes).
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// The tiles of one block: its range [pos, end) of the B * N token stream,
+// cut at T tokens and at the end of every batch row.
+// (One division at the start; the walk itself adds and compares.)
+struct Tiles {
+  long long pos, end, row_end;   // row_end: the end of batch row `row`
+  int row, N, T;
+  __device__ bool valid() const { return pos < end; }
+  __device__ int b() const { return row; }
+  __device__ int count() const {
+    const long long stop = row_end < end ? row_end : end;
+    return static_cast<int>(stop - pos < T ? stop - pos : T);
+  }
+  // Whether the tile at pos is the last of its (block, row) segment.
+  __device__ bool ends_segment() const {
+    const long long next = pos + count();
+    return next == end || next == row_end;
+  }
+  __device__ void next() {
+    pos += count();
+    if (pos == row_end) {
+      ++row;
+      row_end += N;
     }
+  }
+};
+
+// Block g's range of the token stream: [g * BN / G, (g + 1) * BN / G).
+__device__ __forceinline__ Tiles block_tiles(long long BN, int N, int T) {
+  const long long g = blockIdx.x, G = gridDim.x;
+  const long long pos = g * BN / G;
+  const int row = static_cast<int>(pos / N);
+  return Tiles{pos, (g + 1) * BN / G, static_cast<long long>(row + 1) * N, row, N, T};
+}
+
+// How the 256 consumer threads share the S dot products of a tile of up to
+// kTileMax tokens: L lanes per token (8 up to 8 slots, else 16, so that
+// lane s of the L can own slot s), so kGroups = 256 / L groups, and R
+// tokens per lane. Token r of group g is g + r * kGroups.
+template <int S, int kTileMax>
+struct DotLanes {
+  static constexpr int L = S <= 8 ? 8 : 16;
+  static constexpr int kGroups = kConsumers / L;
+  static constexpr int R = kTileMax / kGroups;
+};
+
+// The forward's largest tile: two tokens a lane at most (so 32 for S > 8).
+template <int S>
+__host__ __device__ constexpr int fwd_max_tile() {
+  return S <= 8 ? kFwdMaxTile : kFwdMaxTileManySlots;
+}
+
+// The S dot products of this lane's R tokens `tok` of a [T, D] tile with an
+// [S, D] matrix m, both in shared memory: every lane of a group of L ends
+// with the full sums (an xor butterfly inside the group).
+template <int S, int kTileMax>
+__device__ __forceinline__ void tile_dots(
+    const float* tile, const float* m, int D,
+    const int (&tok)[DotLanes<S, kTileMax>::R], int lane,
+    float (&dot)[DotLanes<S, kTileMax>::R][S]) {
+  constexpr int L = DotLanes<S, kTileMax>::L, R = DotLanes<S, kTileMax>::R;
+  const int D4 = D >> 2;
+  const float4* x4 = reinterpret_cast<const float4*>(tile);
+  const float4* m4 = reinterpret_cast<const float4*>(m);
 #pragma unroll
-    for (int s = 0; s < S; ++s) pb[static_cast<size_t>(s) * D + d] = acc[s];
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int s = 0; s < S; ++s) dot[r][s] = 0.f;
+  // unrolled for D = 192 (48 / L steps); one step at a time for many
+  // slots, whose S float4 of m a step already take 4 S registers
+  constexpr int kUnroll = S <= 8 ? 3 : 1;
+#pragma unroll kUnroll
+  for (int c4 = lane; c4 < D4; c4 += L) {
+    float4 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = x4[tok[r] * D4 + c4];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float4 w = m4[s * D4 + c4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        dot[r][s] = fmaf(x[r].x, w.x, dot[r][s]);
+        dot[r][s] = fmaf(x[r].y, w.y, dot[r][s]);
+        dot[r][s] = fmaf(x[r].z, w.z, dot[r][s]);
+        dot[r][s] = fmaf(x[r].w, w.w, dot[r][s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        dot[r][s] += __shfl_xor_sync(kFullMask, dot[r][s], off);
+}
+
+// Entry `lane` of the S values x (0 where lane >= S).
+template <int S>
+__device__ __forceinline__ float pick(const float (&x)[S], int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (lane == s) mine = x[s];
+  return mine;
+}
+
+// The S weights of token t, padded to a multiple of 4 in shared memory.
+template <int S>
+__device__ __forceinline__ void load_row(const float* w, float (&x)[padded(S)]) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int j = 0; j < padded(S) / 4; ++j) {
+    const float4 f = w4[j];
+    x[4 * j] = f.x;
+    x[4 * j + 1] = f.y;
+    x[4 * j + 2] = f.z;
+    x[4 * j + 3] = f.w;
   }
 }
 
 template <int S>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads, 1)
+sweep_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ q, float* __restrict__ a,
+                 float* __restrict__ partial, int B, int N, int D, int T) {
+  constexpr int SP = padded(S);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kFwdStages;
+  float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
+  const int tile = T * D;                           // floats of one tensor tile
+  float* sq = ring + kFwdStages * 2 * tile;            // [S, D] q of the row
+  float* sw = sq + S * D;                           // [2][T][SP] softmax weights
+  float* sred = sw + 2 * T * SP;                    // [32][SP] S_a per group
+  const long long BN = static_cast<long long>(B) * N;
+  const int tid = threadIdx.x;
+
+  init_barriers<kFwdStages>(full, empty);
+
+  if (tid >= kConsumers) {                          // the producer
+    if (tid == kConsumers) {
+      Tiles it = block_tiles(BN, N, T);
+      for (int i = 0; it.valid(); ++i, it.next()) {
+        const int st = i % kFwdStages;
+        if (i >= kFwdStages) mbar_wait(&empty[st], ((i / kFwdStages) - 1) & 1);
+        const uint32_t bytes = it.count() * D * sizeof(float);
+        float* dst = ring + st * 2 * tile;
+        mbar_expect_tx(&full[st], 2 * bytes);
+        bulk_load(dst, k + it.pos * D, bytes, &full[st]);
+        bulk_load(dst + tile, v + it.pos * D, bytes, &full[st]);
+      }
+    }
+    return;
+  }
+
+  using Lanes = DotLanes<S, fwd_max_tile<S>()>;
+  constexpr int R = Lanes::R;
+  const int lane = tid % Lanes::L, grp = tid / Lanes::L;
+  const int D4 = D >> 2;
+  const int c4 = (tid >> 5) * 8 + (tid & 7);   // A_v: columns 4 c4..,
+  const int tg = (tid >> 3) & 3;               // tokens tg + 4 j
+  float4 acc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float sacc = 0.f;   // S_a of this lane's slot over its group's tokens
+  int row = -1;
+
+  Tiles it = block_tiles(BN, N, T);
+  for (int i = 0; it.valid(); ++i, it.next()) {
+    const int b = it.b(), count = it.count();
+    if (b != row) {                   // a new row: its q into shared memory
+      const float* qb = q + static_cast<size_t>(b) * S * D;
+      for (int e = tid; e < S * D; e += kConsumers) sq[e] = qb[e];
+      consumer_sync();
+      row = b;
+    }
+    const int st = i % kFwdStages;
+    mbar_wait(&full[st], (i / kFwdStages) & 1);
+    const float* kt = ring + st * 2 * tile;
+    const float* vt = kt + tile;
+    float* w = sw + (i & 1) * T * SP;
+
+    // a = softmax over slots of k q^T: lane s of a group takes exp of
+    // slot s, the group sums them with a butterfly
+    int tok[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = grp + r * Lanes::kGroups;
+      tok[r] = t < count ? t : 0;
+    }
+    float dot[R][S];
+    tile_dots<S, fwd_max_tile<S>()>(kt, sq, D, tok, lane, dot);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float m = dot[r][0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) m = fmaxf(m, dot[r][s]);
+      const float e = lane < S ? expf(pick<S>(dot[r], lane) - m) : 0.f;
+      float sum = e;
+#pragma unroll
+      for (int off = Lanes::L / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFullMask, sum, off);
+      const int t = grp + r * Lanes::kGroups;
+      if (t < count && lane < S) {
+        const float mine = e / sum;
+        a[(it.pos + t) * S + lane] = mine;
+        w[t * SP + lane] = mine;
+        sacc += mine;
+      }
+    }
+    consumer_sync();
+
+    // A_v: four feature columns a thread, every 4th token of the tile
+    if (c4 < D4) {
+      const float4* v4 = reinterpret_cast<const float4*>(vt);
+#pragma unroll 2
+      for (int t = tg; t < count; t += kTokenGroups) {
+        const float4 x = v4[t * D4 + c4];
+        float ws[SP];
+        load_row<S>(w + t * SP, ws);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          acc[s].x = fmaf(ws[s], x.x, acc[s].x);
+          acc[s].y = fmaf(ws[s], x.y, acc[s].y);
+          acc[s].z = fmaf(ws[s], x.z, acc[s].z);
+          acc[s].w = fmaf(ws[s], x.w, acc[s].w);
+        }
+      }
+    }
+    release(&empty[st]);
+
+    if (it.ends_segment()) {          // this block's partial of row b
+      float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * (S * D + SP);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {   // the 4 token groups of the warp, summed
+#pragma unroll
+        for (int off = 8; off <= 16; off <<= 1) {
+          acc[s].x += __shfl_xor_sync(kFullMask, acc[s].x, off);
+          acc[s].y += __shfl_xor_sync(kFullMask, acc[s].y, off);
+          acc[s].z += __shfl_xor_sync(kFullMask, acc[s].z, off);
+          acc[s].w += __shfl_xor_sync(kFullMask, acc[s].w, off);
+        }
+      }
+      if (tg == 0 && c4 < D4) {
+        float4* p4 = reinterpret_cast<float4*>(p) + c4;
+#pragma unroll
+        for (int s = 0; s < S; ++s) p4[s * D4] = acc[s];
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (lane < S) sred[grp * SP + lane] = sacc;   // per group
+      sacc = 0.f;
+      consumer_sync();
+      if (tid < S) {                  // S_a: the groups in order
+        float total = 0.f;
+        for (int g = 0; g < Lanes::kGroups; ++g) total += sred[g * SP + tid];
+        p[S * D + tid] = total;
+      }
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
 sweep_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ a, const float* __restrict__ q,
                  const float* __restrict__ g_av, const float* __restrict__ g_a,
                  float* __restrict__ gk, float* __restrict__ gv,
-                 float* __restrict__ gq_partial, int N, int D, int chunk) {
-  extern __shared__ float smem[];
-  float* sq = smem;               // [S, D]
-  float* sg = smem + S * D;       // [S, D]
-  float* sdl = smem + 2 * S * D;  // [chunk, S]
-
-  const int b = blockIdx.y;
-  const int c = blockIdx.x;
-  const int num_chunks = gridDim.x;
-  const int n0 = c * chunk;
-  const int count = min(chunk, N - n0);   // the last chunk may be ragged
+                 float* __restrict__ partial, int B, int N, int D, int T) {
+  constexpr int SP = padded(S);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kBwdStages;
+  float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
+  const int tile = T * D;
+  const int span = span_floats(T, S);
+  const int stage = 2 * tile + 2 * span;   // k, v, then the spans of a, g_a
+  float* sg = ring + kBwdStages * stage;      // [S, D] g_av of the row
+  float* sdl0 = sg + S * D;                // [2][T][SP] dl of the tile
+  float* sa0 = sdl0 + 2 * T * SP;          // [2][T][SP] a of the tile
+  const long long BN = static_cast<long long>(B) * N;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
 
-  const float* qb = q + static_cast<size_t>(b) * S * D;
-  const float* gb = g_av + static_cast<size_t>(b) * S * D;
-  for (int i = tid; i < S * D; i += blockDim.x) {
-    sq[i] = qb[i];
-    sg[i] = gb[i];
+  init_barriers<kBwdStages>(full, empty);
+
+  if (tid >= kConsumers) {                 // the producer
+    if (tid == kConsumers) {
+      Tiles load = block_tiles(BN, N, T), out = load;
+      auto store = [&](int st) {           // gk, gv of tile `out`, then next
+        const uint32_t bytes = out.count() * D * sizeof(float);
+        float* src = ring + st * stage;
+        bulk_store(gk + out.pos * D, src, bytes);
+        bulk_store(gv + out.pos * D, src + tile, bytes);
+        bulk_commit();
+        out.next();
+      };
+      int i = 0;
+      for (; load.valid(); ++i, load.next()) {
+        const int st = i % kBwdStages;
+        if (i >= kBwdStages) {
+          mbar_wait(&empty[st], ((i / kBwdStages) - 1) & 1);
+          store(st);
+          bulk_wait_read();
+        }
+        const int count = load.count();
+        const uint32_t bytes = count * D * sizeof(float);
+        // the tile's floats [f0, f1) of a and g_a: the bulk copies take
+        // [s0, s1), 16-byte aligned and never past the tensor's last whole
+        // 16 bytes; plain loads take the 1-3 floats of [s1, f1) after it
+        const long long f0 = load.pos * S, f1 = f0 + static_cast<long long>(count) * S;
+        const long long s0 = f0 & ~3LL;
+        long long s1 = (f1 + 3) & ~3LL;
+        if (s1 > ((BN * S) & ~3LL)) s1 = (BN * S) & ~3LL;
+        if (s1 < s0) s1 = s0;
+        const uint32_t span_bytes = static_cast<uint32_t>((s1 - s0) * sizeof(float));
+        float* dst = ring + st * stage;
+        for (long long f = s1; f < f1; ++f) {
+          dst[2 * tile + (f - s0)] = a[f];
+          dst[2 * tile + span + (f - s0)] = g_a[f];
+        }
+        if (s1 < f1) fence_async_shared();   // before a later bulk copy here
+        // the arrival below releases the plain stores with the tile
+        mbar_expect_tx(&full[st], 2 * bytes + 2 * span_bytes);
+        bulk_load(dst, k + load.pos * D, bytes, &full[st]);
+        bulk_load(dst + tile, v + load.pos * D, bytes, &full[st]);
+        if (span_bytes) {
+          bulk_load(dst + 2 * tile, a + s0, span_bytes, &full[st]);
+          bulk_load(dst + 2 * tile + span, g_a + s0, span_bytes, &full[st]);
+        }
+      }
+      for (int j = i < kBwdStages ? 0 : i - kBwdStages; j < i; ++j) {
+        const int st = j % kBwdStages;
+        mbar_wait(&empty[st], (j / kBwdStages) & 1);
+        store(st);
+      }
+      bulk_wait_all();
+    }
+    return;
   }
-  __syncthreads();
 
-  // Phase 1: dl, gk and gv, one token per warp at a time.
-  for (int t = warp; t < count; t += num_warps) {
-    const size_t row = static_cast<size_t>(b) * N + n0 + t;
-    const float* vr = v + row * D;
-    float da[S], as[S];
+  using Lanes = DotLanes<S, kBwdMaxTile>;
+  constexpr int R = Lanes::R;
+  const int lane = tid % Lanes::L, grp = tid / Lanes::L;
+  float acc[S], qc[S], gc[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) da[s] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float vv = vr[d];
+  for (int s = 0; s < S; ++s) acc[s] = qc[s] = gc[s] = 0.f;
+  int row = -1;
+
+  Tiles it = block_tiles(BN, N, T);
+  for (int i = 0; it.valid(); ++i, it.next()) {
+    const int b = it.b(), count = it.count();
+    if (b != row) {   // a new row: g_av into shared memory, q and g_av of
+                      // this thread's column into registers
+      const float* qb = q + static_cast<size_t>(b) * S * D;
+      const float* gb = g_av + static_cast<size_t>(b) * S * D;
+      for (int e = tid; e < S * D; e += kConsumers) sg[e] = gb[e];
+      if (tid < D) {
 #pragma unroll
-      for (int s = 0; s < S; ++s) da[s] = fmaf(vv, sg[s * D + d], da[s]);
+        for (int s = 0; s < S; ++s) {
+          qc[s] = qb[s * D + tid];
+          gc[s] = gb[s * D + tid];
+        }
+      }
+      consumer_sync();
+      row = b;
     }
+    const int st = i % kBwdStages;
+    mbar_wait(&full[st], (i / kBwdStages) & 1);
+    float* kt = ring + st * stage;
+    float* vt = kt + tile;
+    const int off = static_cast<int>((it.pos * S) & 3);   // into the spans
+    const float* at = kt + 2 * tile + off;
+    const float* gat = kt + 2 * tile + span + off;
+    float* sdl = sdl0 + (i & 1) * T * SP;   // two buffers: the next tile's
+    float* sa = sa0 + (i & 1) * T * SP;     // writes race no reader of these
+
+    // dl: lane s of a group forms slot s
+    int tok[R];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        da[s] += __shfl_xor_sync(kFullMask, da[s], off);
+    for (int r = 0; r < R; ++r) {
+      const int t = grp + r * Lanes::kGroups;
+      tok[r] = t < count ? t : 0;
     }
-    float inner = 0.f;
+    float da[R][S];
+    tile_dots<S, kBwdMaxTile>(vt, sg, D, tok, lane, da);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      as[s] = a[row * S + s];
-      da[s] += g_a[row * S + s];
-      inner = fmaf(da[s], as[s], inner);
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      da[s] = as[s] * (da[s] - inner);   // da now holds dl
-      if (lane == s) mine = da[s];
-    }
-    if (lane < S) sdl[t * S + lane] = mine;
-    float* gkr = gk + row * D;
-    float* gvr = gv + row * D;
-    for (int d = lane; d < D; d += 32) {
-      float x = 0.f, y = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const int t = grp + r * Lanes::kGroups;
+      const int tr = tok[r];
+      float as[S];
+      float inner = 0.f;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        x = fmaf(da[s], sq[s * D + d], x);
-        y = fmaf(as[s], sg[s * D + d], y);
+        as[s] = at[tr * S + s];
+        da[r][s] += gat[tr * S + s];
+        inner = fmaf(da[r][s], as[s], inner);
       }
-      gkr[d] = x;
-      gvr[d] = y;
+#pragma unroll
+      for (int s = 0; s < S; ++s) da[r][s] = as[s] * (da[r][s] - inner);
+      const float dl = pick<S>(da[r], lane), am = pick<S>(as, lane);
+      if (t < count && lane < S) {
+        sdl[t * SP + lane] = dl;
+        sa[t * SP + lane] = am;
+      }
     }
-  }
-  __syncthreads();
+    consumer_sync();
 
-  // Phase 2: the chunk's partial dl^T k, one thread per feature column.
-  const float* kb = k + (static_cast<size_t>(b) * N + n0) * D;
-  float* pb = gq_partial + (static_cast<size_t>(b) * num_chunks + c) * S * D;
-  for (int d = tid; d < D; d += blockDim.x) {
-    float acc[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] = 0.f;
+    // gk, gv over k and v in the stage; gq's partial in registers
+    if (tid < D) {
 #pragma unroll 4
-    for (int t = 0; t < count; ++t) {
-      const float kv = kb[static_cast<size_t>(t) * D + d];
+      for (int t = 0; t < count; ++t) {
+        const float x = kt[t * D + tid];
+        float dl[SP], as[SP];
+        load_row<S>(sdl + t * SP, dl);
+        load_row<S>(sa + t * SP, as);
+        float gkx = 0.f, gvx = 0.f;
 #pragma unroll
-      for (int s = 0; s < S; ++s) acc[s] = fmaf(sdl[t * S + s], kv, acc[s]);
+        for (int s = 0; s < S; ++s) {
+          gkx = fmaf(dl[s], qc[s], gkx);
+          gvx = fmaf(as[s], gc[s], gvx);
+          acc[s] = fmaf(dl[s], x, acc[s]);
+        }
+        kt[t * D + tid] = gkx;
+        vt[t * D + tid] = gvx;
+      }
     }
+    fence_async_shared();
+    release(&empty[st]);
+
+    if (it.ends_segment() && tid < D) {   // this block's partial of row b
+      float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * (S * D);
 #pragma unroll
-    for (int s = 0; s < S; ++s) pb[static_cast<size_t>(s) * D + d] = acc[s];
+      for (int s = 0; s < S; ++s) {
+        p[s * D + tid] = acc[s];
+        acc[s] = 0.f;
+      }
+    }
   }
 }
 
-template <int S>
-cudaError_t launch(const float* k, const float* v, const float* q, float* a,
-                   float* partial, int B, int N, int D, int chunk,
-                   cudaStream_t stream) {
-  const int threads = D < kMaxThreads ? D : kMaxThreads;
-  const int num_chunks = (N + chunk - 1) / chunk;
-  const size_t smem = static_cast<size_t>(S * D + chunk * S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_fwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(num_chunks, B);
-  sweep_fwd_kernel<S><<<grid, threads, smem, stream>>>(k, v, q, a, partial, N,
-                                                       D, chunk);
+// Sums the partials of each batch row in block order: row b's partials are
+// in the slots g + b, of `width` floats, of the blocks g whose ranges meet
+// it. A slot's first `split` floats go to out0[b], the next `rest` to
+// out1[b].
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_rows(const float* __restrict__ partial, float* __restrict__ out0,
+            float* __restrict__ out1, int width, int split, int rest, int N,
+            long long BN, int G) {
+  const int b = blockIdx.y;
+  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (e >= split + rest) return;
+  // the block holding token t is (t + 1) * G - 1 over BN, rounded down
+  const long long first = static_cast<long long>(b) * N;
+  const int g0 = static_cast<int>(((first + 1) * G - 1) / BN);
+  const int g1 = static_cast<int>(((first + N) * G - 1) / BN);
+  const float* p = partial + static_cast<size_t>(b) * width + e;
+  float sum = 0.f;
+#pragma unroll 8
+  for (int g = g0; g <= g1; ++g) sum += p[static_cast<size_t>(g) * width];
+  if (e < split)
+    out0[static_cast<size_t>(b) * split + e] = sum;
+  else
+    out1[static_cast<size_t>(b) * rest + e - split] = sum;
+}
+
+bool shape_ok(int B, int N, int D, int max_blocks) {
+  return B > 0 && N > 0 && D > 0 && D % 32 == 0 && D <= kMaxWidth &&
+         max_blocks > 0;
+}
+
+// Dynamic shared memory one block of the current device may use.
+size_t smem_limit() {
+  int device = 0, bytes = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  return static_cast<size_t>(bytes);
+}
+
+// The tile of each kernel: the largest of its list whose ring fits, or 0.
+int fwd_tile(int S, int D) {
+  const size_t limit = smem_limit();
+  for (int T : kFwdTiles)
+    if ((S <= 8 || T <= kFwdMaxTileManySlots) && fwd_smem_bytes(S, D, T) <= limit)
+      return T;
+  return 0;
+}
+
+int bwd_tile(int S, int D) {
+  const size_t limit = smem_limit();
+  for (int T : kBwdTiles)
+    if (bwd_smem_bytes(S, D, T) <= limit) return T;
+  return 0;
+}
+
+// Blocks of one launch: one per SM, or one per tile of a small input.
+int blocks(int B, int N, int T, int max_blocks) {
+  const long long tiles = (static_cast<long long>(B) * N + T - 1) / T;
+  return static_cast<int>(tiles < max_blocks ? tiles : max_blocks);
+}
+
+cudaError_t launch_reduce(const float* partial, float* out0, float* out1,
+                          int width, int split, int rest, int B, int N, int G,
+                          cudaStream_t stream) {
+  const dim3 grid((split + rest + kReduceThreads - 1) / kReduceThreads, B);
+  reduce_rows<<<grid, kReduceThreads, 0, stream>>>(
+      partial, out0, out1, width, split, rest, N,
+      static_cast<long long>(B) * N, G);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_fwd(const float* k, const float* v, const float* q, float* a,
+                       float* sa, float* av, float* scratch, int B, int N, int D,
+                       int max_blocks, cudaStream_t stream) {
+  const int T = fwd_tile(S, D);
+  if (T == 0) return cudaErrorInvalidValue;
+  const int G = blocks(B, N, T, max_blocks);
+  const size_t smem = fwd_smem_bytes(S, D, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_fwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sweep_fwd_kernel<S><<<G, kThreads, smem, stream>>>(k, v, q, a, scratch, B, N,
+                                                     D, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(scratch, av, sa, S * D + padded(S), S * D, S, B, N, G,
+                       stream);
 }
 
 template <int S>
 cudaError_t launch_bwd(const float* k, const float* v, const float* a,
                        const float* q, const float* g_av, const float* g_a,
-                       float* gk, float* gv, float* gq_partial, int B, int N,
-                       int D, int chunk, cudaStream_t stream) {
-  const int threads = D < kMaxThreads ? D : kMaxThreads;
-  const int num_chunks = (N + chunk - 1) / chunk;
-  const size_t smem =
-      static_cast<size_t>(2 * S * D + chunk * S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(num_chunks, B);
-  sweep_bwd_kernel<S><<<grid, threads, smem, stream>>>(
-      k, v, a, q, g_av, g_a, gk, gv, gq_partial, N, D, chunk);
-  return cudaGetLastError();
+                       float* gk, float* gv, float* gq, float* scratch, int B,
+                       int N, int D, int max_blocks, cudaStream_t stream) {
+  const int T = bwd_tile(S, D);
+  if (T == 0) return cudaErrorInvalidValue;
+  const int G = blocks(B, N, T, max_blocks);
+  const size_t smem = bwd_smem_bytes(S, D, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sweep_bwd_kernel<S><<<G, kThreads, smem, stream>>>(k, v, a, q, g_av, g_a, gk,
+                                                     gv, scratch, B, N, D, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(scratch, gq, nullptr, S * D, S * D, 0, B, N, G, stream);
 }
 
 }  // namespace
 
-// k, v: [B, N, D]; q: [B, S, D]; a: [B, N, S];
-// partial: [B, ceil(N / chunk), S, D]. All fp32, contiguous, on one device.
-// The caller checks 1 <= S <= 16, D a positive multiple of 32 and the
-// shared-memory size; returns the CUDA error code of the launch (0 = none).
+#define OCRL_SWEEP_CASES(CASE) \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) \
+  CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+
+// k, v: [B, N, D]; q: [B, S, D]; a: [B, N, S]; sa: [B, S]; av: [B, S, D];
+// scratch: [min(max_blocks, B * N) + B, S * D + S rounded up to 4]. All
+// fp32, contiguous, 16-byte aligned, on the current device. At most
+// max_blocks blocks (the SM count). 1 <= S <= 16 and D a multiple of 32 up
+// to 256; returns the CUDA error code of the launches (0 = none).
 extern "C" int slot_routing_fwd(const float* k, const float* v,
-                                const float* q, float* a, float* partial,
-                                int B, int N, int S, int D, int chunk,
-                                void* stream) {
+                                const float* q, float* a, float* sa, float* av,
+                                float* scratch, int B, int N, int S, int D,
+                                int max_blocks, void* stream) {
+  if (!shape_ok(B, N, D, max_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {
 #define OCRL_SWEEP_CASE(n) \
   case n:                  \
-    return launch<n>(k, v, q, a, partial, B, N, D, chunk, st);
-    OCRL_SWEEP_CASE(1)
-    OCRL_SWEEP_CASE(2)
-    OCRL_SWEEP_CASE(3)
-    OCRL_SWEEP_CASE(4)
-    OCRL_SWEEP_CASE(5)
-    OCRL_SWEEP_CASE(6)
-    OCRL_SWEEP_CASE(7)
-    OCRL_SWEEP_CASE(8)
-    OCRL_SWEEP_CASE(9)
-    OCRL_SWEEP_CASE(10)
-    OCRL_SWEEP_CASE(11)
-    OCRL_SWEEP_CASE(12)
-    OCRL_SWEEP_CASE(13)
-    OCRL_SWEEP_CASE(14)
-    OCRL_SWEEP_CASE(15)
-    OCRL_SWEEP_CASE(16)
+    return launch_fwd<n>(k, v, q, a, sa, av, scratch, B, N, D, max_blocks, st);
+    OCRL_SWEEP_CASES(OCRL_SWEEP_CASE)
 #undef OCRL_SWEEP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-
 // k, v: [B, N, D]; a: [B, N, S]; q, g_av: [B, S, D]; g_a: [B, N, S];
-// gk, gv: [B, N, D]; gq_partial: [B, ceil(N / chunk), S, D]. All fp32,
-// contiguous, on one device; the caller checks the shapes as for the
-// forward. Returns the CUDA error code of the launch (0 = none).
+// gk, gv: [B, N, D]; gq: [B, S, D]; scratch: [min(max_blocks, B * N) + B,
+// S * D]. All fp32, contiguous, 16-byte aligned, on the current device;
+// shapes as for the forward. Returns the CUDA error code of the launches
+// (0 = none).
 extern "C" int slot_routing_bwd(const float* k, const float* v, const float* a,
                                 const float* q, const float* g_av,
                                 const float* g_a, float* gk, float* gv,
-                                float* gq_partial, int B, int N, int S, int D,
-                                int chunk, void* stream) {
+                                float* gq, float* scratch, int B, int N, int S,
+                                int D, int max_blocks, void* stream) {
+  if (!shape_ok(B, N, D, max_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {
-#define OCRL_SWEEP_CASE(n)                                                  \
-  case n:                                                                   \
-    return launch_bwd<n>(k, v, a, q, g_av, g_a, gk, gv, gq_partial, B, N, D, \
-                         chunk, st);
-    OCRL_SWEEP_CASE(1)
-    OCRL_SWEEP_CASE(2)
-    OCRL_SWEEP_CASE(3)
-    OCRL_SWEEP_CASE(4)
-    OCRL_SWEEP_CASE(5)
-    OCRL_SWEEP_CASE(6)
-    OCRL_SWEEP_CASE(7)
-    OCRL_SWEEP_CASE(8)
-    OCRL_SWEEP_CASE(9)
-    OCRL_SWEEP_CASE(10)
-    OCRL_SWEEP_CASE(11)
-    OCRL_SWEEP_CASE(12)
-    OCRL_SWEEP_CASE(13)
-    OCRL_SWEEP_CASE(14)
-    OCRL_SWEEP_CASE(15)
-    OCRL_SWEEP_CASE(16)
+#define OCRL_SWEEP_CASE(n)                                                   \
+  case n:                                                                    \
+    return launch_bwd<n>(k, v, a, q, g_av, g_a, gk, gv, gq, scratch, B, N, D, \
+                         max_blocks, st);
+    OCRL_SWEEP_CASES(OCRL_SWEEP_CASE)
 #undef OCRL_SWEEP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

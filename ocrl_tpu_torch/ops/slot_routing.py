@@ -10,13 +10,17 @@ v [B, N, D] and q [B, S, D]:
 ``route_sweep`` launches the hand-written CUDA kernel (``csrc/slot_routing.cu``)
 on a CUDA tensor and raises when it cannot; on a CPU tensor it runs
 ``route_sweep_reference``, the plain version, whose gradient is autograd's.
-The kernel writes ``a`` and one [S, D] partial of ``a^T v`` per chunk of
-tokens; the sums over chunks and over tokens are torch reductions, as they
-are jnp reductions around the TPU kernel. On CUDA the gradient is the
-backward kernel of the same source, as ``torch.autograd.Function``: it takes
-the saved (k, v, q, a) and the cotangents, with that of ``S_a`` folded into
-that of ``a`` first, and writes gk, gv and one [S, D] partial of gq per
-chunk, summed in torch (ocrl_tpu/ops/slot_routing.py:142-164).
+The kernel computes all three outputs itself: a persistent grid of at most
+one block per SM cuts the B * N tokens into equal contiguous ranges and
+walks each in tiles (the C entry chooses the tile, from the shared memory it
+needs); every block keeps one partial of ``S_a`` and ``a^T v`` per batch row
+it touches, in a scratch slot that the wrapper allocates
+(``scratch_rows``), and a second kernel of the same C entry sums each row's
+slots in block order (no atomics: bitwise equal from run to run). On CUDA
+the gradient is the backward kernel of the same source, as
+``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
+cotangents, with that of ``S_a`` folded into that of ``a`` first, and writes
+gk, gv and gq the same way (ocrl_tpu/ops/slot_routing.py:142-164).
 """
 
 from __future__ import annotations
@@ -30,25 +34,26 @@ from . import _build
 
 KERNEL = "slot_routing_fwd"
 BWD_KERNEL = "slot_routing_bwd"
-CHUNK = 128        # tokens per CUDA block
 MAX_SLOTS = 16
-MAX_SHARED_BYTES = 232_448   # dynamic shared memory one Hopper block may use
+MAX_WIDTH = 256        # one feature column per consumer thread
 
 
-def pick_chunk(n: int) -> int:
-    """Tokens per block: ``CHUNK``, or all ``n`` tokens when fewer. The
-    kernel masks a ragged last chunk, so unlike the TPU kernel it needs no
-    chunk that divides ``n``."""
-    return min(CHUNK, n)
+def _padded(S: int) -> int:
+    return -(-S // 4) * 4
+
+
+def scratch_rows(B: int, N: int, max_blocks: int) -> int:
+    """Rows of a launch's scratch: block g's partial of row b goes to row
+    g + b, and a launch has at most ``max_blocks`` blocks and never more
+    blocks than tokens."""
+    return min(max_blocks, B * N) + B
 
 
 def sweep_supports(S: int, D: int) -> bool:
-    """Whether the kernels take S slots of width D: 1 <= S <= 16, D a
-    positive multiple of 32, and (for the backward, which needs more) q,
-    g_av and one chunk of dlogits in shared memory."""
-    shared_bytes = (2 * S * D + CHUNK * S) * 4
-    return (1 <= S <= MAX_SLOTS and D > 0 and D % 32 == 0
-            and shared_bytes <= MAX_SHARED_BYTES)
+    """Whether the kernels take S slots of width D: 1 <= S <= 16 and D a
+    multiple of 32 up to 256, so that a tile is whole 16-byte rows and each
+    consumer thread owns at most one feature column."""
+    return 1 <= S <= MAX_SLOTS and 0 < D <= MAX_WIDTH and D % 32 == 0
 
 
 def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> None:
@@ -71,7 +76,12 @@ def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> None:
     if not sweep_supports(q.shape[1], D):
         raise ValueError(
             f"route_sweep: the kernel takes 1 <= S <= {MAX_SLOTS} slots and D a "
-            f"multiple of 32 (got S={q.shape[1]}, D={D})")
+            f"multiple of 32 up to {MAX_WIDTH} (got S={q.shape[1]}, D={D})")
+    if k.device.type == "cuda":
+        for name, t in (("k", k), ("v", v), ("q", q)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"route_sweep: {name} must be 16-byte aligned "
+                                 "(the kernel reads it with bulk copies)")
 
 
 def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
@@ -80,9 +90,9 @@ def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
     return a.sum(1), torch.einsum("bns,bnd->bsd", a, v), a
 
 
-_ARGTYPES = {
-    KERNEL: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    BWD_KERNEL: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+_ARGTYPES = {   # pointers, then B, N, S, D, max_blocks, then the stream
+    KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 
@@ -91,31 +101,46 @@ def _entry(name: str):
     return _build.entry("slot_routing", name, _ARGTYPES[name])
 
 
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _sweep_fwd(k, v, q):
     B, N, D = k.shape
     S = q.shape[1]
-    chunk = pick_chunk(N)
+    sms = _num_sms(k.device.index)
     a = torch.empty((B, N, S), dtype=torch.float32, device=k.device)
-    partial = torch.empty((B, -(-N // chunk), S, D), dtype=torch.float32,
-                          device=k.device)
+    sa = torch.empty((B, S), dtype=torch.float32, device=k.device)
+    av = torch.empty((B, S, D), dtype=torch.float32, device=k.device)
+    scratch = torch.empty((scratch_rows(B, N, sms), S * D + _padded(S)),
+                          dtype=torch.float32, device=k.device)
     _build.launch_on(k.device, KERNEL, _entry(KERNEL), k.data_ptr(), v.data_ptr(),
-                     q.data_ptr(), a.data_ptr(), partial.data_ptr(), B, N, S, D, chunk)
-    return a.sum(1), partial.sum(1), a
+                     q.data_ptr(), a.data_ptr(), sa.data_ptr(), av.data_ptr(),
+                     scratch.data_ptr(), B, N, S, D, sms)
+    return sa, av, a
 
 
 def _sweep_bwd(k, v, q, a, g_av, g_a):
     B, N, D = k.shape
     S = q.shape[1]
-    chunk = pick_chunk(N)
+    sms = _num_sms(k.device.index)
+    g_av, g_a = _aligned(g_av), _aligned(g_a)
     gk = torch.empty_like(k)
     gv = torch.empty_like(v)
-    gq_partial = torch.empty((B, -(-N // chunk), S, D), dtype=torch.float32,
-                             device=k.device)
+    gq = torch.empty_like(q)
+    scratch = torch.empty((scratch_rows(B, N, sms), S * D), dtype=torch.float32,
+                          device=k.device)
     _build.launch_on(k.device, BWD_KERNEL, _entry(BWD_KERNEL), k.data_ptr(),
                      v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
-                     g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-                     gq_partial.data_ptr(), B, N, S, D, chunk)
-    return gk, gv, gq_partial.sum(1)
+                     g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr(),
+                     scratch.data_ptr(), B, N, S, D, sms)
+    return gk, gv, gq
 
 
 class _RouteSweep(torch.autograd.Function):
@@ -130,8 +155,7 @@ class _RouteSweep(torch.autograd.Function):
     def backward(ctx, g_sa, g_av, g_a):
         k, v, q, a = ctx.saved_tensors
         # S_a = sum_n a is linear: its cotangent joins a's before the sweep
-        g_a = (g_a + g_sa[:, None, :]).contiguous()
-        return _sweep_bwd(k, v, q, a, g_av.contiguous(), g_a)
+        return _sweep_bwd(k, v, q, a, g_av, g_a + g_sa[:, None, :])
 
 
 def route_sweep(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):

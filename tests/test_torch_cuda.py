@@ -7,7 +7,9 @@ the card and without JAX:
 Without a GPU they skip. Sums are reordered between kernel and plain
 version, so each sweep output is held to 1e-5 of its largest entry; the
 soft Gumbel sample (values in [0, 1]) to 1e-5 absolute; token ids exactly,
-since both sides add the same fp32 logits and field."""
+since both sides add the same fp32 logits and field. The sweep kernels sum
+in a fixed order (no atomics), so two launches on the same inputs are held
+to bitwise equality."""
 
 import math
 
@@ -66,6 +68,85 @@ def test_sweep_gradient_goes_through_the_backward_kernel(cuda, shape):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (3, 333, 5, 192),
+                                   (2, 100, 16, 64)])
+def test_sweep_kernels_are_deterministic_on_the_card(cuda, shape):
+    """B3 and B4 launched twice on the same inputs give bitwise-equal
+    outputs; S_a, A_v and gq, summed across blocks inside the kernels, agree
+    with the plain sweep and its autograd."""
+    B, N, S, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k, v, q = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, N, D), (B, N, D), (B, S, D)))
+    k = k * D ** -0.5
+    g_av = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_a = torch.randn(B, N, S, device="cuda", generator=gen)
+    first = tsr.route_sweep(k, v, q)
+    second = tsr.route_sweep(k, v, q)
+    a = first[2]
+    grads = [tsr._sweep_bwd(k, v, q, a, g_av, g_a) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    want_sa, want_av, _ = tsr.route_sweep_reference(k, v, q)
+    for got, want in ((first[0], want_sa), (first[1], want_av)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    leaves = [x.clone().requires_grad_() for x in (k, v, q)]
+    outs = tsr.route_sweep_reference(*leaves)
+    want_gq = torch.autograd.grad(outs, leaves[2], (torch.zeros_like(want_sa), g_av, g_a))[0]
+    assert (grads[0][2] - want_gq).abs().max() <= 1e-5 * want_gq.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 256])
+def test_sweep_takes_every_slot_count_on_the_card(cuda, D):
+    """The C entry chooses each kernel's tile from the shared memory it
+    needs: at the narrowest and the widest D, every S from 1 to 16 launches
+    B3 and B4 and matches the plain sweep and its autograd. 3 x 37 tokens,
+    so that for most S the last tile's a and g_a end off a 16-byte boundary
+    (the 1-3 floats the backward reads with plain loads)."""
+    B, N = 3, 37
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for S in range(1, 17):
+        k, v, q = (torch.randn(s, device="cuda", generator=gen)
+                   for s in ((B, N, D), (B, N, D), (B, S, D)))
+        k = k * D ** -0.5
+        cot = [torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, S), (B, S, D), (B, N, S))]
+        leaves = [x.clone().requires_grad_() for x in (k, v, q)]
+        reset_launches()
+        outs = tsr.route_sweep(*leaves)
+        got = torch.autograd.grad(outs, leaves, cot)
+        assert LAUNCHES == {tsr.KERNEL: 1, tsr.BWD_KERNEL: 1}, S
+        plain = [x.clone().requires_grad_() for x in (k, v, q)]
+        want_outs = tsr.route_sweep_reference(*plain)
+        want = torch.autograd.grad(want_outs, plain, cot)
+        torch.cuda.synchronize()
+        for g, w in zip((*outs, *got), (*want_outs, *want)):
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max(), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6144, 4096), (1000, 512), (7, 32)])
+def test_gumbel_ids_take_the_first_nan_on_the_card(cuda, shape):
+    """B2 on rows with some NaN, rows of NaN only and a row of -inf, given a
+    zero field: the plain version's ids exactly (the first NaN's index, as
+    jnp.argmax), and no id reaches V."""
+    R, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    logits = torch.randn(R, V, device="cuda", generator=gen)
+    cols = torch.randint(0, V, (R // 2, 2), device="cuda", generator=gen)
+    logits[torch.arange(R // 2, device="cuda")[:, None], cols] = float("nan")
+    logits[R // 2:R // 2 + 2] = float("nan")
+    logits[R - 1] = -float("inf")
+    zeros = torch.zeros_like(logits)
+    got = gumbel.gumbel_argmax_ids(logits, noise=zeros)
+    want = gumbel.gumbel_argmax_ids_reference(logits, zeros)
+    assert torch.equal(got, want)
+    assert int(got.max()) < V
 
 
 @pytest.mark.cuda

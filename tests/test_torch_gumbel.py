@@ -83,6 +83,25 @@ def test_argmax_ids_match_jax(monkeypatch, shape):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_argmax_ids_take_the_first_nan_as_jax_does():
+    """Rows with some NaN, rows of NaN only and a row of -inf: the plain id
+    version (B2's reference on the card) gives jnp.argmax's ids, the first
+    NaN's index where there is one; exact, every id below V."""
+    logits, _ = _draws(8, 64, seed=9)
+    logits[0, [5, 17]] = np.nan
+    logits[1, 63] = np.nan
+    logits[2, 0] = np.nan
+    logits[3:6] = np.nan
+    logits[6] = -np.inf
+    want = jnp.argmax(jnp.asarray(logits), axis=-1)
+    t = torch.from_numpy(logits)
+    got = gumbel.gumbel_argmax_ids_reference(t, torch.zeros_like(t))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[:7].tolist() == [5, 63, 0, 0, 0, 0, 0] and int(got.max()) < 64
+    np.testing.assert_array_equal(
+        gumbel.gumbel_argmax_ids(t, noise=torch.zeros_like(t)).numpy(), np.asarray(want))
+
+
 def test_argmax_ids_distribution():
     """One row repeated: id frequencies ~ softmax(row), as tests/test_ops.py
     holds the JAX version (atol 0.05 at 4096 draws there, 0.02 here at 16384)."""

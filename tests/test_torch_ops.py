@@ -2,6 +2,10 @@
 plain version. Tolerance 1e-5: both sides are fp32 and differ only in the
 order of the sums over D and over the tokens."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -11,7 +15,10 @@ import jax.numpy as jnp
 
 from ocrl_tpu.ops import slot_routing as jsr
 from ocrl_tpu_torch.ops import LAUNCHES, reset_launches
+from ocrl_tpu_torch.ops import gumbel as tgumbel
 from ocrl_tpu_torch.ops import slot_routing as tsr
+from ocrl_tpu_torch.ops import _build
+from ocrl_tpu_torch.ops._build import ptxas_usage
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -52,7 +59,7 @@ def test_sweep_ragged_n_matches_jax_reference():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "v_shape", "q_width",
-                                 "slots", "width", "layout"])
+                                 "slots", "width", "too_wide", "layout"])
 def test_sweep_rejects_what_the_kernel_does_not_take(bad):
     k, v, q = (torch.from_numpy(x) for x in _inputs(2, 40, 5, 32, seed=0))
     if bad == "dtype":
@@ -68,18 +75,137 @@ def test_sweep_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "width":
         k, v, q, exc = k[..., :24].contiguous(), v[..., :24].contiguous(), \
             q[..., :24].contiguous(), ValueError
+    elif bad == "too_wide":     # one feature column per thread: D <= 256
+        k, v, q, exc = torch.zeros(2, 40, 288), torch.zeros(2, 40, 288), \
+            torch.zeros(2, 5, 288), ValueError
     else:
         k, exc = k.transpose(0, 1).contiguous().transpose(0, 1), ValueError
     with pytest.raises(exc):
         tsr.route_sweep(k, v, q)
 
 
-def test_pick_chunk_covers_any_n():
-    assert tsr.pick_chunk(4096) == tsr.CHUNK
-    assert tsr.pick_chunk(50) == 50
-    assert tsr.pick_chunk(4099) == tsr.CHUNK   # ragged last chunk is masked
-    assert tsr.sweep_supports(5, 192) and tsr.sweep_supports(16, 32)
-    assert not tsr.sweep_supports(17, 192) and not tsr.sweep_supports(5, 48)
+def block_range(g: int, G: int, BN: int) -> tuple[int, int]:
+    """Block g's range [start, end) of the B * N token stream, as
+    csrc/slot_routing.cu's block_tiles cuts it."""
+    return g * BN // G, (g + 1) * BN // G
+
+
+def row_blocks(b: int, N: int, G: int, BN: int) -> range:
+    """The blocks whose ranges meet batch row b, as csrc/slot_routing.cu's
+    reduce_rows finds them (the block holding token t is ((t + 1) G - 1) //
+    BN) and in the order it sums their scratch slots g + b."""
+    def holding(t):
+        return ((t + 1) * G - 1) // BN
+    return range(holding(b * N), holding(b * N + N - 1) + 1)
+
+
+# the tiles the C entry may choose (csrc/slot_routing.cu kFwdTiles, kBwdTiles)
+_TILES = (64, 48, 32, 24, 16, 8)
+
+
+@pytest.mark.parametrize("B,N,num_sms", [(24, 4096, 132), (16, 4096, 132),
+                                         (64, 4096, 132), (3, 333, 132),
+                                         (2, 100, 132), (1, 5, 132), (7, 50, 4)])
+def test_plan_covers_any_n(B, N, num_sms):
+    """The kernels' grid: one block per SM, or one per tile of a small
+    input, whatever tile the C entry chooses; the block ranges cut the
+    B * N tokens into contiguous pieces that differ by at most one token;
+    row_blocks(b) lists exactly the blocks whose ranges meet row b, in order,
+    so each row's partials are summed in one order; and every slot g + b
+    they write lies in the scratch the wrapper allocates."""
+    BN = B * N
+    rows = tsr.scratch_rows(B, N, num_sms)
+    for T in _TILES:
+        G = min(num_sms, -(-BN // T))
+        ranges = [block_range(g, G, BN) for g in range(G)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == BN
+        assert all(e == s for (_, e), (s, _) in zip(ranges, ranges[1:]))
+        sizes = [e - s for s, e in ranges]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        for b in range(B):
+            meet = [g for g, (s, e) in enumerate(ranges) if s < (b + 1) * N and e > b * N]
+            assert list(row_blocks(b, N, G, BN)) == meet
+            assert all(0 <= g + b < rows for g in meet)
+
+
+def test_sweep_supports_and_tiles():
+    """The kernels take 1 <= S <= 16 and D a multiple of 32 up to 256 (the
+    C entry then chooses a tile that fits in shared memory: the card-only
+    test_sweep_takes_every_slot_count_on_the_card launches each S at the
+    narrowest and widest D); route_sweep rejects the rest before any launch."""
+    for S in range(0, 18):
+        for D in range(16, 289, 16):
+            want = 1 <= S <= 16 and D % 32 == 0 and D <= 256
+            assert tsr.sweep_supports(S, D) == want, (S, D)
+    k, v, q = torch.zeros(1, 3, 256), torch.zeros(1, 3, 256), torch.zeros(1, 16, 256)
+    sa, av, a = tsr.route_sweep(k, v, q)    # the widest shape, on the CPU
+    assert sa.shape == (1, 16) and av.shape == (1, 16, 256) and a.shape == (1, 3, 16)
+    torch.testing.assert_close(sa, torch.full((1, 16), 3 / 16))
+
+
+_CTYPE_OF = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_signatures(source: str) -> dict[str, list[str]]:
+    """extern "C" functions of a .cu source: name -> kind of each parameter
+    (ptr, int or float)."""
+    text = (Path(tsr.__file__).parent / "csrc" / source).read_text()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+        kinds = []
+        for p in params.split(","):
+            p = p.strip()
+            kinds.append("ptr" if "*" in p else "float" if p.startswith("float") else "int")
+        out[name] = kinds
+    return out
+
+
+@pytest.mark.parametrize("module,source,name", [
+    (tsr, "slot_routing.cu", tsr.KERNEL), (tsr, "slot_routing.cu", tsr.BWD_KERNEL),
+    (tgumbel, "gumbel.cu", tgumbel.SOFT_KERNEL), (tgumbel, "gumbel.cu", tgumbel.IDS_KERNEL)])
+def test_ctypes_argtypes_match_the_c_signatures(module, source, name):
+    """A wrong ctypes argtype shows only on the card (a pointer cut to 32
+    bits, an int read as a pointer): hold each wrapper's _ARGTYPES against
+    the extern "C" signature in its source, in count and kind."""
+    kinds = _c_signatures(source)[name]
+    assert module._ARGTYPES[name] == [_CTYPE_OF[k] for k in kinds]
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116sweep_bwd_kernelILi11EEEvPKfS2_S2_S2_S2_S2_PfS3_S3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116sweep_bwd_kernelILi11EEEvPKfS2_S2_S2_S2_S2_PfS3_S3_iiii
+    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111reduce_rowsEPKfPfS2_iiixi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111reduce_rowsEPKfPfS2_iiixi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, 400 bytes cmem[0]
+"""
+    assert ptxas_usage(log) == {
+        "sweep_bwd_kernel<11>": {"registers": 255, "spill_stores": 8, "spill_loads": 12},
+        "reduce_rows": {"registers": 18, "spill_stores": 0, "spill_loads": 0}}
+
+
+@pytest.mark.parametrize("name", ["slot_routing", "gumbel"])
+def test_ptxas_report_is_kept_beside_the_library(name, tmp_path, monkeypatch):
+    """The spill check reads each library's ptxas report from beside it, so
+    a library built by an earlier run is checked too; a library without its
+    report counts as not built, and build_log raises without one."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    lib, log = _build.library_path(name), _build.log_path(name)
+    assert log.parent == lib.parent == tmp_path and log.name.startswith(lib.stem)
+    with pytest.raises(RuntimeError):
+        _build.build_log(name)
+    lib.write_bytes(b"")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("would compile")))
+    with pytest.raises(RuntimeError, match="would compile"):
+        _build.build([name])                # the library alone is not enough
+    log.write_text("ptxas info    : Used 8 registers")
+    assert _build.build([name]) == {}       # both there: nothing to compile
+    assert _build.build_log(name) == "ptxas info    : Used 8 registers"
+    assert name in _build.sources()
 
 
 @pytest.mark.parametrize("S", [3, 5])
