@@ -15,8 +15,12 @@ Phases, each printing its own line with its seconds:
    session twice records no kernel), the plain version's and the card's
    bound for the same work; B3 and B4 launched twice on the same inputs
    must give bitwise-equal outputs; the Gumbel kernels' drawn fields against
-   the Gumbel distribution, B2's id frequencies against the softmax, and
-   B2 on rows with NaN against its plain version (the first NaN's index);
+   their exact numpy replay (ops.gumbel.replay_field, from the seed the
+   wrapper drew) and the Gumbel distribution, B2's id frequencies against
+   the softmax, and B2 on rows with NaN against its plain version (the
+   first NaN's index); B1 and B2 are also timed beside one PyTorch call
+   each that computes the same function with its own noise
+   (F.gumbel_softmax, Categorical(logits).sample());
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -61,6 +65,10 @@ POLICY_TOL = dict(rtol=1e-4, atol=1e-4)  # whole policy: the recurrence carries 
 # sum, a few ulps. B2: the same fp32 sums logits + g on both sides, so the
 # ids agree exactly.
 SOFT_TOL = 1e-5
+# A kernel's field against its numpy replay in float64, every value: g runs
+# up to 16.64, where an fp32 ulp is 1.9e-6, so about five ulps there; a log
+# taken naively near u = 1 errs by O(1) exactly at the largest g.
+FIELD_TOL = 1e-5
 # A drawn Gumbel field of n values: its mean (Euler's gamma) and variance
 # (pi^2 / 6) within 8 standard errors, 1.2825 / sqrt(n) for the mean and
 # 3.45 / sqrt(n) for the variance (excess kurtosis 2.4): at the training
@@ -213,14 +221,18 @@ def check_sweep(shape, bw, flops, gen):
                 bound_by=bound_by)
 
 
+def gumbel_bytes(R: int, V: int, soft: bool) -> int:
+    """Bytes one Gumbel kernel must move: read the logits and the seed once,
+    write y [R, V] fp32 (soft) or the ids [R] int64."""
+    return 4 * R * V + 8 + (4 * R * V if soft else 8 * R)
+
+
 def gumbel_bound_ms(R: int, V: int, soft: bool, bw: float, flops: float):
-    """Least time for one Gumbel kernel: read the logits and the seed once,
-    write y [R, V] (soft) or the ids [R]; per value about 10 fp32
+    """Least time for one Gumbel kernel: its bytes; per value about 10 fp32
     operations (the uniform, two logs, the add and for the soft sample the
     divide, max, exp, sum and normalise), the Philox integer work aside."""
-    nbytes = 4 * R * V + 8 + (4 * R * V if soft else 4 * R)
     ops = (10 if soft else 5) * R * V
-    t_bytes, t_ops = nbytes / bw, ops / flops
+    t_bytes, t_ops = gumbel_bytes(R, V, soft) / bw, ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -249,7 +261,8 @@ def timed(kernel_fn, plain_fn, kernel_name: str = ""):
 
 def check_gumbel(R, V, bw, flops, gen, time_it=True):
     """B1 and B2 at [R, V] against their plain versions fed the fields the
-    kernels drew (g_out); the fields against the Gumbel distribution."""
+    kernels drew (g_out); the fields against their exact replay and the
+    Gumbel distribution."""
     mean_tol = GUMBEL_SIGMAS * 1.2825 / np.sqrt(R * V)
     var_tol = GUMBEL_SIGMAS * 3.45 / np.sqrt(R * V)
     logits = torch.randn(R, V, device="cuda", generator=gen) * 3
@@ -257,6 +270,7 @@ def check_gumbel(R, V, bw, flops, gen, time_it=True):
     results = {}
     for soft in (True, False):
         g = torch.empty_like(logits)
+        state = gen.get_state()
         if soft:
             got = gumbel.gumbel_softmax_sample(logits, tau, generator=gen, g_out=g)
             want = gumbel.gumbel_softmax_sample_reference(logits, g, tau)
@@ -270,38 +284,49 @@ def check_gumbel(R, V, bw, flops, gen, time_it=True):
         g64 = g.double()
         mean, var = g64.mean().item(), g64.var().item()
         dist_ok = abs(mean - GUMBEL_MEAN) <= mean_tol and abs(var - GUMBEL_VAR) <= var_tol
+        exact = gumbel.replay_field(gumbel.replayed_seed(state, "cuda"),
+                                    gumbel.SOFT_STREAM if soft else gumbel.IDS_STREAM, R, V)
+        field_err = (g64.cpu() - torch.from_numpy(exact)).abs().max().item()
+        field_ok = field_err <= FIELD_TOL
         name = gumbel.SOFT_KERNEL if soft else gumbel.IDS_KERNEL
         what = f"max_abs_err {err:.3e} (tolerance {SOFT_TOL})" if soft else \
             f"{int(err)} ids differ (tolerance 0)"
-        print(f"  {name} R={R} V={V}: {what} {'ok' if ok else 'MISMATCH'}; field mean "
+        print(f"  {name} R={R} V={V}: {what} {'ok' if ok else 'MISMATCH'}; field against "
+              f"its replay max |g - g_exact| {field_err:.3e} (tolerance {FIELD_TOL}), "
+              f"largest g {g.max().item():.6f} {'ok' if field_ok else 'OFF'}; mean "
               f"{mean:.5f} (gamma {GUMBEL_MEAN:.5f} +- {mean_tol:.1e}), var {var:.5f} "
               f"(pi^2/6 {GUMBEL_VAR:.5f} +- {var_tol:.1e}) {'ok' if dist_ok else 'OFF'}",
               flush=True)
-        if not (ok and dist_ok):
-            raise SystemExit(f"{name} disagrees with its plain version or the "
-                             f"Gumbel distribution at {(R, V)}")
+        if not (ok and field_ok and dist_ok):
+            raise SystemExit(f"{name} disagrees with its plain version, its exact field "
+                             f"or the Gumbel distribution at {(R, V)}")
         if not time_it:
             continue
+        # library_fn: one PyTorch call computing the same function with its
+        # own noise, a yardstick only (the port never calls it)
         if soft:
             kernel_fn = lambda: gumbel.gumbel_softmax_sample(logits, tau, generator=gen)
             plain_fn = lambda: gumbel.gumbel_softmax_sample_reference(
                 logits, gumbel.gumbel_field(logits.shape, gen, logits.device), tau)
+            library, library_fn = "F.gumbel_softmax", lambda: torch.nn.functional.gumbel_softmax(
+                logits, tau=tau, hard=False)
         else:
             kernel_fn = lambda: gumbel.gumbel_argmax_ids(logits, generator=gen)
             plain_fn = lambda: gumbel.gumbel_argmax_ids_reference(
                 logits, gumbel.gumbel_field(logits.shape, gen, logits.device))
-        ms, _, plain_ms, call_ms = timed(kernel_fn, plain_fn)
+            library, library_fn = "Categorical(logits).sample()", lambda: \
+                torch.distributions.Categorical(logits=logits, validate_args=False).sample()
+        ms, kernel_alone_ms, plain_ms, call_ms = timed(kernel_fn, plain_fn, name)
+        library_ms, = per_call_ms(library_fn)
         bound_ms, bound_by = gumbel_bound_ms(R, V, soft, bw, flops)
-        note = ""
-        if soft:   # a yardstick only: softmax of an already noised copy
-            noised = (logits + g) / tau
-            note = f"; torch.softmax of a pre-noised copy " \
-                f"{per_call_ms(lambda: torch.softmax(noised, -1))[0]:.4f}"
-        print(f"    device ms: {name} {ms:.4f}, plain (torch field + "
-              f"{'softmax' if soft else 'argmax'}) {plain_ms:.4f}, bound {bound_ms:.4f} "
-              f"({bound_by}){note}; wall per call {call_ms:.4f} ms", flush=True)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+        print(f"    device ms: {name} {ms:.4f} (kernel alone {kernel_alone_ms:.4f}), plain "
+              f"(torch field + {'softmax' if soft else 'argmax'}) {plain_ms:.4f}, {library} "
+              f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), {100 * bound_ms / ms:.1f} "
+              f"% of it, {gumbel_bytes(R, V, soft) / ms / 1e9:.3f} TB/s; wall per call "
+              f"{call_ms:.4f} ms",
+              flush=True)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
     return results
 
 
@@ -593,7 +618,8 @@ def main() -> int:
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep_bwd(shape, bw, flops, gen)
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
-        check_gumbel(1000, 512, bw, flops, gen, time_it=False)
+        check_gumbel(1000, 512, bw, flops, gen)
+        check_gumbel(7, 32, bw, flops, gen, time_it=False)
         check_id_frequencies(gen)
         check_ids_nan(tokens, ocr_cfg.dvae.vocab_size, gen)
         check_ids_nan(1000, 512, gen)
@@ -670,7 +696,7 @@ def main() -> int:
                     launches=launches.get(name, 0) + train_launches.get(name, 0),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],
                     plain_ms=result["plain_ms"], bound_ms=result["bound_ms"],
-                    bound_by=result["bound_by"], library_ms=None)
+                    bound_by=result["bound_by"], library_ms=result.get("library_ms"))
 
     routing, gumbel_cu = ("ocrl_tpu_torch/ops/csrc/slot_routing.cu",
                           "ocrl_tpu_torch/ops/csrc/gumbel.cu")

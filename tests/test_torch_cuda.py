@@ -7,9 +7,10 @@ the card and without JAX:
 Without a GPU they skip. Sums are reordered between kernel and plain
 version, so each sweep output is held to 1e-5 of its largest entry; the
 soft Gumbel sample (values in [0, 1]) to 1e-5 absolute; token ids exactly,
-since both sides add the same fp32 logits and field. The sweep kernels sum
-in a fixed order (no atomics), so two launches on the same inputs are held
-to bitwise equality."""
+since both sides add the same fp32 logits and field; each drawn field to
+1e-5 of its exact numpy replay at every value (about five fp32 ulps at the
+largest g, 16.64). The sweep kernels sum in a fixed order (no atomics), so
+two launches on the same inputs are held to bitwise equality."""
 
 import math
 
@@ -187,3 +188,25 @@ def test_gumbel_field_distribution_on_the_card(cuda):
     freq = torch.bincount(ids, minlength=4)[:4].double().cpu() / 65536
     want = torch.softmax(torch.tensor([2.0, 1.0, 0.0, -1.0], dtype=torch.float64), 0)
     assert (freq - want).abs().max() <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6144, 4096), (1000, 512), (7, 32)])
+def test_gumbel_fields_replay_exactly_on_the_card(cuda, shape):
+    """The field each kernel drew (g_out) against gumbel.replay_field, the
+    numpy replay of its Philox words from the seed the wrapper drew (itself
+    replayed from the generator's state): within 1e-5 at every value, the
+    right tail included."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    logits = torch.randn(shape, device="cuda", generator=gen)
+    draws = ((gumbel.SOFT_STREAM, lambda g: gumbel.gumbel_softmax_sample(
+                 logits, 0.5, generator=gen, g_out=g)),
+             (gumbel.IDS_STREAM, lambda g: gumbel.gumbel_argmax_ids(
+                 logits, generator=gen, g_out=g)))
+    for stream, draw in draws:
+        g = torch.empty_like(logits)
+        state = gen.get_state()
+        draw(g)
+        seed = gumbel.replayed_seed(state, "cuda")
+        exact = torch.from_numpy(gumbel.replay_field(seed, stream, *shape))
+        assert (g.cpu().double() - exact).abs().max().item() <= 1e-5, stream

@@ -8,9 +8,17 @@ in both frameworks, held to 1e-6 (a few ulps of values in [0, 1]; the field
 ulp). Token ids are held exactly. Distribution checks use 2 ** 18 draws:
 the standard error of the mean of a Gumbel field is 1.28 / 512 = 0.0025 and
 of its variance about 0.01, so the bounds 0.01 and 0.05 sit at 4-5 standard
-errors."""
+errors.
+
+The numpy replay of the kernels' Philox field (``gumbel.replay_field``, the
+plain reference of their noise) is held here to Random123's known answers,
+to the constants of csrc/gumbel.cu, and to the range and moments of a Gumbel
+field; on the card, tests/test_torch_cuda.py holds each kernel's field to
+it."""
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +33,16 @@ from ocrl_tpu_torch.ops import LAUNCHES, gumbel, reset_launches
 TOL = dict(rtol=1e-6, atol=1e-6)
 TINY = np.finfo(np.float32).tiny
 EULER_GAMMA = 0.5772156649015329
+GUMBEL_CU = Path(gumbel.__file__).parent / "csrc" / "gumbel.cu"
+# Random123's known answers for Philox4x32-10: counter, key, output.
+KNOWN_ANSWERS = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+# g at u = 2^-24 and at u = 1 - 2^-24, the ends of the kernels' uniform
+FIELD_LOW, FIELD_HIGH = -2.81155, 16.63554
 
 
 def _draws(R, V, seed):
@@ -155,3 +173,57 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         gumbel.gumbel_softmax_sample(x, 1.0, noise=noise, g_out=g_out)
     with pytest.raises(ValueError):
         gumbel.gumbel_argmax_ids(x, noise=noise, g_out=g_out)
+
+
+@pytest.mark.parametrize("counter, key, want", KNOWN_ANSWERS)
+def test_philox_known_answers(counter, key, want):
+    """The replay's Philox4x32-10 gives Random123's published answers."""
+    got = gumbel.philox4x32_10(np.array(counter, np.uint32), np.array(key, np.uint32))
+    assert got.tolist() == list(want)
+
+
+def test_replay_has_the_constants_of_the_kernels():
+    """The multipliers, key increments and id stream of csrc/gumbel.cu are
+    the replay's."""
+    src = GUMBEL_CU.read_text()
+    found = {name: int(value, 16) for name, value in
+             re.findall(r"\b(kM0|kM1|kW0|kW1|kIdsStream) = (0x[0-9A-Fa-f]+)u", src)}
+    assert found == {"kM0": int(gumbel._PHILOX_M[0]), "kM1": int(gumbel._PHILOX_M[1]),
+                     "kW0": int(gumbel._PHILOX_W[0]), "kW1": int(gumbel._PHILOX_W[1]),
+                     "kIdsStream": gumbel.IDS_STREAM}
+
+
+@pytest.mark.parametrize("stream", [gumbel.SOFT_STREAM, gumbel.IDS_STREAM])
+def test_replayed_field_lies_between_the_ends_of_u(stream):
+    """The lowest and highest words give g at u = 2^-24 and 1 - 2^-24; a
+    replayed field of 2^18 values lies between them, and depends on the seed
+    and the position only (a part of a wider field is the same)."""
+    ends = gumbel.gumbel_of_bits(np.array([0, 0xFFFFFFFF], np.uint32))
+    np.testing.assert_allclose(ends, [FIELD_LOW, FIELD_HIGH], atol=1e-5)
+    g = gumbel.replay_field(2 ** 40 + 17, stream, 64, 4096)
+    assert g.dtype == np.float64 and g.shape == (64, 4096)
+    assert ends[0] <= g.min() and g.max() <= ends[1]
+    np.testing.assert_array_equal(gumbel.replay_field(2 ** 40 + 17, stream, 5, 96),
+                                  g[:5, :96])
+
+
+def test_replayed_seed_is_the_one_the_wrapper_draws():
+    """A generator's state before a draw gives back the seed drawn."""
+    gen = torch.Generator().manual_seed(11)
+    state = gen.get_state()
+    seed = int(gumbel.draw_seed(gen, torch.device("cpu")).item())
+    assert gumbel.replayed_seed(state, "cpu") == seed
+    assert 0 <= seed < 2 ** 62
+
+
+@pytest.mark.parametrize("stream", [gumbel.SOFT_STREAM, gumbel.IDS_STREAM])
+def test_replayed_field_is_gumbel(stream):
+    """2^18 replayed values have the Gumbel mean and variance, within the
+    bounds of test_drawn_field_is_gumbel_and_recorded; the two streams of one
+    seed are other fields."""
+    g = gumbel.replay_field(123456789, stream, 64, 4096)
+    assert abs(g.mean() - EULER_GAMMA) < 0.01
+    assert abs(g.var() - math.pi ** 2 / 6) < 0.05
+    other = gumbel.IDS_STREAM if stream == gumbel.SOFT_STREAM else gumbel.SOFT_STREAM
+    assert abs(np.corrcoef(g.ravel(), gumbel.replay_field(123456789, other, 64,
+                                                          4096).ravel())[0, 1]) < 0.01
