@@ -30,7 +30,16 @@ Phases, each printing its own line with its seconds:
    counts reset just before and read just after; one step is checked
    against the same model with every kernel replaced by its plain version,
    fed the Gumbel fields the kernels drew; and the loss on one fixed batch
-   falls.
+   falls;
+6. evaluation: the full-width SLATE OCR (seed 0, get_ocr without a
+   checkpoint) scores batches of 32 painted scenes with their masks through
+   get_ari_mse.evaluate (foreground ARI of the loss, then the greedy KV-cached
+   gen_imgs MSE): one warm-up batch, then timed batches with the launch
+   counts reset just before and read just after; one batch is checked
+   against the same model with every kernel replaced by its plain version
+   (loss metrics, the ARI's label maps, the greedy tokens); then the
+   Slot-Attention OCR (use_bcdec) scores one batch, with its launch counts,
+   against its plain version.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -44,17 +53,22 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
 
-from ocrl_tpu_torch.config import EnvConfig, OCRConfig, PolicyConfig
+from ocrl_tpu_torch.config import EnvConfig, OCRCheckpointConfig, OCRConfig, PolicyConfig
+from ocrl_tpu_torch.config import replace as config_replace
+from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
 from ocrl_tpu_torch.models import create_ocr
+from ocrl_tpu_torch.models.base import normalize_obs
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
 from ocrl_tpu_torch.rl import PPO, build_policy
+from ocrl_tpu_torch.utils.checkpoint import get_ocr
+from ocrl_tpu_torch.utils.metrics import mask_labels
 
 # kernel vs plain, per output: max |kernel - plain| <= SWEEP_TOL * max |plain|.
 # Both are fp32; the sums over D and over the tokens run in another order,
@@ -84,9 +98,18 @@ FREQ_TOL = 0.01      # id frequencies over 65536 draws, 4-5 standard errors
 # exceeds 1e-6, i.e. 100 x Adam's eps (below that, Adam's first step
 # g / (|g| + eps) turns rounding of the gradient into any value in [-1, 1]).
 STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_MOVE_TOL = 1e-5, 1e-3, 1e-6, 1e-2
+# One evaluation batch, kernels against plain versions fed the same draws:
+# the loss metrics to 1e-5 relative (as the training step); the ARI's label
+# maps equal except at pixels where an attention lies within 1e-6 of 1.0
+# (there attention * foreground may tie the foreground's 1.0, and rounding
+# picks the side); greedy tokens equal in each row up to the first position
+# where the plain side's two largest logits lie within 1e-4 (there rounding
+# may pick either token, and every later token follows from it).
+EVAL_RTOL, ARI_SATURATION, GEN_GAP = 1e-5, 1e-6, 1e-4
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
+EVAL_BATCH, EVAL_BATCHES, EVAL_OBJECTS = 32, 4, 4   # configs/get_ari_mse.yaml: batch 32
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -575,6 +598,152 @@ def train_steps(ocr, batches: list[np.ndarray], step0: int) -> tuple[float, dict
     return seconds, {k: torch.cat([m[k].cpu() for m in metrics]) for k in metrics[0]}
 
 
+def painted(B: int, size: int, objects: int, seed: int):
+    """uint8 scenes [B, size, size, 3] of ``objects`` axis-aligned squares of
+    random colours over a random background, and their masks
+    [B, objects + 1, size, size, 1] with the background last (a later
+    square covers an earlier one), from numpy's default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    K = objects + 1
+    obs = np.empty((B, size, size, 3), np.uint8)
+    masks = np.zeros((B, K, size, size, 1), np.uint8)
+    for b in range(B):
+        label = np.full((size, size), K - 1)
+        obs[b] = rng.integers(0, 256, 3)
+        for k in range(objects):
+            h, w = rng.integers(size // 4, size // 2 + 1, 2)
+            y, x = rng.integers(0, size - h + 1), rng.integers(0, size - w + 1)
+            label[y:y + h, x:x + w] = k
+            obs[b, y:y + h, x:x + w] = rng.integers(0, 256, 3)
+        masks[b, ..., 0] = label[None] == np.arange(K)[:, None, None]
+    return obs, masks
+
+
+def first_near_ties(logits: torch.Tensor, gap: float) -> torch.Tensor:
+    """Each row's first position whose two largest logits [B, T, V] lie
+    within ``gap``, or T when there is none."""
+    top2 = logits.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < gap
+    T = logits.shape[1]
+    return torch.where(near.any(-1), near.int().argmax(-1), torch.full_like(near[:, 0], T,
+                                                                            dtype=torch.long))
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def check_eval(ocr, batch: dict) -> dict:
+    """One evaluation batch through the kernels against the same OCR with
+    every kernel replaced by its plain version, fed the draws the kernels'
+    run made: the loss metrics, the ARI's label maps and the greedy tokens,
+    under the rules stated at EVAL_RTOL. Returns what it found."""
+    module, device = ocr.module, ocr.device
+    obs = normalize_obs(torch.from_numpy(batch["obss"]).to(device))
+    masks = torch.from_numpy(batch["masks"]).to(device).float()
+    gen = torch.Generator(device=device).manual_seed(1)
+    gen_noise = torch.randn((obs.shape[0], module.slotattn.num_slots,
+                             module.slotattn.slot_size), generator=gen, device=device)
+    drawn = {}
+    sides = {}
+    for side in ("kernel", "plain"):
+        noise = drawn if side == "kernel" else dict(drawn)
+        fields = {k: drawn.get(k) for k in ("soft", "ids")}
+        with plain_kernels(fields) if side == "plain" else nullcontext(), torch.no_grad():
+            metrics = ocr.get_loss(batch["obss"], batch["masks"], noise=noise)
+            _, attns = module.get_slots(obs, noise["slots"])
+            slots, _ = module.get_slots(obs, gen_noise)
+            tokens = module.gen_tokens(slots) if not module.use_bcdec else None
+            logits = None if tokens is None else module.teacher_forced_logits(slots, tokens)
+        sides[side] = dict(metrics=metrics, attns=attns, tokens=tokens, logits=logits)
+    torch.cuda.synchronize()
+    k, p = sides["kernel"], sides["plain"]
+    labels = [mask_labels(module.ari_pred_masks(s["attns"], masks)) for s in (k, p)]
+    saturated = ((k["attns"].max(-1).values >= 1 - ARI_SATURATION)
+                 | (p["attns"].max(-1).values >= 1 - ARI_SATURATION))   # [B, H*W]
+    differ = labels[0] != labels[1]
+    labels_ok = not bool((differ & ~saturated).any())
+    # the ARI is a function of the label maps: held to them, and to 1e-5
+    # where they are equal
+    errs = {key: rel_err(float(k["metrics"][key]), float(p["metrics"][key]))
+            for key in p["metrics"] if key != "ari" or not differ.any()}
+    worst_key = max(errs, key=errs.get)
+    loss_ok = errs[worst_key] <= EVAL_RTOL and all(
+        np.isfinite(float(v)) for v in k["metrics"].values())
+    print(f"  evaluation check against the plain versions: loss metrics worst "
+          f"{worst_key} {errs[worst_key]:.3e} relative (tolerance {EVAL_RTOL}); ari "
+          f"{float(k['metrics']['ari']):.6f} vs {float(p['metrics']['ari']):.6f}; ARI label "
+          f"maps differ at {int(differ.sum())} of {differ.numel()} pixels, "
+          f"{int(saturated.sum())} pixels have an attention within {ARI_SATURATION} of 1.0 "
+          f"{'ok' if labels_ok else 'MISMATCH'}", flush=True)
+    found = dict(loss_ok=loss_ok, labels_ok=labels_ok, tokens_ok=True)
+    if k["tokens"] is not None:
+        upto = first_near_ties(p["logits"], GEN_GAP)
+        T = k["tokens"].shape[1]
+        pos = torch.arange(T, device=device)[None]
+        agree = ((k["tokens"] == p["tokens"]) | (pos >= upto[:, None])).all()
+        cut = [(b, int(t)) for b, t in enumerate(upto.tolist()) if t < T]
+        rows_differ = int((k["tokens"] != p["tokens"]).any(-1).sum())
+        found["tokens_ok"] = bool(agree)
+        print(f"  greedy tokens: {rows_differ} of {k['tokens'].shape[0]} rows differ "
+              f"somewhere; {len(cut)} rows have a near-tie (plain top-two gap < {GEN_GAP}), "
+              f"compared up to it (row, position): {cut[:8]}{' ...' if len(cut) > 8 else ''}; "
+              f"equal before every near-tie {'ok' if agree else 'MISMATCH'}", flush=True)
+    if not (found["loss_ok"] and found["labels_ok"] and found["tokens_ok"]):
+        raise SystemExit("the evaluation batch disagrees with its plain version")
+    return found
+
+
+def evaluation_phase(ocr_cfg, env_cfg, card: str, sa) -> tuple[dict, dict, dict]:
+    """Warm-up, timed batches with launch counts, the plain check, then the
+    Slot-Attention OCR's warm-up and counted batch and its plain check.
+    Returns (SLATE's counts, Slot-Attention's counts, the SLATE OCR and a
+    batch for the profile)."""
+    size = env_cfg.obs_size
+    obs, masks = painted(EVAL_BATCH * (1 + EVAL_BATCHES), size, EVAL_OBJECTS, 0)
+    batches = list(batches_of({"obss": obs, "masks": masks}, EVAL_BATCH))
+    ocr, _ = get_ocr(ocr_cfg, env_cfg, OCRCheckpointConfig(), seed=0)
+    evaluate(ocr, batches[:1], seed=0)                      # warm-up, outside the count
+    reset_launches()
+    results = evaluate(ocr, batches[1:], seed=1)
+    launches = dict(LAUNCHES)
+    per_batch = {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1,
+                 slot_routing.KERNEL: 2 * sa.num_iterations}
+    expected = {k: n * EVAL_BATCHES for k, n in per_batch.items()}
+    loss_ms = 1e3 * np.array([b["loss_s"] for b in results["batches"]])
+    gen_ms = 1e3 * np.array([b["gen_s"] for b in results["batches"]])
+    seconds = (loss_ms.sum() + gen_ms.sum()) / 1e3
+    print(f"  {card}: {EVAL_BATCHES} batches of {EVAL_BATCH}: "
+          f"{(loss_ms + gen_ms).mean():.3f} ms/batch ({EVAL_BATCH * EVAL_BATCHES / seconds:.1f} "
+          f"images/s): loss part {loss_ms.mean():.3f} ms (per batch "
+          f"{' '.join(f'{x:.3f}' for x in loss_ms)}), gen_imgs part {gen_ms.mean():.3f} ms "
+          f"({' '.join(f'{x:.3f}' for x in gen_ms)}); ari {results['ari']:.6f}, gen mse "
+          f"{results['mse']:.4f}", flush=True)
+    print(f"  launches {launches}, expected {expected}", flush=True)
+    if launches != expected:
+        raise SystemExit("the evaluation path did not launch each kernel as expected")
+    if not (np.isfinite([results["ari"], results["mse"]]).all()
+            and -1.0 <= results["ari"] <= 1.0 and results["mse"] > 0):
+        raise SystemExit(f"evaluation results out of range: {results}")
+    check_eval(ocr, batches[1])
+
+    sa_ocr, _ = get_ocr(config_replace(ocr_cfg, "use_bcdec", True), env_cfg,
+                        OCRCheckpointConfig(), seed=0)
+    evaluate(sa_ocr, batches[:1], seed=0)                   # warm-up, outside the count
+    reset_launches()
+    sa_results = evaluate(sa_ocr, batches[1:2], seed=1)
+    sa_launches = dict(LAUNCHES)
+    sa_expected = {slot_routing.KERNEL: sa.num_iterations}
+    print(f"  slotattention (use_bcdec), one batch of {EVAL_BATCH}: "
+          f"{1e3 * sa_results['batches'][0]['loss_s']:.3f} ms; ari {sa_results['ari']:.6f}, "
+          f"mse {sa_results['mse']:.4f}; launches {sa_launches}, expected {sa_expected}",
+          flush=True)
+    if sa_launches != sa_expected or not np.isfinite(sa_results["mse"]):
+        raise SystemExit("the Slot-Attention evaluation did not launch each kernel as expected")
+    check_eval(sa_ocr, batches[1])
+    return launches, sa_launches, dict(ocr=ocr, batch=batches[1])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -610,7 +779,8 @@ def main() -> int:
     with phase("kernels"):
         gen = torch.Generator(device="cuda").manual_seed(0)
         sweep = check_sweep(serving_shape, bw, flops, gen)
-        for shape in [train_shape, (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
+        for shape in [train_shape, (EVAL_BATCH,) + serving_shape[1:],
+                      (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep(shape, bw, flops, gen)
         sweep_bwd = check_sweep_bwd(train_shape, bw, flops, gen)
@@ -618,6 +788,8 @@ def main() -> int:
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep_bwd(shape, bw, flops, gen)
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
+        check_gumbel(EVAL_BATCH * (env_cfg.obs_size // 4) ** 2, ocr_cfg.dvae.vocab_size,
+                     bw, flops, gen)
         check_gumbel(1000, 512, bw, flops, gen)
         check_gumbel(7, 32, bw, flops, gen, time_it=False)
         check_id_frequencies(gen)
@@ -681,6 +853,9 @@ def main() -> int:
                 and moved == set(GROUP_OF.values())):
             raise SystemExit("training did not lower the loss or move every group")
 
+    with phase("evaluation"):
+        eval_launches, sa_launches, profiled_eval = evaluation_phase(ocr_cfg, env_cfg, card, sa)
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
@@ -689,11 +864,16 @@ def main() -> int:
             superbatch = np.concatenate([batch] * TRAIN_K)
             profile(f"training: {2 * TRAIN_K} steps",
                     lambda: ocr.update_many(superbatch, None, 0, TRAIN_K), 2, 25)
+            eval_batch = [profiled_eval["batch"]]
+            profile(f"evaluation: 1 batch of {EVAL_BATCH}",
+                    lambda: evaluate(profiled_eval["ocr"], eval_batch, seed=1), 1, 30)
 
     def row(name, source, replaces, result):
-        # launches: summed over the two main-path runs, serving and training
+        # launches: summed over the main-path runs: serving, training, and
+        # evaluation of SLATE and of Slot-Attention
+        runs = (launches, train_launches, eval_launches, sa_launches)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches.get(name, 0) + train_launches.get(name, 0),
+                    launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],
                     plain_ms=result["plain_ms"], bound_ms=result["bound_ms"],
                     bound_by=result["bound_by"], library_ms=result.get("library_ms"))

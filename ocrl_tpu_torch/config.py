@@ -4,7 +4,9 @@
   with ``use_bcdec=True``),
 - configs/pooling/{_base,transformer}.yaml (``PoolingConfig``),
 - configs/sb3_acnet/{_base,mlp}.yaml (``ACNetConfig``),
-- the image size of the synthetic envs (``EnvConfig``).
+- the image size of the synthetic envs (``EnvConfig``),
+- configs/get_ari_mse.yaml with the seed of configs/_base.yaml
+  (``GetAriMseConfig``).
 
 No YAML is read at run time. One value differs from the YAML on purpose:
 ``slotattr.fused`` is ``"auto"``, so the routing sweep takes the CUDA kernel
@@ -141,6 +143,21 @@ class PolicyConfig:
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
     num_actions: int = 4
+
+
+@dataclass(frozen=True)
+class GetAriMseConfig:
+    """``get_ari_mse ocr=slate`` (``slotattention``: ``ocr.use_bcdec``).
+    ``bg_mask_idx`` names the masks' background channel, which the
+    foreground ARI takes as the last one."""
+
+    ocr: OCRConfig = field(default_factory=OCRConfig)
+    env: EnvConfig = field(default_factory=EnvConfig)
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    batch_size: int = 32
+    bg_mask_idx: int = -1
+    with_gen_mse: bool = True
+    seed: int = 0
 
 
 def replace(cfg, path: str, value):

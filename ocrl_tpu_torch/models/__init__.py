@@ -1,4 +1,5 @@
-"""OCR models of the port (so far: SLATE, served and trained)."""
+"""OCR models of the port (so far: SLATE and Slot-Attention, served, trained
+and evaluated)."""
 
 from __future__ import annotations
 

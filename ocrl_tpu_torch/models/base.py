@@ -50,14 +50,23 @@ class OCR:
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._last_step = 0
 
-    def _obs(self, obs) -> torch.Tensor:
-        obs = torch.as_tensor(np.asarray(obs)) if not isinstance(obs, torch.Tensor) else obs
-        return normalize_obs(obs.to(self.device, non_blocking=True))
+    def _on_device(self, x) -> torch.Tensor:
+        x = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+        return x.to(self.device, non_blocking=True)
 
-    def _step(self, obs: torch.Tensor, step: int, noise: dict | None) -> dict:
+    def _obs(self, obs) -> torch.Tensor:
+        return normalize_obs(self._on_device(obs))
+
+    def _masks(self, masks) -> torch.Tensor | None:
+        """Masks [B, K, H, W, 1] (background last) as float32 on the device,
+        their values as given (base.py:301-302)."""
+        return None if masks is None else self._on_device(masks).to(torch.float32)
+
+    def _step(self, obs: torch.Tensor, masks: torch.Tensor | None, step: int,
+              noise: dict | None) -> dict:
         self.module.train()
         self.optimizer.zero_grad()
-        loss, metrics = self.module.loss(obs, None, step, True,
+        loss, metrics = self.module.loss(obs, masks, step, True,
                                          generator=self.generator, noise=noise)
         loss.backward()
         if self.clip is not None:
@@ -69,34 +78,36 @@ class OCR:
 
     def update(self, obs, masks, step: int, *, noise: dict | None = None) -> dict:
         """One optimizer step on a batch of observations (uint8 or float in
-        [0, 1], NHWC). Returns the metrics, tensors left on the device."""
-        if masks is not None:
-            raise NotImplementedError("training with masks (ARI) comes with the "
-                                      "evaluation slice")
+        [0, 1], NHWC), with masks [B, K, H, W, 1] an ``ari`` metric too.
+        Returns the metrics, tensors left on the device."""
         self._last_step = int(step)
-        return self._step(self._obs(obs), int(step), noise)
+        return self._step(self._obs(obs), self._masks(masks), int(step), noise)
 
     def update_many(self, obs, masks, step: int, k: int) -> dict:
         """k optimizer steps (step .. step+k-1) over a superbatch of k*B
-        observations, one batch each. Returns the metrics stacked (k,)."""
-        if masks is not None:
-            raise NotImplementedError("training with masks (ARI) comes with the "
-                                      "evaluation slice")
-        obs = self._obs(obs)
+        observations (and masks), one batch each. Returns the metrics
+        stacked (k,)."""
+        obs, masks = self._obs(obs), self._masks(masks)
         if obs.shape[0] % k:
             raise ValueError(f"superbatch of {obs.shape[0]} is not k={k} batches")
         batches = obs.reshape((k, obs.shape[0] // k) + obs.shape[1:])
-        steps = [self._step(batches[i], int(step) + i, None) for i in range(k)]
+        if masks is not None:
+            masks = masks.reshape((k, masks.shape[0] // k) + masks.shape[1:])
+        steps = [self._step(batches[i], None if masks is None else masks[i],
+                            int(step) + i, None) for i in range(k)]
         self._last_step = int(step) + k - 1
         return {key: _stack([m[key] for m in steps]) for key in steps[0]}
 
     @torch.no_grad()
-    def get_loss(self, obs, masks=None, step: int | None = None) -> dict:
-        """Eval metrics at the current training step's schedules."""
+    def get_loss(self, obs, masks=None, step: int | None = None, *,
+                 noise: dict | None = None) -> dict:
+        """Eval metrics at the current training step's schedules (tau of
+        the last step trained, 0 for a fresh or loaded OCR; base.py:226-234);
+        with masks an ``ari`` metric too. ``noise`` as for ``update``."""
         self.module.eval()
         step = self._last_step if step is None else step
-        _, metrics = self.module.loss(self._obs(obs), masks, step, False,
-                                      generator=self.generator)
+        _, metrics = self.module.loss(self._obs(obs), self._masks(masks), step, False,
+                                      generator=self.generator, noise=noise)
         return metrics
 
     def save(self) -> dict:

@@ -1,6 +1,5 @@
-"""Discrete VAE and CNN encoder of SLATE / Slot-Attention (counterpart of
-ocrl_tpu/models/dvae.py:15-91). The broadcast decoder (``use_bcdec``
-training) comes with a later slice."""
+"""Discrete VAE, CNN encoder and spatial-broadcast decoder of SLATE /
+Slot-Attention (counterpart of ocrl_tpu/models/dvae.py)."""
 
 from __future__ import annotations
 
@@ -8,7 +7,8 @@ import torch
 from torch import nn
 
 from ..ops import gumbel
-from .common import Conv2dBlock, conv2d, conv_nhwc, gumbel_softmax, pixel_shuffle
+from .common import (Conv2dBlock, PositionalEmbedding, conv2d, conv_nhwc, gumbel_softmax,
+                     pixel_shuffle)
 
 _SHUFFLE_AFTER = (4, 8)   # decoder blocks followed by pixel_shuffle(2)
 
@@ -96,3 +96,49 @@ class SlotAttnCNNEncoder(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(self.out, self.blocks(obs))
+
+
+class BroadCastDecoder(nn.Module):
+    """Spatial-broadcast decoder (ocrl_tpu/models/dvae.py:94-151): each slot
+    is broadcast over the image, positions are added, three conv layers and
+    a 3x3 conv give RGB and a mask logit per slot, and the slots' images
+    are composited with the softmax of their masks over the slots. NHWC.
+
+    The first conv is evaluated as the JAX module restructures it, with the
+    same math: its input ``broadcast(slot) + pos`` is linear in both terms,
+    so ``conv1(broadcast(s) + pos) = conv1(broadcast(s)) + conv1(pos) - b``,
+    and the slot term, constant over the image but for the zero padding, is
+    taken on a 5x5 grid (which holds every border pattern of a 5x5 conv
+    with padding 2) and tiled back to H x W."""
+
+    def __init__(self, obs_size: int, obs_channels: int, hidden_size: int,
+                 slot_size: int):
+        super().__init__()
+        self.obs_size = obs_size
+        self.obs_channels = obs_channels
+        self.conv1 = conv2d(slot_size, hidden_size, 5, 1, 2, weight_init="kaiming")
+        self.rest = nn.Sequential(
+            Conv2dBlock(hidden_size, hidden_size, 5, 1, 2),
+            Conv2dBlock(hidden_size, hidden_size, 5, 1, 2),
+            conv2d(hidden_size, obs_channels + 1, 3, 1, 1),
+        )
+        self.pos_emb = PositionalEmbedding(obs_size, slot_size)
+        H, k = obs_size, 5 // 2
+        border = torch.cat([torch.arange(k), torch.full((H - 2 * k,), k),
+                            torch.arange(k + 1, 2 * k + 1)])
+        self.register_buffer("border", border, persistent=False)
+
+    def forward(self, slots: torch.Tensor) -> torch.Tensor:
+        """slots [B, N, D] -> the composited image [B, H, W, C]."""
+        B, N, D = slots.shape
+        H = W = self.obs_size
+        proj = self.pos_emb(slots.new_zeros(1, H, W, D))           # [1, H, W, D]
+        small = conv_nhwc(self.conv1, slots.reshape(B * N, 1, 1, D).expand(B * N, 5, 5, D))
+        slot_part = small[:, self.border][:, :, self.border]       # [B*N, H, W, hidden]
+        x = torch.relu(slot_part + conv_nhwc(self.conv1, proj) - self.conv1.bias)
+        for layer in self.rest:
+            x = layer(x) if isinstance(layer, Conv2dBlock) else conv_nhwc(layer, x)
+        C = self.obs_channels
+        img_slots = x[..., :C].reshape(B, N, H, W, C)
+        masks = torch.softmax(x[..., C:].reshape(B, N, H, W, 1), dim=1)
+        return (img_slots * masks).sum(1)

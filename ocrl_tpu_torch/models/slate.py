@@ -4,19 +4,21 @@ autoregressive transformer decoder.
 The serving surface (NHWC observations -> CNN + positional features -> slot
 attention, slate.py:94-122) is all a policy builds (the default), as the JAX
 policy's parameter tree holds only what its forward touches; with
-``decoder=True`` the module adds the training surface: the dVAE, the token
-dictionary, the transformer decoder and the loss (slate.py:124-231).
-``make_optimizer`` builds the three Adam groups (slate.py:270-303).
+``decoder=True`` the module adds the training and evaluation surface: the
+dVAE, the token dictionary, the transformer decoder, with ``use_bcdec`` the
+broadcast decoder, the loss with its foreground ARI when given masks, and
+greedy generation (slate.py:124-256). ``make_optimizer`` builds the three
+Adam groups (slate.py:270-303).
 
 Random draws come from one explicit generator, in the JAX order: the soft
 sample's field (kernel B1), the token ids' field (kernel B2), the initial
 slots, then the dropout masks. ``loss`` takes ``noise``, a dict that may
 hold the Gumbel fields ``soft`` and ``ids`` ([B*h*w, vocab]) and the slot
 noise ``slots`` ([B, S, D]): a field it holds is used instead of a draw, a
-field it lacks is drawn and stored into it.
-
-Later slices: ARI with masks and ``gen_imgs`` (evaluation), ``use_bcdec``
-training (its broadcast decoder).
+field it lacks is drawn and stored into it. With ``use_bcdec`` the loss is
+the broadcast decoder's MSE, which reads neither the dVAE sample nor the
+token ids (slate.py:213-217): that branch computes neither and draws only
+the slot noise.
 """
 
 from __future__ import annotations
@@ -24,16 +26,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import EnvConfig, OCRConfig
 from ..ops import gumbel
+from ..utils.metrics import calculate_ari
 from .common import PositionalEmbedding, cosine_anneal, linear, linear_warmup
-from .dvae import SlotAttnCNNEncoder, dVAE
+from .dvae import BroadCastDecoder, SlotAttnCNNEncoder, dVAE
 from .slot_attention import SlotAttentionEncoder
 from .transformer import LearnedPositionalEncoding, TransformerDecoder
-
-EVALUATION_SLICE = "the evaluation slice (get_ari_mse)"
 
 
 def _field(noise: dict | None, key: str, like: torch.Tensor):
@@ -68,12 +70,13 @@ class SLATE_Module(nn.Module):
         bound = math.sqrt(6.0 / (1 + d))    # xavier_uniform of a (1, 1, d) param
         self.bos = nn.Parameter(torch.empty(1, 1, d).uniform_(-bound, bound))
         self.decoder = decoder
+        self.use_bcdec = ocr.use_bcdec
         if not decoder:
             return
         if ocr.use_bcdec:
-            raise NotImplementedError(
-                "use_bcdec training (BroadCastDecoder) comes with a later slice")
-        enc_size = env.obs_size // 4
+            self.bcdec = BroadCastDecoder(env.obs_size, env.obs_channels,
+                                          ocr.cnn.hidden_size, sa.slot_size)
+        self._enc_size = enc_size = env.obs_size // 4
         rate = ocr.learning.dropout
         self.dvae = dVAE(V, env.obs_channels)
         self.slotproj = linear(sa.slot_size, d, bias=False)
@@ -125,18 +128,67 @@ class SLATE_Module(nn.Module):
         ocr = self._ocr
         return cosine_anneal(step, ocr.tau_start, ocr.tau_final, 0, ocr.tau_steps)
 
-    def _teacher_forced_ce(self, slots: torch.Tensor, token_ids: torch.Tensor,
-                           train: bool, generator: torch.Generator | None = None):
-        """Cross-entropy of next-token prediction (slate.py:124-146), the
-        target log-probability gathered from the log-softmax."""
+    def teacher_forced_logits(self, slots: torch.Tensor, token_ids: torch.Tensor,
+                              train: bool = False,
+                              generator: torch.Generator | None = None) -> torch.Tensor:
+        """Next-token logits [B, T, vocab] of the decoder fed ``bos`` and the
+        tokens [B, T] before each position (slate.py:131-138)."""
         B = token_ids.shape[0]
         z_emb = self.dictionary(token_ids)
         z_emb = torch.cat([self.bos.expand(B, 1, -1), z_emb], dim=1)
         z_emb = self.z_pos(z_emb, train, generator)
         decoded = self.tfdec(z_emb[:, :-1], self.slotproj(slots), train, generator)
-        logp = torch.log_softmax(self.out(decoded), dim=-1)
+        return self.out(decoded)
+
+    def _teacher_forced_ce(self, slots: torch.Tensor, token_ids: torch.Tensor,
+                           train: bool, generator: torch.Generator | None = None):
+        """Cross-entropy of next-token prediction (slate.py:124-146), the
+        target log-probability gathered from the log-softmax."""
+        logp = torch.log_softmax(
+            self.teacher_forced_logits(slots, token_ids, train, generator), dim=-1)
         ce = -logp.gather(-1, token_ids[..., None])[..., 0]
         return ce.sum(-1).mean()
+
+    @torch.no_grad()
+    def gen_tokens(self, slots: torch.Tensor) -> torch.Tensor:
+        """Greedy decode of the h*w tokens [B, T] with K/V caches
+        (slate.py:148-169), one eager step a token where JAX scans."""
+        B = slots.shape[0]
+        cross_ks, cross_vs = self.tfdec.cross_kvs(self.slotproj(slots))
+        k_caches, v_caches = self.tfdec.make_caches(B, slots.device, slots.dtype)
+        T = self._enc_size ** 2
+        tokens = torch.empty(B, T, dtype=torch.long, device=slots.device)
+        emb = self.bos[0].expand(B, -1)
+        for t in range(T):
+            out_t = self.tfdec.step(emb + self.z_pos.slice_at(t), k_caches, v_caches,
+                                    t, cross_ks, cross_vs)
+            tokens[:, t] = torch.argmax(self.out(out_t), dim=-1)
+            emb = self.dictionary(tokens[:, t])
+        return tokens
+
+    @torch.no_grad()
+    def gen_imgs(self, slots: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens decoded as one-hot codes by the dVAE: images
+        [B, H, W, C] (slate.py:171-176)."""
+        tokens = self.gen_tokens(slots)
+        V, h = self.dictionary.num_embeddings, self._enc_size
+        z = F.one_hot(tokens, V).to(slots.dtype).reshape(slots.shape[0], h, h, V)
+        return self.dvae.decode(z)
+
+    def ari_pred_masks(self, attns: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """The predicted masks [B, S + 1, H, W, 1] that the foreground ARI
+        scores against ``masks`` [B, K, H, W, 1] (background last): the
+        attentions times the foreground, then the foreground itself
+        (slate.py:182-186)."""
+        B, HW, S = attns.shape
+        H = W = self._obs_size
+        attns_img = attns.transpose(1, 2).reshape(B, S, H, W, 1)
+        fg = 1.0 - masks[:, -1:]
+        return torch.cat([attns_img * fg, fg], dim=1)
+
+    def _ari(self, attns: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """Foreground-masked ARI, the batch mean (slate.py:178-187)."""
+        return calculate_ari(masks, self.ari_pred_masks(attns, masks)).mean()
 
     def loss(self, obs: torch.Tensor, masks: torch.Tensor | None = None,
              step: int = 0, train: bool = False, *,
@@ -145,9 +197,14 @@ class SLATE_Module(nn.Module):
         (slate.py:201-231); see the module docstring for ``noise``."""
         if not self.decoder:
             raise RuntimeError("this SLATE_Module was built without its decoder")
-        if masks is not None:
-            raise NotImplementedError(f"ARI with masks comes with {EVALUATION_SLICE}")
         ocr = self._ocr
+        if self.use_bcdec:
+            slots, attns = self.get_slots(obs, self._slot_noise(obs, generator, noise),
+                                          generator)
+            metrics = {} if masks is None else {"ari": self._ari(attns, masks)}
+            mse = ((obs - self.bcdec(slots)) ** 2).sum() / obs.shape[0]
+            metrics.update({"loss": mse, "mse": mse})
+            return mse, metrics
         tau = self.tau(step)
         z_logits = self.dvae.encode_logits(obs)
         B, H, W, V = z_logits.shape
@@ -158,14 +215,9 @@ class SLATE_Module(nn.Module):
         token_ids = gumbel.gumbel_argmax_ids(flat, generator=generator, noise=g,
                                              g_out=g_out).reshape(B, H * W)
 
-        slot_noise = None
-        if noise is not None:
-            if "slots" not in noise:
-                sa = ocr.slotattr
-                noise["slots"] = torch.randn((B, sa.num_slots, sa.slot_size),
-                                             generator=generator, device=obs.device)
-            slot_noise = noise["slots"]
-        slots, _ = self.get_slots(obs, slot_noise, generator)
+        slots, attns = self.get_slots(obs, self._slot_noise(obs, generator, noise),
+                                      generator)
+        metrics = {} if masks is None else {"ari": self._ari(attns, masks)}
 
         recon = self.dvae.decode(z.reshape(B, H, W, V))
         dvae_mse = ((obs - recon) ** 2).sum() / B
@@ -174,16 +226,36 @@ class SLATE_Module(nn.Module):
         lr = ocr.learning
         warm = linear_warmup(step, 0.0, 1.0, 0, lr.lr_warmup_steps)
         decay = 2.0 ** (-step / lr.lr_half_life)
-        return loss, {"loss": loss, "dvae_mse": dvae_mse, "cross_entropy": ce,
-                      "tau": tau, "lr_dvae": lr.lr_dvae,
-                      "lr_enc": decay * warm * lr.lr_enc,
-                      "lr_dec": decay * warm * lr.lr_dec}
+        metrics.update({"loss": loss, "dvae_mse": dvae_mse, "cross_entropy": ce,
+                        "tau": tau, "lr_dvae": lr.lr_dvae,
+                        "lr_enc": decay * warm * lr.lr_enc,
+                        "lr_dec": decay * warm * lr.lr_dec})
+        return loss, metrics
 
-    def gen_imgs(self, slots):
-        raise NotImplementedError(f"gen_imgs comes with {EVALUATION_SLICE}")
+    def _slot_noise(self, obs: torch.Tensor, generator: torch.Generator | None,
+                    noise: dict | None) -> torch.Tensor | None:
+        """The initial slots' noise held in ``noise``, drawn into it when it
+        lacks one; None (drawn by the encoder) without a dict."""
+        if noise is None:
+            return None
+        if "slots" not in noise:
+            sa = self._ocr.slotattr
+            noise["slots"] = torch.randn((obs.shape[0], sa.num_slots, sa.slot_size),
+                                         generator=generator, device=obs.device)
+        return noise["slots"]
 
-    def sample_arrays(self, obs):
-        raise NotImplementedError(f"sample_arrays comes with {EVALUATION_SLICE}")
+    @torch.no_grad()
+    def sample_arrays(self, obs: torch.Tensor, generator: torch.Generator | None = None):
+        """The arrays of a sample grid (slate.py:246-256): (obs, the
+        broadcast decoder's image, the attentions blended with obs), or
+        (obs, the dVAE reconstruction at tau_start, the generated image,
+        the blend). The grid itself is drawn on the host by the logger."""
+        if self.use_bcdec:
+            slots, attns_vis = self.forward_with_attns(obs, generator=generator)
+            return obs, self.bcdec(slots), attns_vis
+        z, _ = self.dvae(obs, self.tau(0), self._ocr.hard, generator)
+        slots, attns_vis = self.forward_with_attns(obs, generator=generator)
+        return obs, self.dvae.decode(z), self.gen_imgs(slots), attns_vis
 
 
 def dims(ocr_config: OCRConfig, env_config: EnvConfig) -> tuple[int, int]:

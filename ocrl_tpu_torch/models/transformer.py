@@ -4,8 +4,14 @@ causal self-attention and cross-attention to the slots. Plain matmuls and
 softmax, as the JAX package leaves them to XLA.
 
 Dropout draws its masks from the ``generator`` handed down each call and
-acts only when ``train`` is set. The KV-cached single-token decode comes
-with the evaluation slice.
+acts only when ``train`` is set.
+
+The decode path (transformer.py:56-89, 189-250, 267-270) takes one token at
+a time: each block's self-attention keeps K/V caches, tensors
+[blocks, B, heads, T_max, hd] that ``step`` writes in place at position t
+(callers run it under ``torch.no_grad``), with the positions after t masked
+with -inf before the softmax; the cross-attention's K/V over the slots are
+computed once (``cross_kvs``).
 """
 
 from __future__ import annotations
@@ -52,6 +58,35 @@ class MultiHeadAttention(nn.Module):
         out = (attn @ v).transpose(1, 2).reshape(B, T, -1)
         return dropout(self.proj_o(out), self.rate, generator, train)
 
+    # -- single-token decode ----------------------------------------------
+
+    def kv(self, x: torch.Tensor):
+        """K and V [B, heads, S, hd] of a fixed source x [B, S, d]."""
+        return self._split(self.proj_k(x)), self._split(self.proj_v(x))
+
+    def step_with_kv(self, q_t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor | None = None):
+        """One query token q_t [B, d] against precomputed K/V [B, heads, S, hd];
+        ``mask`` [S] is True where attention is cut."""
+        B = q_t.shape[0]
+        hd = q_t.shape[-1] // self.num_heads
+        q = self.proj_q(q_t).reshape(B, self.num_heads, 1, hd) * hd ** -0.5
+        attn = q @ k.transpose(-1, -2)                      # [B, H, 1, S]
+        if mask is not None:
+            attn = attn.masked_fill(mask, float("-inf"))
+        out = torch.softmax(attn, dim=-1) @ v                # [B, H, 1, hd]
+        return self.proj_o(out.reshape(B, -1))
+
+    def step_cached(self, q_t: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, t: int, after_t: torch.Tensor):
+        """Causal self-attention of token t: its K/V written into the caches
+        [B, heads, T_max, hd] at t, then attention over them with the
+        positions ``after_t`` [T_max] (True after t) cut. Returns [B, d]."""
+        B = q_t.shape[0]
+        k_cache[:, :, t] = self.proj_k(q_t).reshape(B, self.num_heads, -1)
+        v_cache[:, :, t] = self.proj_v(q_t).reshape(B, self.num_heads, -1)
+        return self.step_with_kv(q_t, k_cache, v_cache, after_t)
+
 
 class FFN(nn.Module):
     """ocrl_tpu/models/transformer.py:92-102."""
@@ -94,6 +129,21 @@ class TransformerDecoderBlock(nn.Module):
                                           None, train, generator)
         return x + self.ffn(self.ffn_layer_norm(x), train, generator)
 
+    def cross_kv(self, encoder_output: torch.Tensor):
+        return self.encoder_decoder_attn.kv(encoder_output)
+
+    def step(self, x_t, k_cache, v_cache, t: int, after_t, cross_k, cross_v):
+        """One decode token x_t [B, d]; writes this block's caches at t."""
+        if self.is_first:
+            x_t = self.self_attn_layer_norm(x_t)
+            x_t = x_t + self.self_attn.step_cached(x_t, k_cache, v_cache, t, after_t)
+        else:
+            normed = self.self_attn_layer_norm(x_t)
+            x_t = x_t + self.self_attn.step_cached(normed, k_cache, v_cache, t, after_t)
+        normed = self.encoder_decoder_attn_layer_norm(x_t)
+        x_t = x_t + self.encoder_decoder_attn.step_with_kv(normed, cross_k, cross_v)
+        return x_t + self.ffn(self.ffn_layer_norm(x_t))
+
 
 class TransformerDecoder(nn.Module):
     """ocrl_tpu/models/transformer.py:210-231: blocks with the output gain
@@ -103,6 +153,9 @@ class TransformerDecoder(nn.Module):
                  num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.max_len = max_len
+        # row t: the positions after t, cut from token t's self-attention
+        self.register_buffer("after", torch.ones(max_len, max_len, dtype=torch.bool).triu(1),
+                             persistent=False)
         gain = (3 * num_blocks) ** -0.5 if num_blocks > 0 else 1.0
         self.blocks = nn.ModuleList(
             TransformerDecoderBlock(d_model, num_heads, dropout, gain, is_first=(i == 0))
@@ -113,6 +166,28 @@ class TransformerDecoder(nn.Module):
         for block in self.blocks:
             x = block(x, encoder_output, train, generator)
         return self.layer_norm(x)
+
+    def make_caches(self, batch: int, device=None, dtype=torch.float32):
+        """Zeroed K and V caches [blocks, B, heads, max_len, hd]."""
+        attn = self.blocks[0].self_attn
+        d = attn.proj_q.in_features
+        shape = (len(self.blocks), batch, attn.num_heads, self.max_len,
+                 d // attn.num_heads)
+        return (torch.zeros(shape, device=device, dtype=dtype),
+                torch.zeros(shape, device=device, dtype=dtype))
+
+    def cross_kvs(self, encoder_output: torch.Tensor):
+        """Each block's cross-attention K and V, stacked [blocks, B, heads, S, hd]."""
+        ks, vs = zip(*(block.cross_kv(encoder_output) for block in self.blocks))
+        return torch.stack(ks), torch.stack(vs)
+
+    def step(self, x_t, k_caches, v_caches, t: int, cross_ks, cross_vs):
+        """One token x_t [B, d] through every block, writing the caches in
+        place at t."""
+        for i, block in enumerate(self.blocks):
+            x_t = block.step(x_t, k_caches[i], v_caches[i], t, self.after[t],
+                             cross_ks[i], cross_vs[i])
+        return self.layer_norm(x_t)
 
 
 class LearnedPositionalEncoding(nn.Module):
@@ -126,3 +201,7 @@ class LearnedPositionalEncoding(nn.Module):
 
     def forward(self, x, train: bool = False, generator=None):
         return dropout(x + self.pe[:, :x.shape[1]], self.rate, generator, train)
+
+    def slice_at(self, t: int) -> torch.Tensor:
+        """pe[t] for the decode path: [1, d]."""
+        return self.pe[0, t:t + 1]

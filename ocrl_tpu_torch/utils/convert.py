@@ -17,11 +17,11 @@ built by the JAX package (nested dicts of numpy arrays, as
   are.
 
 ``ocr_from_flax(params)`` does the same for an OCR's own tree, as
-``OCR.params`` of the JAX package holds it, and returns the ``state_dict``
-of the port's ``SLATE_Module(..., decoder=True)``.
+``OCR.params`` of the JAX package holds it (or a checkpoint's
+``ocr_module_state_dict``), and returns the ``state_dict`` of the port's
+``SLATE_Module(..., decoder=True)``, the broadcast decoder's included.
 
-A key the port does not build raises, except the OCR subtrees that later
-slices build (``LATER_SLICES``: the broadcast decoder), which are skipped.
+A key the port does not build raises.
 """
 
 from __future__ import annotations
@@ -30,8 +30,6 @@ import re
 
 import numpy as np
 import torch
-
-LATER_SLICES = ("bcdec",)
 
 _SA = "ocr_module/slotattn/slot_attention"
 _LAYER = r"pooling_module/CoreTransformer_0/TorchEncoderLayer_(\d+)"
@@ -53,6 +51,10 @@ _MODULES = [
     (r"ocr_module/dvae/decoder_blocks_(\d+)/Conv_0",
      r"ocr_module.dvae.decoder_blocks.\1.conv"),
     (r"ocr_module/dvae/decoder_out", "ocr_module.dvae.decoder_out"),
+    (r"ocr_module/bcdec/conv1", "ocr_module.bcdec.conv1"),
+    (r"ocr_module/bcdec/pos_emb/channels_map", "ocr_module.bcdec.pos_emb.channels_map"),
+    (r"ocr_module/bcdec/rest/layers_([01])/Conv_0", r"ocr_module.bcdec.rest.\1.conv"),
+    (r"ocr_module/bcdec/rest/layers_2", "ocr_module.bcdec.rest.2"),
     (r"ocr_module/(dictionary|z_pos|slotproj|out)", r"ocr_module.\1"),
     (_DEC + r"/(self_attn|encoder_decoder_attn)/(proj_[qkvo])",
      r"ocr_module.tfdec.blocks.\1.\2.\3"),
@@ -116,8 +118,6 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
     """The JAX policy's parameter tree -> the port policy's ``state_dict``."""
     state = {}
     for path, value in _flatten(params):
-        if path[0] == "ocr_module" and path[1] in LATER_SLICES:
-            continue
         try:
             module = _module("/".join(path[:-1]))
             name, x = _leaf(module, path[-1], np.asarray(value, np.float32))

@@ -210,3 +210,37 @@ def test_gumbel_fields_replay_exactly_on_the_card(cuda, shape):
         seed = gumbel.replayed_seed(state, "cuda")
         exact = torch.from_numpy(gumbel.replay_field(seed, stream, *shape))
         assert (g.cpu().double() - exact).abs().max().item() <= 1e-5, stream
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bcdec", [False, True])
+def test_evaluation_batch_matches_plain_on_the_card(cuda, bcdec):
+    """One full-width evaluation batch of 4 painted scenes through
+    get_ari_mse.evaluate launches B1, B2 once and B3 six times (the loss's
+    slot attention and the generation's; Slot-Attention: B3 three times,
+    no Gumbel kernel, no generation), and agrees with the same OCR on the
+    plain versions under the rules of chip_smoke.py's evaluation phase
+    (``check_eval``: loss metrics 1e-5 relative, ARI label maps equal but
+    where an attention lies within 1e-6 of 1.0, greedy tokens equal up to
+    each row's first near-tie)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import check_eval, painted
+    from ocrl_tpu_torch.config import EnvConfig, OCRCheckpointConfig, OCRConfig
+    from ocrl_tpu_torch.get_ari_mse import evaluate
+    from ocrl_tpu_torch.utils.checkpoint import get_ocr
+
+    ocr, _ = get_ocr(OCRConfig(use_bcdec=bcdec), EnvConfig(), OCRCheckpointConfig(), seed=0)
+    obs, masks = painted(4, 64, 4, 0)
+    batch = {"obss": obs, "masks": masks}
+    reset_launches()
+    results = evaluate(ocr, [batch], seed=1)
+    torch.cuda.synchronize()
+    if bcdec:
+        assert LAUNCHES == {tsr.KERNEL: 3}
+    else:
+        assert LAUNCHES == {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, tsr.KERNEL: 6}
+    assert np.isfinite([results["ari"], results["mse"]]).all()
+    assert all(check_eval(ocr, batch).values())

@@ -495,12 +495,17 @@ def test_slate_loss_and_metrics(step, monkeypatch):
 
 
 def test_slate_training_surface_refuses_later_slices():
-    _, _, tm = small_train_modules()
+    """What is still refused: the loss of a module built without its decoder
+    (a policy's), and OCRs other than SLATE, which come with a later slice.
+    Masks, generation and use_bcdec, refused before the evaluation slice,
+    are held against JAX in test_torch_eval.py."""
+    from ocrl_tpu_torch.models import create_ocr
+
+    port = small_port_config()
     obs = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
-        tm.loss(obs, torch.zeros(1, 4, 16, 16, 1))
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
-        tm.gen_imgs(torch.zeros(1, 3, 32))
-    port = tcfg.replace(small_port_config(), "ocr.use_bcdec", True)
-    with pytest.raises(NotImplementedError, match="use_bcdec"):
-        SLATE_Module(port.ocr, port.env, decoder=True)
+    with pytest.raises(RuntimeError, match="without its decoder"):
+        SLATE_Module(port.ocr, port.env).loss(obs, torch.zeros(1, 4, 16, 16, 1))
+    with pytest.raises(NotImplementedError, match="other OCRs"):
+        create_ocr(tcfg.replace(port.ocr, "name", "Iodine"), port.env, device="cpu")
+    _, _, tm = small_train_modules([("ocr.use_bcdec", True)])
+    assert tm.use_bcdec and hasattr(tm, "bcdec") and hasattr(tm, "tfdec")

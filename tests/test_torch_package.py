@@ -13,7 +13,7 @@ from ocrl_tpu.config import compose
 from ocrl_tpu_torch import config as tcfg
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "h5py", "ocrl_tpu",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "h5py", "msgpack", "ocrl_tpu",
              "torch.utils.cpp_extension")
 
 
