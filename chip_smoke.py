@@ -39,7 +39,26 @@ Phases, each printing its own line with its seconds:
    against the same model with every kernel replaced by its plain version
    (loss metrics, the ARI's label maps, the greedy tokens); then the
    Slot-Attention OCR (use_bcdec) scores one batch, with its launch counts,
-   against its plain version.
+   against its plain version;
+7. rl-training: train_sb3.train of the slate-transformer-0.01ent_coef row
+   (ocr=slate pooling=transformer sb3=ppo sb3_acnet=mlp env=target-N4C4S3S1
+   sb3.algo_kwargs.ent_coef=0.01, no OCR checkpoint: end to end; full
+   widths, random weights from seed 0) for one PPO iteration at the
+   config's own num_envs 4, n_steps 2048, batch_size 32, n_epochs 10: 512
+   rollout steps, the bootstrap value, then 640 minibatch updates, with
+   the launch counts reset just before and read just after (B3 exactly
+   3 x 1153, B4 exactly 3 x 640); the iteration's seconds, env steps/s,
+   ms per policy call at E = 4 and per minibatch update; one minibatch
+   update against the same policy on the plain sweep, fed the same
+   minibatch and slot noise; then 10 updates with the OCR frozen (no B4,
+   the OCR bitwise unchanged); then evaluate_policy on 20 envs for 20
+   episodes (B3 three times a policy call);
+8. agent-evaluation: test_sb3 on the committed GT-Transformer agent
+   artifacts/rl/GT-Transformer-PPO-OddOneOutN4C2S2S1Env-final (the slice of
+   seed 1234) for 100 episodes on 20 envs, its success rate beside the
+   manifest's value for that seed (a sanity band, not a condition); the
+   condition: its logits and values on 64 env states agree between the
+   card and the CPU.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -58,15 +77,18 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 import torch
 
-from ocrl_tpu_torch.config import EnvConfig, OCRCheckpointConfig, OCRConfig, PolicyConfig
+from ocrl_tpu_torch import test_sb3, train_sb3
+from ocrl_tpu_torch.config import (EnvConfig, OCRCheckpointConfig, OCRConfig, PolicyConfig,
+                                   TestSB3Config, TrainSB3Config, compose)
 from ocrl_tpu_torch.config import replace as config_replace
+from ocrl_tpu_torch.envs import make_env
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.base import normalize_obs
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
-from ocrl_tpu_torch.rl import PPO, build_policy
+from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
 from ocrl_tpu_torch.utils.checkpoint import get_ocr
 from ocrl_tpu_torch.utils.metrics import mask_labels
 
@@ -106,6 +128,23 @@ STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR, STEP_MOVE_TOL = 1e-5, 1e-3, 1e-6
 # where the plain side's two largest logits lie within 1e-4 (there rounding
 # may pick either token, and every later token follows from it).
 EVAL_RTOL, ARI_SATURATION, GEN_GAP = 1e-5, 1e-6, 1e-4
+# One PPO minibatch update, kernels against the plain sweep fed the same
+# minibatch and slot noise: loss metrics to 1e-5 of max(|value|, 1) (means of
+# O(1) terms that cancel); parameters to 1e-5 of max(the leaf's largest
+# entry, 1e-2): zero-initialised biases hold only their Adam step of about
+# lr, and Adam turns rounding of a gradient entry near its eps 1e-5 into a
+# few 1e-5 of a step (as tests/test_torch_rl.py holds the port to JAX).
+# The GT agent, card against CPU: 1e-5 of max(|value|, 1).
+RL_TOL, RL_METRIC_FLOOR, RL_PARAM_FLOOR = 1e-5, 1.0, 1e-2
+RL_ARGV = ["ocr=slate", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
+           "env=target-N4C4S3S1", "sb3.algo_kwargs.ent_coef=0.01", "max_steps=2048",
+           "run_dir=outputs/chip_smoke/train_sb3"]
+RL_FROZEN_UPDATES, RL_EVAL_ENVS, RL_EVAL_EPISODES, RL_ACT_CALLS = 10, 20, 20, 50
+AGENT = "artifacts/rl/GT-Transformer-PPO-OddOneOutN4C2S2S1Env-final"
+AGENT_ARGV = ["ocr=gt", "pooling=transformer", "pooling.num_layers=3", "sb3=ppo",
+              "sb3_acnet=mlp", "env=odd-one-out-N4C2S2S1", f"agent_checkpoint.file={AGENT}",
+              "agent_checkpoint.index=0", "n_eval_episodes=100"]
+AGENT_CELL, AGENT_STATES = "GT-PropertyComparison", 64    # round5_rl_evals.json
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -744,6 +783,218 @@ def evaluation_phase(ocr_cfg, env_cfg, card: str, sa) -> tuple[dict, dict, dict]
     return launches, sa_launches, dict(ocr=ocr, batch=batches[1])
 
 
+def _close_leaves(got: dict, want: dict, floor: float) -> float:
+    """The worst |got - want| over RL_TOL x max(the leaf's largest |want|,
+    floor), over the leaves of two state dicts."""
+    worst = 0.0
+    for k, w in want.items():
+        err = (got[k] - w).abs().max().item()
+        worst = max(worst, err / (RL_TOL * max(w.abs().max().item(), floor)))
+    return worst
+
+
+def check_update(cfg, data: dict, idx: torch.Tensor) -> None:
+    """One minibatch update of a fresh policy (seed 0) through the kernels
+    against the same update on the plain sweep, fed the same minibatch and
+    slot noise."""
+    sa = cfg.ocr.slotattr
+    noise = torch.randn((idx.numel(), sa.num_slots, sa.slot_size), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    algos = [PPO(build_policy(cfg.policy_config(), seed=0), data["obs"].shape[1:], True,
+                 cfg.num_envs, cfg.sb3.algo_kwargs, seed=0) for _ in range(2)]
+    got = algos[0].update_minibatch(data, idx, noise)
+    with plain_sweep():
+        want = algos[1].update_minibatch(data, idx, noise)
+    torch.cuda.synchronize()
+    errs = {k: abs(got[k].item() - want[k].item()) / (RL_TOL * max(abs(want[k].item()),
+                                                                    RL_METRIC_FLOOR))
+            for k in want}
+    worst_key = max(errs, key=errs.get)
+    params = _close_leaves(algos[0].policy.state_dict(), algos[1].policy.state_dict(),
+                           RL_PARAM_FLOOR)
+    finite = all(torch.isfinite(v) for v in got.values())
+    ok = errs[worst_key] <= 1 and params <= 1 and finite
+    print(f"  update check against the plain sweep (minibatch of {idx.numel()}): loss "
+          f"{got['loss'].item():.6f} vs {want['loss'].item():.6f}; metrics worst {worst_key} "
+          f"at {errs[worst_key]:.3f} of its tolerance ({RL_TOL} of max(|value|, "
+          f"{RL_METRIC_FLOOR})); parameters worst {params:.3f} of theirs ({RL_TOL} of "
+          f"max(leaf max, {RL_PARAM_FLOOR})) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit("the PPO update disagrees with its plain version")
+
+
+def rl_training_phase(card: str) -> dict:
+    """One full PPO iteration through train_sb3.train, the update check,
+    frozen updates and an evaluation. Returns the launch counts of its runs
+    and what the profile needs."""
+    cfg = compose(TrainSB3Config(), RL_ARGV)
+    algo_cfg = cfg.sb3.algo_kwargs
+    n_steps = algo_cfg.n_steps // cfg.num_envs
+    updates = algo_cfg.n_epochs * -(-algo_cfg.n_steps // algo_cfg.batch_size)
+    calls = n_steps + 1                       # the rollout's and the bootstrap value's
+    sa = cfg.ocr.slotattr
+    reset_launches()
+    result = train_sb3.train(cfg)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    algo, it = result["algo"], result["algo"].last_iteration
+    expected = {slot_routing.KERNEL: sa.num_iterations * (calls + updates),
+                slot_routing.BWD_KERNEL: sa.num_iterations * updates}
+    seconds = it["rollout_s"] + it["update_s"]
+    print(f"  {card}: one PPO iteration (E2E slate-transformer, {RL_ARGV[4]}, "
+          f"num_envs {cfg.num_envs}, n_steps {algo_cfg.n_steps}, batch {algo_cfg.batch_size}, "
+          f"{algo_cfg.n_epochs} epochs) in {seconds:.3f} s: rollout {it['rollout_s']:.3f} s "
+          f"({it['env_steps']} env steps, {it['env_steps'] / it['rollout_s']:.1f} env steps/s, "
+          f"{1e3 * it['rollout_s'] / n_steps:.3f} ms a vector step), {it['updates']} updates "
+          f"in {it['update_s']:.3f} s ({1e3 * it['update_s'] / it['updates']:.3f} ms an "
+          f"update); metrics {result['metrics']}", flush=True)
+    print(f"  launches {launches}, expected {expected} (B3 {sa.num_iterations} x ({calls} "
+          f"policy calls + {updates} updates), B4 {sa.num_iterations} x {updates})", flush=True)
+    if launches != expected or it["updates"] != updates or algo.num_timesteps != algo_cfg.n_steps:
+        raise SystemExit("the PPO iteration did not launch each kernel as expected")
+    if not all(np.isfinite(v) for v in result["metrics"].values()):
+        raise SystemExit(f"PPO metrics are not finite: {result['metrics']}")
+
+    # the policy call of the rollout alone, at E = num_envs
+    env_cfg = cfg.env
+    obs = np.stack([make_env(env_cfg, 1000 + i).reset() for i in range(cfg.num_envs)])
+    act_ms = 1e3 * _timed_calls(lambda: torch.stack([t.float() for t in algo.act(obs)]).cpu(),
+                                RL_ACT_CALLS)
+    train_envs = make_vec_env(make_env, env_cfg, cfg.num_envs, seed=3000, mode=cfg.vec_env)
+    try:
+        train_envs.reset()
+        actions = np.random.default_rng(1).integers(0, 4, (RL_ACT_CALLS + 3, cfg.num_envs))
+        steps = iter(actions)
+        step_ms = 1e3 * _timed_calls(lambda: train_envs.step(next(steps)), RL_ACT_CALLS)
+    finally:
+        train_envs.close()
+    print(f"  policy call at E = {cfg.num_envs} (act, results to the host): {act_ms:.3f} ms; "
+          f"the env step alone ({type(train_envs).__name__}, E = {cfg.num_envs}): "
+          f"{step_ms:.3f} ms; each over {RL_ACT_CALLS} calls", flush=True)
+
+    rng = np.random.default_rng(0)
+    batch = {"obs": np.stack([make_env(env_cfg, 2000 + i).reset() for i in range(64)]),
+             "actions": rng.integers(0, 4, 64).astype(np.int32),
+             "logprobs": np.full(64, np.log(0.25), np.float32),
+             "values": rng.standard_normal(64).astype(np.float32),
+             "advantages": rng.standard_normal(64).astype(np.float32),
+             "returns": rng.standard_normal(64).astype(np.float32)}
+    data = algo.upload(batch)
+    idx = torch.arange(algo_cfg.batch_size, device="cuda")
+    check_update(cfg, data, idx)
+
+    frozen = PPO(build_policy(cfg.policy_config(), seed=0), obs.shape[1:], True, cfg.num_envs,
+                 algo_cfg, seed=0, freeze_ocr=True)
+    ocr_start = {k: v.clone() for k, v in frozen.policy.ocr_module.state_dict().items()}
+    perm = torch.randperm(64, device="cuda", generator=torch.Generator(device="cuda")
+                          .manual_seed(3))
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(RL_FROZEN_UPDATES):
+        m = frozen.update_minibatch(data, perm[(i % 2) * 32:(i % 2) * 32 + 32])
+    torch.cuda.synchronize()
+    frozen_ms = 1e3 * (time.perf_counter() - t0) / RL_FROZEN_UPDATES
+    frozen_launches = dict(LAUNCHES)
+    frozen_expected = {slot_routing.KERNEL: sa.num_iterations * RL_FROZEN_UPDATES}
+    unchanged = all(torch.equal(v, ocr_start[k])
+                    for k, v in frozen.policy.ocr_module.state_dict().items())
+    print(f"  frozen OCR: {RL_FROZEN_UPDATES} updates, {frozen_ms:.3f} ms an update, launches "
+          f"{frozen_launches}, expected {frozen_expected}; OCR parameters bitwise unchanged: "
+          f"{'yes' if unchanged else 'NO'}; last loss {m['loss'].item():.6f}", flush=True)
+    if frozen_launches != frozen_expected or not unchanged:
+        raise SystemExit("the frozen-OCR update launched B4 or moved the OCR")
+
+    eval_env = make_vec_env(make_env, env_cfg, RL_EVAL_ENVS, seed=cfg.seed + cfg.num_envs)
+    counted = _CountedPredict(algo)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = evaluate_policy(counted, eval_env, n_episodes=RL_EVAL_EPISODES)
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(LAUNCHES)
+    finally:
+        eval_env.close()
+    eval_expected = {slot_routing.KERNEL: sa.num_iterations * counted.calls}
+    print(f"  evaluate_policy on {RL_EVAL_ENVS} envs, {RL_EVAL_EPISODES} episodes: {metrics}; "
+          f"{counted.calls} policy calls in {eval_s:.3f} s ({1e3 * eval_s / counted.calls:.3f} "
+          f"ms a vector step); launches {eval_launches}, expected {eval_expected}", flush=True)
+    if eval_launches != eval_expected or not 0 <= metrics["success_rate"] <= 1:
+        raise SystemExit("the evaluation did not launch B3 three times a policy call")
+    return dict(launches=(launches, frozen_launches, eval_launches), algo=algo, frozen=frozen,
+                data=data, idx=idx, obs=obs)
+
+
+class _CountedPredict:
+    """``algo``'s predict, counting its calls."""
+
+    def __init__(self, algo):
+        self.algo, self.calls, self.obs_shape = algo, 0, algo.obs_shape
+
+    def predict(self, obs, deterministic: bool = False):
+        self.calls += 1
+        return self.algo.predict(obs, deterministic)
+
+
+def _timed_calls(fn, reps: int) -> float:
+    """Seconds per call of ``fn`` (which ends on the host), after 3 warm-up
+    calls."""
+    for _ in range(3):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def agent_evaluation_phase(card: str) -> None:
+    """test_sb3 on the committed GT agent, beside the manifest's value for
+    its seed; then its logits and values, card against CPU."""
+    cell = json.loads(open("artifacts/manifests/round5_rl_evals.json").read())["cells"][AGENT_CELL]
+    cfg = compose(TestSB3Config(), AGENT_ARGV)
+    t0 = time.perf_counter()
+    metrics = test_sb3.main(AGENT_ARGV)
+    seconds = time.perf_counter() - t0
+    index = cfg.agent_checkpoint.index
+    print(f"  {card}: test_sb3 {AGENT} (seed {metrics['seed']}, slice {index}), "
+          f"{cfg.n_eval_episodes} episodes on {min(cfg.n_eval_episodes, 20)} envs in "
+          f"{seconds:.3f} s: success {metrics['success_rate']:.3f}, mean reward "
+          f"{metrics['mean_reward']:.3f}, mean length {metrics['mean_ep_length']:.2f}; the "
+          f"manifest's {AGENT_CELL} final for this seed {cell['final'][index]} (seeds spread "
+          f"{min(cell['final'])}-{max(cell['final'])}; a sanity band, not a condition)",
+          flush=True)
+    if not 0 <= metrics["success_rate"] <= 1:
+        raise SystemExit(f"test_sb3 gave {metrics}")
+    env_cfg = config_replace(cfg.env, "render_mode", "state")
+    env, states = make_env(env_cfg, 7), []
+    obs, rng = env.reset(), np.random.default_rng(7)
+    while len(states) < AGENT_STATES:
+        states.append(obs)
+        obs, _, done, _ = env.step(int(rng.integers(4)))
+        if done:
+            obs = env.reset()
+    states = np.stack(states).astype(np.float32)
+    cfg = config_replace(cfg, "env.render_mode", "state")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        algo, _ = test_sb3.load_agent(cfg, states.shape[1:], device)
+        _, logits, values = algo.act_deterministic(states)
+        outs[device] = (logits.cpu(), values.cpu())
+        if device == "cpu":
+            with torch.no_grad():
+                outs["cpu64"] = algo.policy.double()(torch.from_numpy(states).double())
+    errs = [(g - w).abs().max().item() / max(w.abs().max().item(), 1.0)
+            for g, w in zip(outs["cuda"], outs["cpu"])]
+    to64 = {d: max((a.double() - b).abs().max().item() for a, b in zip(outs[d], outs["cpu64"]))
+            for d in ("cuda", "cpu")}
+    ok = all(e <= RL_TOL for e in errs) and all(torch.isfinite(t).all() for t in outs["cuda"])
+    print(f"  logits / values on {AGENT_STATES} env states, card against CPU: "
+          f"{errs[0]:.3e} / {errs[1]:.3e} of max(|value|, 1) (tolerance {RL_TOL}) "
+          f"{'ok' if ok else 'MISMATCH'}; from the float64 evaluation: card {to64['cuda']:.3e}, "
+          f"CPU {to64['cpu']:.3e}", flush=True)
+    if not ok:
+        raise SystemExit("the GT agent's card and CPU outputs disagree")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -779,12 +1030,17 @@ def main() -> int:
     with phase("kernels"):
         gen = torch.Generator(device="cuda").manual_seed(0)
         sweep = check_sweep(serving_shape, bw, flops, gen)
+        # the RL shapes: the rollout's policy call at E = 4, the evaluation's
+        # at E = 20 and the minibatch update's at 32 (also the evaluation
+        # batch's)
         for shape in [train_shape, (EVAL_BATCH,) + serving_shape[1:],
-                      (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
+                      (BATCHES[1],) + serving_shape[1:], (4,) + serving_shape[1:],
+                      (20,) + serving_shape[1:], (2, 4096, 6, 192),
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep(shape, bw, flops, gen)
         sweep_bwd = check_sweep_bwd(train_shape, bw, flops, gen)
-        for shape in [serving_shape, (BATCHES[1],) + serving_shape[1:], (2, 4096, 6, 192),
+        for shape in [serving_shape, (BATCHES[1],) + serving_shape[1:],
+                      (EVAL_BATCH,) + serving_shape[1:], (2, 4096, 6, 192),
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep_bwd(shape, bw, flops, gen)
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
@@ -856,6 +1112,12 @@ def main() -> int:
     with phase("evaluation"):
         eval_launches, sa_launches, profiled_eval = evaluation_phase(ocr_cfg, env_cfg, card, sa)
 
+    with phase("rl-training"):
+        rl = rl_training_phase(card)
+
+    with phase("agent-evaluation"):
+        agent_evaluation_phase(card)
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
@@ -867,11 +1129,19 @@ def main() -> int:
             eval_batch = [profiled_eval["batch"]]
             profile(f"evaluation: 1 batch of {EVAL_BATCH}",
                     lambda: evaluate(profiled_eval["ocr"], eval_batch, seed=1), 1, 30)
+            rl_obs = rl["obs"]
+            profile(f"rl: 20 policy calls at E = {rl_obs.shape[0]}",
+                    lambda: rl["algo"].act(rl_obs)[0].cpu(), 20, 15)
+            profile("rl: 10 minibatch updates (end to end)",
+                    lambda: rl["algo"].update_minibatch(rl["data"], rl["idx"]), 10, 25)
+            profile("rl: 10 minibatch updates (OCR frozen)",
+                    lambda: rl["frozen"].update_minibatch(rl["data"], rl["idx"]), 10, 20)
 
     def row(name, source, replaces, result):
-        # launches: summed over the main-path runs: serving, training, and
-        # evaluation of SLATE and of Slot-Attention
-        runs = (launches, train_launches, eval_launches, sa_launches)
+        # launches: summed over the main-path runs: serving, training,
+        # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
+        # frozen updates and the RL evaluation
+        runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

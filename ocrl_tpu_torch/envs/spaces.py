@@ -1,0 +1,32 @@
+"""The two action / observation spaces the sprite envs declare, with the
+attributes the envs, the vec envs and PPO read (stand-ins for gymnasium's
+``spaces.Discrete`` and ``spaces.Box``)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class Discrete:
+    """Actions 0 .. n-1."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self.shape = ()
+        self.dtype = np.dtype(np.int64)
+
+    def __repr__(self) -> str:
+        return f"Discrete({self.n})"
+
+
+class Box:
+    """Arrays of ``shape`` and ``dtype`` with entries in [low, high]."""
+
+    def __init__(self, low, high, shape: tuple[int, ...], dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self.low = np.full(self.shape, low, self.dtype)
+        self.high = np.full(self.shape, high, self.dtype)
+
+    def __repr__(self) -> str:
+        return f"Box({self.shape}, {self.dtype})"

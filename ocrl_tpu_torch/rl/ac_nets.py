@@ -81,9 +81,13 @@ class ActorCriticPolicy(nn.Module):
 
     def ocr_rep(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """The OCR representation alone; cut from the graph when frozen."""
-        rep = self.ocr_module(obs, noise=noise, generator=generator)
-        return rep.detach() if self.freeze_ocr else rep
+        """The OCR representation alone. Frozen, the OCR runs without
+        autograd (JAX's stop_gradient): it builds no graph and saves
+        nothing, so no backward kernel runs for it."""
+        if not self.freeze_ocr:
+            return self.ocr_module(obs, noise=noise, generator=generator)
+        with torch.no_grad():
+            return self.ocr_module(obs, noise=noise, generator=generator)
 
     def heads_from_rep(self, rep: torch.Tensor):
         """Pooling + AC heads from an OCR representation -> (logits, value)."""

@@ -1,9 +1,12 @@
-"""Policy construction (counterpart of ocrl_tpu/rl/extractor.py:19-37).
+"""Policy construction (counterpart of ocrl_tpu/rl/extractor.py): OCR +
+pooling + actor-critic heads, for SLATE (and Slot-Attention) and GT.
 
-The policy gets fresh weights made from ``seed``. Loading a checkpoint
-written by the JAX package waits for a later slice (its envelope needs flax
-serialization); ``utils.convert.from_flax`` carries a JAX parameter tree
-across meanwhile. Without a checkpoint the OCR is not frozen, as in JAX.
+The JAX freeze rule (ocrl_tpu/rl/extractor.py:24-25): a configured OCR
+checkpoint (``pooling.ocr_checkpoint``) makes the OCR pretrained, and a
+pretrained OCR is frozen unless ``finetuning``; without a checkpoint the OCR
+trains end to end with the policy. ``build_policy`` loads the checkpoint's
+OCR through ``utils.checkpoint.get_ocr`` and sets ``policy.freeze_ocr``.
+``utils.convert.from_flax`` carries a whole JAX policy across.
 """
 
 from __future__ import annotations
@@ -12,27 +15,47 @@ import torch
 
 from ..config import PolicyConfig
 from ..device import resolve_device
-from ..models import SLATE_Module, dims
+from ..models import LATER, GT_Module, SLATE_Module, dims
 from ..poolings import create_pooling_module, pooled_dim
+from ..utils.checkpoint import get_ocr, resolve_ocr_checkpoint_path
 from .ac_nets import ActorCriticPolicy
 
 
 def build_policy(config: PolicyConfig, seed: int = 0,
                  device: str | torch.device | None = None) -> ActorCriticPolicy:
-    """The policy of ``config`` on ``device`` (CUDA unless asked otherwise),
-    in eval mode. Its weights are drawn on the CPU, so a seed gives the same
-    weights on every device."""
+    """The policy of ``config`` (any config with ``ocr``, ``pooling``,
+    ``sb3_acnet`` and ``env``) on ``device`` (CUDA unless asked otherwise),
+    in eval mode, its OCR frozen by the JAX rule. Its weights are drawn on
+    the CPU from ``seed``, so a seed gives the same weights on every
+    device."""
     device = resolve_device(device)
-    if config.ocr.name != "SLATE":
-        raise NotImplementedError(
-            f"OCR '{config.ocr.name}' comes with the slice that ports the other OCRs")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        ocr = SLATE_Module(config.ocr, config.env)
+        if config.ocr.name == "GT":
+            ocr = GT_Module(config.ocr, config.env)
+        elif config.ocr.name == "SLATE":
+            ocr = SLATE_Module(config.ocr, config.env)
+        else:
+            raise NotImplementedError(f"OCR '{config.ocr.name}' comes with {LATER}")
         rep_dim, num_slots = dims(config.ocr, config.env)
         pooling = create_pooling_module(config.pooling, rep_dim, num_slots,
                                         config.env.num_stacked_obss)
         policy = ActorCriticPolicy(ocr, pooling, config.sb3_acnet,
                                    pooled_dim(config.pooling),
-                                   config.num_actions, freeze_ocr=False)
-    return policy.to(device).eval()
+                                   getattr(config, "num_actions", 4), freeze_ocr=False)
+    policy = policy.to(device).eval()
+    cpt = config.pooling.ocr_checkpoint
+    if resolve_ocr_checkpoint_path(cpt) is not None:
+        pretrained, _ = get_ocr(config.ocr, config.env, cpt, seed, device)
+        inject_pretrained_ocr(policy, pretrained)
+        policy.freeze_ocr = not cpt.finetuning
+    return policy
+
+
+def inject_pretrained_ocr(policy: ActorCriticPolicy, ocr) -> None:
+    """Replace the policy's fresh OCR parameters with those of ``ocr`` (an
+    ``OCR`` from ``get_ocr``), whose module may hold more (a decoder) than
+    the policy's serving module."""
+    state = ocr.module.state_dict()
+    own = policy.ocr_module.state_dict()
+    policy.ocr_module.load_state_dict({k: state[k].to(own[k].device) for k in own})

@@ -56,6 +56,7 @@ _MODULES = [
     (r"ocr_module/bcdec/rest/layers_([01])/Conv_0", r"ocr_module.bcdec.rest.\1.conv"),
     (r"ocr_module/bcdec/rest/layers_2", "ocr_module.bcdec.rest.2"),
     (r"ocr_module/(dictionary|z_pos|slotproj|out)", r"ocr_module.\1"),
+    (r"ocr_module/MLP_0/Dense_(\d+)", r"ocr_module.mlp.\1"),           # GT
     (_DEC + r"/(self_attn|encoder_decoder_attn)/(proj_[qkvo])",
      r"ocr_module.tfdec.blocks.\1.\2.\3"),
     (_DEC + r"/(self_attn_layer_norm|encoder_decoder_attn_layer_norm|ffn_layer_norm)",

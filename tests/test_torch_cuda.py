@@ -29,8 +29,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 4096, 5, 192), (2, 4096, 6, 192),
-                                   (3, 333, 5, 192), (2, 100, 16, 64)])
+@pytest.mark.parametrize("shape", [(16, 4096, 5, 192), (4, 4096, 5, 192), (20, 4096, 5, 192),
+                                   (2, 4096, 6, 192), (3, 333, 5, 192), (2, 100, 16, 64)])
 def test_sweep_kernel_matches_plain_on_the_card(cuda, shape):
     B, N, S, D = shape
     rng = np.random.default_rng(1)
@@ -48,7 +48,7 @@ def test_sweep_kernel_matches_plain_on_the_card(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (3, 333, 5, 192),
+@pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (32, 4096, 5, 192), (3, 333, 5, 192),
                                    (2, 100, 16, 64)])
 def test_sweep_gradient_goes_through_the_backward_kernel(cuda, shape):
     """Autograd through route_sweep on the card launches B4 once and gives
@@ -244,3 +244,39 @@ def test_evaluation_batch_matches_plain_on_the_card(cuda, bcdec):
         assert LAUNCHES == {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, tsr.KERNEL: 6}
     assert np.isfinite([results["ari"], results["mse"]]).all()
     assert all(check_eval(ocr, batch).values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True], ids=["e2e", "frozen"])
+def test_ppo_update_goes_through_the_sweep_kernels(cuda, freeze):
+    """One PPO minibatch update of 8 at small SLATE widths on the card:
+    end to end B3 and B4 three times each; with the OCR frozen B3 three
+    times and no B4, and the OCR's parameters bitwise unchanged."""
+    from ocrl_tpu_torch.config import PolicyConfig, replace
+    from ocrl_tpu_torch.rl import PPO, build_policy
+
+    cfg = PolicyConfig()
+    for path, value in [("env.obs_size", 16), ("ocr.cnn.hidden_size", 16),
+                        ("ocr.slotattr.num_slots", 3), ("ocr.slotattr.slot_size", 32),
+                        ("ocr.slotattr.mlp_hidden_size", 32), ("pooling.d_model", 32),
+                        ("pooling.nhead", 4)]:
+        cfg = replace(cfg, path, value)
+    algo = PPO(build_policy(cfg, seed=0), (16, 16, 3), True, 1, freeze_ocr=freeze)
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.integers(0, 256, (8, 16, 16, 3), dtype=np.uint8),
+             "actions": rng.integers(0, 4, 8).astype(np.int32),
+             "logprobs": np.full(8, np.log(0.25), np.float32),
+             "values": np.zeros(8, np.float32),
+             "advantages": rng.standard_normal(8).astype(np.float32),
+             "returns": rng.standard_normal(8).astype(np.float32)}
+    ocr_before = {k: v.clone() for k, v in algo.policy.ocr_module.state_dict().items()}
+    data = algo.upload(batch)
+    reset_launches()
+    metrics = algo.update_minibatch(data, torch.arange(8, device="cuda"))
+    torch.cuda.synchronize()
+    want = {tsr.KERNEL: 3} if freeze else {tsr.KERNEL: 3, tsr.BWD_KERNEL: 3}
+    assert LAUNCHES == want
+    assert all(torch.isfinite(v) for v in metrics.values())
+    same = all(torch.equal(v, ocr_before[k])
+               for k, v in algo.policy.ocr_module.state_dict().items())
+    assert same == freeze

@@ -14,6 +14,7 @@ from ocrl_tpu_torch import config as tcfg
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "h5py", "msgpack", "ocrl_tpu",
+             "gymnasium", "PIL", "matplotlib", "imageio", "wandb",
              "torch.utils.cpp_extension")
 
 
@@ -96,3 +97,39 @@ def test_config_matches_the_yaml(ocr):
     assert _plain(dataclasses.asdict(port.sb3_acnet)) == _plain(cfg.sb3_acnet.to_dict())
     for key, value in dataclasses.asdict(port.env).items():
         assert cfg.env[key] == value, key
+
+
+@pytest.mark.parametrize("algo", ["ppo", "a2c"])
+def test_sb3_configs_match_the_yaml(algo):
+    """The port's SB3Config holds configs/sb3/<algo>.yaml (the JAX
+    from_algo_kwargs drops the YAML's nulls for the dataclass defaults)."""
+    from ocrl_tpu.rl import A2CConfig, PPOConfig
+
+    cfg = compose("train_sb3", ["ocr=gt", "pooling=transformer", f"sb3={algo}",
+                                "sb3_acnet=mlp", "env=target-N4C4S3S1"])
+    port = tcfg.GROUPS["sb3"][algo]
+    assert port.name == cfg.sb3.name
+    jax_cls = PPOConfig if algo == "ppo" else A2CConfig
+    want = dataclasses.asdict(jax_cls.from_algo_kwargs(cfg.sb3.algo_kwargs.to_dict()))
+    assert dataclasses.asdict(port.algo_kwargs) == want
+    for key, value in cfg.sb3.algo_kwargs.to_dict().items():
+        assert getattr(port.algo_kwargs, key) == value, key
+
+
+@pytest.mark.parametrize("entry", ["train_sb3", "test_sb3"])
+def test_entry_configs_match_the_yaml(entry):
+    cfg = compose(entry, ["ocr=gt", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
+                          "env=target-N4C4S3S1"])
+    port = tcfg.compose(tcfg.TrainSB3Config() if entry == "train_sb3" else tcfg.TestSB3Config(),
+                        ["ocr=gt", "env=target-N4C4S3S1"])
+    assert _plain(dataclasses.asdict(port.ocr)) == _plain(cfg.ocr.to_dict())
+    assert port.seed == cfg.seed and port.tags == cfg.tags
+    if entry == "train_sb3":
+        assert (port.num_envs, port.max_steps) == (cfg.num_envs, cfg.max_steps)
+        assert _plain(dataclasses.asdict(port.eval)) == _plain(cfg.eval.to_dict())
+    else:
+        assert port.n_eval_episodes == cfg.n_eval_episodes
+        for key, value in cfg.agent_checkpoint.to_dict().items():
+            assert getattr(port.agent_checkpoint, key) == value, key
+    assert dataclasses.asdict(port.env) == dataclasses.asdict(
+        tcfg.read_env_config("target-N4C4S3S1"))
