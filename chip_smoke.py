@@ -58,7 +58,20 @@ Phases, each printing its own line with its seconds:
    seed 1234) for 100 episodes on 20 envs, its success rate beside the
    manifest's value for that seed (a sanity band, not a condition); the
    condition: its logits and values on 64 env states agree between the
-   card and the CPU.
+   card and the CPU;
+9. other-ocrs: train_sb3.train of each of the seven rows of
+   for_running.json with the other OCRs (e2e cnn, e2e cnnfeat-transformer,
+   multiple cnn-transformer, vae-mlp, mae-patch-transformer, mae-cls-mlp,
+   iodine-transformer; target-N4C4S3S1, full widths, random weights from
+   seed 0; the VAE and IODINE rows load artifacts/encoders and are frozen,
+   the others run end to end) for one PPO iteration at num_envs 4 and
+   batch 32, its depth cut to n_steps 256 and 2 epochs: its seconds, env
+   steps/s, ms a policy call at E = 4 and an update, finite metrics, no
+   kernel launched; each policy's logits and values on 8 env frames, card
+   against CPU (IODINE on the same numpy noise), with each side's distance
+   from a float64 run on the CPU; RN, MLP, Identity, CNN_Linear and
+   CNN_Transformer (on a 64x64 grid of 8-wide slots) and the Transformer's
+   push embedding, card against CPU; one end-to-end IODINE update of 32.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -88,6 +101,7 @@ from ocrl_tpu_torch.models.base import normalize_obs
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
+from ocrl_tpu_torch.poolings import create_pooling_module
 from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
 from ocrl_tpu_torch.utils.checkpoint import get_ocr
 from ocrl_tpu_torch.utils.metrics import mask_labels
@@ -145,6 +159,25 @@ AGENT_ARGV = ["ocr=gt", "pooling=transformer", "pooling.num_layers=3", "sb3=ppo"
               "sb3_acnet=mlp", "env=odd-one-out-N4C2S2S1", f"agent_checkpoint.file={AGENT}",
               "agent_checkpoint.index=0", "n_eval_episodes=100"]
 AGENT_CELL, AGENT_STATES = "GT-PropertyComparison", 64    # round5_rl_evals.json
+# The other OCRs' rows of for_running.json, at full width, random weights
+# from seed 0, one PPO iteration each at the config's num_envs 4 and batch 32,
+# its depth cut to n_steps 256 (64 vector steps) and 2 epochs (16 updates).
+# The VAE and IODINE rows load the committed encoders (frozen); the repo holds
+# no MAE or NatureCNN checkpoint, so those rows run end to end.
+OTHER_ROWS = ["e2e cnn 0.01ent_coef", "e2e cnnfeat-transformer 0.01ent_coef",
+              "multiple cnn-transformer 0.01ent_coef", "vae-mlp-0.01ent_coef",
+              "mae-patch-transformer-0.01ent_coef", "mae-cls-mlp-0.01ent_coef",
+              "iodine-transformer-0.01ent_coef"]
+OTHER_ENV, OTHER_CHECKPOINTS = "env=target-N4C4S3S1", ("vae.ckpt", "iodine.ckpt")
+OTHER_DEPTH = ["sb3.algo_kwargs.n_steps=256", "sb3.algo_kwargs.n_epochs=2", "max_steps=256"]
+OTHER_CHECK = 8
+# Card against CPU, the same weights and inputs: 1e-5 of max(|value|, 1) for
+# the rows without IODINE and for the poolings (fp32 sums of cuDNN/cuBLAS
+# against the CPU's, as for the GT agent); IODINE 1e-4: on the CPU each fp32
+# side lies up to 1.2e-4 of the masks' scale from a float64 run
+# (tests/test_torch_ocrs.py), and the run prints each side's distance from
+# float64 here as well.
+OTHER_TOL, IODINE_CARD_TOL = 1e-5, 1e-4
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -995,6 +1028,166 @@ def agent_evaluation_phase(card: str) -> None:
         raise SystemExit("the GT agent's card and CPU outputs disagree")
 
 
+def row_argv(name: str) -> list[str]:
+    """A for_running.json row's overrides on OTHER_ENV, its OCR checkpoint
+    the committed artifacts/encoders file of the same name where there is
+    one, none otherwise (then the OCR trains end to end)."""
+    row = dict(json.loads(open("for_running.json").read())["ocrs"][name])
+    row.pop("tags")
+    checkpoint = row.pop("pooling.ocr_checkpoint.local_file", "").split("/")[-1]
+    argv = [f"{k}={v}" for k, v in row.items()] + [OTHER_ENV]
+    if checkpoint in OTHER_CHECKPOINTS:
+        argv.append(f"pooling.ocr_checkpoint.local_file=artifacts/encoders/{checkpoint}")
+    return argv
+
+
+def _outputs(policy, obs: torch.Tensor, noise):
+    with torch.no_grad():
+        logits, values = policy(obs, noise=noise)
+    return logits.cpu().double(), values.cpu().double()
+
+
+def card_against_cpu(label: str, cfg, policy, obs: np.ndarray, noise: np.ndarray | None,
+                     tol: float) -> dict:
+    """Logits and values of ``policy`` (on the card) and of the same weights
+    on the CPU, in fp32 and in float64, on ``obs`` (uint8) with ``noise``:
+    card against CPU within ``tol`` of max(|value|, 1); each side's distance
+    from the float64 run printed beside it."""
+    cpu = build_policy(cfg.policy_config(), seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in policy.state_dict().items()})
+    cpu.freeze_ocr = policy.freeze_ocr
+    x = torch.from_numpy(obs).float() / 255.0
+    t_noise = None if noise is None else torch.from_numpy(noise)
+    outs = {"card": _outputs(policy, x.cuda(), None if t_noise is None else t_noise.cuda()),
+            "cpu": _outputs(cpu, x, t_noise),
+            "cpu64": _outputs(cpu.double(), x.double(),
+                              None if t_noise is None else t_noise.double())}
+    scale = [max(w.abs().max().item(), 1.0) for w in outs["cpu"]]
+    err = max((g - w).abs().max().item() / s
+              for g, w, s in zip(outs["card"], outs["cpu"], scale))
+    to64 = {d: max((a - b).abs().max().item() / s
+                   for a, b, s in zip(outs[d], outs["cpu64"], scale))
+            for d in ("card", "cpu")}
+    finite = all(torch.isfinite(t).all() for t in outs["card"])
+    ok = err <= tol and finite
+    print(f"  {label}: logits / values on {obs.shape[0]} observations, card against CPU "
+          f"{err:.3e} of max(|value|, 1) (tolerance {tol}) {'ok' if ok else 'MISMATCH'}; "
+          f"from the float64 run: card {to64['card']:.3e}, CPU {to64['cpu']:.3e}", flush=True)
+    if not ok:
+        raise SystemExit(f"{label}: the card and the CPU disagree")
+    return dict(err=err, **to64)
+
+
+def pooling_against_cpu(name: str, state: np.ndarray, rep_dim: int, num_slots: int,
+                        *over: str) -> None:
+    """One pooling (seed 0) on the card and on the CPU on ``state``: within
+    OTHER_TOL of max(|value|, 1e-2)."""
+    argv = [f"pooling={name}", "ocr=gt", OTHER_ENV, *over]
+    cfg = compose(TrainSB3Config(), argv).pooling
+    torch.manual_seed(0)
+    module = create_pooling_module(cfg.name, rep_dim, num_slots, cfg).eval()
+    with torch.no_grad():
+        want = module(torch.from_numpy(state))
+        got = module.cuda()(torch.from_numpy(state).cuda()).cpu()
+    scale = max(want.abs().max().item(), 1e-2)
+    err = (got - want).abs().max().item() / scale
+    ok = err <= OTHER_TOL and torch.isfinite(got).all() and got.shape == want.shape
+    print(f"  pooling {cfg.name}{' ' + ' '.join(over) if over else ''} on "
+          f"{tuple(state.shape)}: card against CPU {err:.3e} of max(|value|, 1e-2) "
+          f"(tolerance {OTHER_TOL}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit(f"the {cfg.name} pooling's card and CPU outputs disagree")
+
+
+def other_ocrs_phase(card: str) -> dict:
+    """Each OTHER_ROWS row through train_sb3.train for one PPO iteration at
+    the cut depth, timed, its metrics finite and no kernel launched; its
+    policy card against CPU; the five other poolings card against CPU; one
+    end-to-end IODINE update. Returns the launch counts (none expected) and
+    what the profile needs."""
+    launches, keep = {}, {}
+    rng = np.random.default_rng(0)
+    for name in OTHER_ROWS:
+        cfg = compose(TrainSB3Config(), row_argv(name) + OTHER_DEPTH + [
+            f"run_dir=outputs/chip_smoke/other_ocrs/{name.split()[0]}-{len(keep)}"])
+        algo_cfg = cfg.sb3.algo_kwargs
+        n_steps = algo_cfg.n_steps // cfg.num_envs
+        reset_launches()
+        result = train_sb3.train(cfg)
+        torch.cuda.synchronize()
+        for k, v in LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        algo, it = result["algo"], result["algo"].last_iteration
+        obs = np.stack([make_env(cfg.env, 1000 + i).reset() for i in range(cfg.num_envs)])
+        act_ms = 1e3 * _timed_calls(
+            lambda: torch.stack([t.float() for t in algo.act(obs)]).cpu(), RL_ACT_CALLS)
+        seconds = it["rollout_s"] + it["update_s"]
+        print(f"  {card}: {name} ({cfg.ocr.name} + {cfg.pooling.name} + "
+              f"{cfg.sb3_acnet.name}, OCR {'frozen' if algo.policy.freeze_ocr else 'end to end'}"
+              f"): one PPO iteration (num_envs {cfg.num_envs}, n_steps {algo_cfg.n_steps}, "
+              f"batch {algo_cfg.batch_size}, {algo_cfg.n_epochs} epochs) in {seconds:.3f} s: "
+              f"rollout {it['rollout_s']:.3f} s ({it['env_steps'] / it['rollout_s']:.1f} env "
+              f"steps/s), {it['updates']} updates, {1e3 * it['update_s'] / it['updates']:.3f} "
+              f"ms an update; policy call at E = {cfg.num_envs}: {act_ms:.3f} ms; metrics "
+              f"{result['metrics']}", flush=True)
+        if it["updates"] != algo_cfg.n_epochs * -(-algo_cfg.n_steps // algo_cfg.batch_size) \
+                or algo.num_timesteps != n_steps * cfg.num_envs:
+            raise SystemExit(f"{name}: the iteration did not run as configured")
+        if not all(np.isfinite(v) for v in result["metrics"].values()):
+            raise SystemExit(f"{name}: PPO metrics are not finite: {result['metrics']}")
+        check_obs = np.stack([make_env(cfg.env, 3000 + i).reset() for i in range(OTHER_CHECK)])
+        noise, tol = None, OTHER_TOL
+        if cfg.ocr.name == "Iodine":
+            o = cfg.ocr
+            noise = rng.standard_normal((o.num_iterations, OTHER_CHECK, o.num_slots,
+                                         o.slot_size)).astype(np.float32)
+            tol = IODINE_CARD_TOL
+        card_against_cpu(name, cfg, algo.policy, check_obs, noise, tol)
+        keep[name] = dict(algo=algo, obs=obs, cfg=cfg)
+    if launches:
+        raise SystemExit(f"the other OCRs launched kernels of the SLATE path: {launches}")
+
+    rep = np.random.default_rng(0).random((3, 5, 16)).astype(np.float32)
+    grid = np.random.default_rng(1).random((2, 64 * 64, 8)).astype(np.float32)
+    push = np.zeros((3, 5, 6), np.float32)
+    push[:, :, 0], push[:, :, 1] = np.arange(5) % 4, np.arange(5) % 3
+    push[:, :, -2:] = np.random.default_rng(2).uniform(-1, 1, (3, 5, 2))
+    for name in ("rn", "mlp", "identity"):
+        pooling_against_cpu(name, rep, 16, 5)
+    for name in ("cnn_linear", "cnn_transformer"):
+        pooling_against_cpu(name, grid, 8, 64 * 64)
+    pooling_against_cpu("transformer", push, 6, 5, "pooling.push_embedding=True")
+
+    # IODINE trained end to end (no checkpoint): one minibatch update of 32
+    cfg = compose(TrainSB3Config(), [a for a in row_argv("iodine-transformer-0.01ent_coef")
+                                     if "ocr_checkpoint" not in a])
+    e2e = PPO(build_policy(cfg.policy_config(), seed=0), (64, 64, 3), True, cfg.num_envs,
+              cfg.sb3.algo_kwargs, seed=0)
+    batch = {"obs": np.stack([make_env(cfg.env, 2000 + i).reset() for i in range(32)]),
+             "actions": rng.integers(0, 4, 32).astype(np.int32),
+             "logprobs": np.full(32, np.log(0.25), np.float32),
+             "values": rng.standard_normal(32).astype(np.float32),
+             "advantages": rng.standard_normal(32).astype(np.float32),
+             "returns": rng.standard_normal(32).astype(np.float32)}
+    data, idx = e2e.upload(batch), torch.arange(32, device="cuda")
+    before = {k: v.clone() for k, v in e2e.policy.ocr_module.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = e2e.update_minibatch(data, idx)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - t0)
+    moved = sum(not torch.equal(v, before[k])
+                for k, v in e2e.policy.ocr_module.state_dict().items())
+    finite = all(torch.isfinite(v) for v in m.values())
+    print(f"  IODINE end to end: one update of 32 in {update_ms:.3f} ms (first call), loss "
+          f"{m['loss'].item():.6f}, {moved} of {len(before)} OCR tensors moved; metrics "
+          f"finite: {'yes' if finite else 'NO'}", flush=True)
+    if not finite or moved == 0:
+        raise SystemExit("the end-to-end IODINE update is not finite or moved no OCR weight")
+    keep["iodine-e2e"] = dict(algo=e2e, data=data, idx=idx)
+    return dict(launches=launches, keep=keep)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -1118,6 +1311,9 @@ def main() -> int:
     with phase("agent-evaluation"):
         agent_evaluation_phase(card)
 
+    with phase("other-ocrs"):
+        other = other_ocrs_phase(card)
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
@@ -1136,12 +1332,30 @@ def main() -> int:
                     lambda: rl["algo"].update_minibatch(rl["data"], rl["idx"]), 10, 25)
             profile("rl: 10 minibatch updates (OCR frozen)",
                     lambda: rl["frozen"].update_minibatch(rl["data"], rl["idx"]), 10, 20)
+            for name, label in (("mae-patch-transformer-0.01ent_coef", "MAE-base e2e"),
+                                ("iodine-transformer-0.01ent_coef", "IODINE frozen")):
+                kept = other["keep"][name]
+                kobs, kalgo = kept["obs"], kept["algo"]
+                profile(f"{label}: 10 policy calls at E = {kobs.shape[0]}",
+                        lambda: kalgo.act(kobs)[0].cpu(), 10, 15)
+                kdata = kalgo.upload({"obs": np.concatenate([kobs] * 8),
+                                      "actions": np.zeros(32, np.int32),
+                                      "logprobs": np.full(32, np.log(0.25), np.float32),
+                                      **{k: np.ones(32, np.float32) for k in
+                                         ("values", "advantages", "returns")}})
+                kidx = torch.arange(32, device="cuda")
+                profile(f"{label}: 5 minibatch updates of 32",
+                        lambda: kalgo.update_minibatch(kdata, kidx), 5, 20)
+            e2e = other["keep"]["iodine-e2e"]
+            profile("IODINE e2e: 3 minibatch updates of 32",
+                    lambda: e2e["algo"].update_minibatch(e2e["data"], e2e["idx"]), 3, 20)
 
     def row(name, source, replaces, result):
         # launches: summed over the main-path runs: serving, training,
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
-        # frozen updates and the RL evaluation
-        runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"]
+        # frozen updates, the RL evaluation and the other OCRs' iterations
+        runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
+            other["launches"],)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

@@ -1,9 +1,14 @@
 """The port's configuration: dataclasses holding the values of
 
 - configs/ocr/slate.yaml (``OCRConfig``; ``slotattention.yaml`` is the same
-  with ``use_bcdec=True``) and configs/ocr/gt.yaml (``GTConfig``),
-- configs/pooling/{_base,transformer}.yaml (``PoolingConfig``),
-- configs/sb3_acnet/{_base,mlp}.yaml (``ACNetConfig``),
+  with ``use_bcdec=True``), configs/ocr/gt.yaml (``GTConfig``),
+  naturecnn.yaml, multiple_cnn.yaml, vae.yaml, mae.yaml and
+  iodine_large.yaml (``NatureCNNConfig`` ... ``IodineConfig``),
+- configs/pooling/_base.yaml with transformer.yaml (``PoolingConfig``),
+  rn.yaml, mlp.yaml, cnn_linear.yaml, cnn_transformer.yaml and identity.yaml
+  (``RNConfig`` ... ``IdentityPoolingConfig``), each with the YAML's keys,
+- configs/sb3_acnet/_base.yaml with mlp.yaml, identity.yaml and
+  identity_orthoinit.yaml (``ACNetConfig``),
 - configs/sb3/{ppo,a2c}.yaml (``SB3Config`` over ``PPOConfig`` /
   ``A2CConfig``, whose defaults are ocrl_tpu/rl/ppo.py:24-62),
 - the image size of the synthetic envs (``EnvConfig``), and a whole
@@ -151,6 +156,98 @@ class GTConfig:
 
 
 @dataclass(frozen=True)
+class LRConfig:
+    lr: float = 1e-4
+
+
+@dataclass(frozen=True)
+class NatureCNNConfig:
+    """configs/ocr/naturecnn.yaml: the Nature DQN CNN, a 512-wide vector or
+    (``use_cnn_feat``) its 4x4 or 2x2 feature map as pseudo-slots."""
+
+    name: str = "NatureCNN"
+    rep_dim: int = 512
+    use_cnn_feat: bool = False
+    cnn_feat_size: int = 4
+    learning: LRConfig = field(default_factory=LRConfig)
+
+
+@dataclass(frozen=True)
+class MultipleCNNConfig:
+    """configs/ocr/multiple_cnn.yaml: ``num_modules`` NatureCNNs as slots."""
+
+    name: str = "MultipleCNN"
+    num_modules: int = 5
+    rep_dim: int = 512
+    learning: LRConfig = field(default_factory=LRConfig)
+
+
+@dataclass(frozen=True)
+class VAELearningConfig:
+    lr: float = 1e-4
+    kld_weight: float = 0.0001
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """configs/ocr/vae.yaml."""
+
+    name: str = "VAE"
+    latent_dim: int = 256
+    use_cnn_feat: bool = False
+    cnn_feat_size: int = 4
+    learning: VAELearningConfig = field(default_factory=VAELearningConfig)
+
+
+@dataclass(frozen=True)
+class MAELearningConfig:
+    lr: float = 1e-3
+    weight_decay: float = 0.05
+
+
+@dataclass(frozen=True)
+class MAEConfig:
+    """configs/ocr/mae.yaml (``vit_size``: base, large or tiny)."""
+
+    name: str = "MAE"
+    vit_size: str = "base"
+    patch_size: int = 8
+    return_cls: bool = False
+    masking_ratio: float = 0.75
+    learning: MAELearningConfig = field(default_factory=MAELearningConfig)
+
+
+@dataclass(frozen=True)
+class IodineLearningConfig:
+    lr: float = 3e-4
+    clip: float = 5.0
+    clip_norm_type: float = 2.0
+
+
+@dataclass(frozen=True)
+class IodineConfig:
+    """configs/ocr/iodine_large.yaml."""
+
+    name: str = "Iodine"
+    slot_size: int = 64
+    num_iterations: int = 5
+    num_slots: int = 6
+    img_channels: int = 3
+    sigma: float = 0.35
+    beta: float = 1.0
+    layer_norm: bool = True
+    ref_cnn_hidden_size: int = 64
+    ref_mlp_hidden_size: int = 256
+    ref_cnn_layers: int = 4
+    ref_cnn_kernel_size: int = 3
+    ref_cnn_stride_size: int = 2
+    dec_cnn_hidden_size: int = 64
+    dec_cnn_layers: int = 4
+    dec_cnn_kernel_size: int = 3
+    learning: IodineLearningConfig = field(default_factory=IodineLearningConfig)
+
+
+@dataclass(frozen=True)
 class OCRCheckpointConfig:
     entity: str = ""
     project: str = ""
@@ -185,6 +282,80 @@ class PoolingConfig:
 
 
 @dataclass(frozen=True)
+class RNConfig:
+    """configs/pooling/rn.yaml: a relation network over ordered slot pairs."""
+
+    name: str = "RN"
+    learn_aux_loss: bool = False
+    learn_downstream_loss: bool = False
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    g_dims: tuple[int, ...] = (256, 256, 256, 256)
+    f_dims: tuple[int, ...] = (256, 128, 64, 64)
+    rep_dim: int = 64
+    learning: PoolingLearningConfig = field(default_factory=PoolingLearningConfig)
+
+
+@dataclass(frozen=True)
+class MLPPoolingConfig:
+    """configs/pooling/mlp.yaml: the slots flattened, through an MLP."""
+
+    name: str = "MLP"
+    learn_aux_loss: bool = False
+    learn_downstream_loss: bool = False
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    dims: tuple[int, ...] = (128, 128)
+    acts: tuple[str, ...] = ("relu", "relu")
+    rep_dim: int = 128
+    learning: PoolingLearningConfig = field(default_factory=PoolingLearningConfig)
+
+
+@dataclass(frozen=True)
+class CNNLinearConfig:
+    """configs/pooling/cnn_linear.yaml: the slots as an image, through the
+    Nature CNN to a vector."""
+
+    name: str = "CNN_Linear"
+    learn_aux_loss: bool = False
+    learn_downstream_loss: bool = False
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    rep_dim: int = 512
+    learning: PoolingLearningConfig = field(default_factory=PoolingLearningConfig)
+
+
+@dataclass(frozen=True)
+class CNNTransformerConfig:
+    """configs/pooling/cnn_transformer.yaml: the slots as an image, the
+    Nature CNN's feature map as tokens of a CLS transformer."""
+
+    name: str = "CNN_Transformer"
+    learn_aux_loss: bool = False
+    learn_downstream_loss: bool = False
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    d_model: int = 128
+    rep_dim: int = 128
+    nhead: int = 8
+    num_layers: int = 1
+    pos_emb: str = "ape"
+    learning: PoolingLearningConfig = field(default_factory=PoolingLearningConfig)
+
+
+@dataclass(frozen=True)
+class IdentityPoolingConfig:
+    """configs/pooling/identity.yaml: the slots flattened."""
+
+    name: str = "Identity"
+    learn_aux_loss: bool = False
+    learn_downstream_loss: bool = False
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+
+
+OCRConfigs = (OCRConfig | GTConfig | NatureCNNConfig | MultipleCNNConfig | VAEConfig
+              | MAEConfig | IodineConfig)
+PoolingConfigs = (PoolingConfig | RNConfig | MLPPoolingConfig | CNNLinearConfig
+                  | CNNTransformerConfig | IdentityPoolingConfig)
+
+
+@dataclass(frozen=True)
 class NetConfig:
     dims: tuple[int, ...] = ()
     acts: tuple[str, ...] = ()
@@ -207,8 +378,8 @@ class PolicyConfig:
     the same. With a ``GTConfig`` and a ``SyntheticEnvConfig`` in
     ``render_mode`` state, it is the ``gt-*`` rows."""
 
-    ocr: OCRConfig | GTConfig = field(default_factory=OCRConfig)
-    pooling: PoolingConfig = field(default_factory=PoolingConfig)
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    pooling: PoolingConfigs = field(default_factory=PoolingConfig)
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
     num_actions: int = 4
@@ -281,8 +452,8 @@ class TrainSB3Config:
     outputs/train_sb3/<ocr>-<pooling>-<algo>-<env>/<time>. ``vec_env``:
     auto | dummy | subproc."""
 
-    ocr: OCRConfig | GTConfig = field(default_factory=OCRConfig)
-    pooling: PoolingConfig = field(default_factory=PoolingConfig)
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    pooling: PoolingConfigs = field(default_factory=PoolingConfig)
     sb3: SB3Config = field(default_factory=SB3Config)
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
     env: SyntheticEnvConfig = field(default_factory=SyntheticEnvConfig)
@@ -319,8 +490,8 @@ class TestSB3Config:
 
     __test__ = False               # a config, not a test class
 
-    ocr: OCRConfig | GTConfig = field(default_factory=OCRConfig)
-    pooling: PoolingConfig = field(default_factory=PoolingConfig)
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    pooling: PoolingConfigs = field(default_factory=PoolingConfig)
     sb3: SB3Config = field(default_factory=SB3Config)
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
     env: SyntheticEnvConfig = field(default_factory=SyntheticEnvConfig)
@@ -561,10 +732,18 @@ def read_env_config(name: str) -> SyntheticEnvConfig:
 
 GROUPS = {
     "ocr": {"slate": OCRConfig(), "slotattention": OCRConfig(use_bcdec=True),
-            "gt": GTConfig()},
-    "pooling": {"transformer": PoolingConfig()},
+            "gt": GTConfig(), "naturecnn": NatureCNNConfig(),
+            "multiple_cnn": MultipleCNNConfig(), "vae": VAEConfig(), "mae": MAEConfig(),
+            "iodine_large": IodineConfig()},
+    "pooling": {"transformer": PoolingConfig(), "rn": RNConfig(), "mlp": MLPPoolingConfig(),
+                "cnn_linear": CNNLinearConfig(), "cnn_transformer": CNNTransformerConfig(),
+                "identity": IdentityPoolingConfig()},
     "sb3": {"ppo": SB3Config("PPO", PPOConfig()), "a2c": SB3Config("A2C", A2CConfig())},
-    "sb3_acnet": {"mlp": ACNetConfig()},
+    "sb3_acnet": {"mlp": ACNetConfig(),
+                  "identity": ACNetConfig("Identity", False, NetConfig(), NetConfig(),
+                                          NetConfig()),
+                  "identity_orthoinit": ACNetConfig("IdentityOrthoInit", True, NetConfig(),
+                                                    NetConfig(), NetConfig())},
 }
 LATER = {"seeds": "the multi-seed slice", "video": "the slice that records videos",
          "resume": "the slice that writes checkpoint files",
@@ -591,8 +770,8 @@ def compose(cfg, argv):
     for key, raw in pairs:
         if key in GROUPS:
             if raw not in GROUPS[key]:
-                raise NotImplementedError(f"{key}={raw} is not ported (ported: "
-                                          f"{', '.join(GROUPS[key])})")
+                raise FileNotFoundError(f"no config '{key}={raw}' (available: "
+                                        f"{', '.join(GROUPS[key])})")
             cfg = dataclasses.replace(cfg, **{key: GROUPS[key][raw]})
         elif key == "env":
             cfg = dataclasses.replace(cfg, env=read_env_config(raw))

@@ -34,7 +34,8 @@ from .models.slate import SLATE_Module
 from .utils.checkpoint import get_ocr
 
 log = logging.getLogger(__name__)
-OTHER_OCRS = "the slice that ports the other OCRs (IODINE's ARI among them)"
+OTHER_OCRS = ("the slice that ports train_ocr and get_ari_mse for VAE, MAE and IODINE "
+              "(IODINE's ARI among them)")
 
 
 def batches_of(data: dict, batch_size: int):

@@ -1,48 +1,79 @@
-"""OCR models of the port (so far: SLATE and Slot-Attention, served, trained
-and evaluated; GT, the ground-truth state)."""
+"""OCR models of the port: SLATE and Slot-Attention (served, trained and
+evaluated), GT (the ground-truth state), NatureCNN, MultipleCNN, VAE, MAE
+and IODINE (served and trained end to end on the RL path; their OCR
+pretraining comes with the slice that ports train_ocr for them)."""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
-from ..config import EnvConfig, GTConfig, OCRConfig
+from ..config import EnvConfig, OCRConfigs
 from ..device import resolve_device
-from . import gt, slate
+from . import gt, iodine, mae, multiple_cnn, naturecnn, slate, vae
 from .base import OCR
 from .gt import GT_Module
+from .iodine import Iodine_Module
+from .mae import MAE_Module
+from .multiple_cnn import MultipleCNN_Module
+from .naturecnn import NatureCNN_Module
 from .slate import SLATE_Module, make_optimizer
+from .vae import VAE_Module
 
-__all__ = ["GT_Module", "OCR", "SLATE_Module", "create_ocr", "dims", "make_optimizer"]
-LATER = "the slice that ports the other OCRs"
+__all__ = ["GT_Module", "Iodine_Module", "MAE_Module", "MultipleCNN_Module",
+           "NatureCNN_Module", "OCR", "SLATE_Module", "VAE_Module", "build_module",
+           "create_ocr", "dims", "make_optimizer"]
+
+# name -> (module of dims(), module class, whether it takes decoder=)
+_REGISTRY = {
+    "SLATE": (slate, SLATE_Module, True),
+    "GT": (gt, GT_Module, False),
+    "NatureCNN": (naturecnn, NatureCNN_Module, False),
+    "MultipleCNN": (multiple_cnn, MultipleCNN_Module, False),
+    "VAE": (vae, VAE_Module, True),
+    "MAE": (mae, MAE_Module, True),
+    "Iodine": (iodine, Iodine_Module, False),
+}
+
+
+def _entry(ocr_config):
+    if ocr_config.name not in _REGISTRY:
+        raise ValueError(f"Unknown OCR model '{ocr_config.name}'. "
+                         f"Available: {sorted(_REGISTRY)}")
+    return _REGISTRY[ocr_config.name]
 
 
 def dims(ocr_config, env_config) -> tuple[int, int]:
     """(representation size, number of slots or rows) of the OCR's output."""
-    if ocr_config.name == "GT":
-        return gt.dims(ocr_config, env_config)
-    if ocr_config.name == "SLATE":
-        return slate.dims(ocr_config, env_config)
-    raise NotImplementedError(f"OCR '{ocr_config.name}' comes with {LATER}")
+    return _entry(ocr_config)[0].dims(ocr_config, env_config)
 
 
-def create_ocr(ocr_config: OCRConfig | GTConfig, env_config: EnvConfig, seed: int = 0,
+def build_module(ocr_config: OCRConfigs, env_config: EnvConfig, *,
+                 decoder: bool = False) -> nn.Module:
+    """The OCR's module on the CPU, weights from torch's global generator:
+    the policy's (what the representation reads) or, with ``decoder``, the
+    whole model a checkpoint holds."""
+    _, cls, takes_decoder = _entry(ocr_config)
+    if takes_decoder:
+        return cls(ocr_config, env_config, decoder=decoder)
+    return cls(ocr_config, env_config)
+
+
+def create_ocr(ocr_config: OCRConfigs, env_config: EnvConfig, seed: int = 0,
                device: str | torch.device | None = None) -> OCR:
     """The OCR of ``ocr_config`` with its optimizer, on ``device`` (CUDA
     unless asked otherwise; with no card and no device this raises). The
     weights are drawn on the CPU from ``seed``, so a seed gives the same
     weights on every device (counterpart of ocrl_tpu/models/__init__.py).
-    GT has no optimizer, as in JAX: it takes no training step."""
+    Only SLATE has an optimizer: GT takes no training step, as in JAX, and
+    the other OCRs' pretraining steps come with the slice that ports
+    train_ocr for them (``update`` and ``get_loss`` raise)."""
     device = resolve_device(device)
-    if ocr_config.name == "GT":
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            module = GT_Module(ocr_config, env_config)
-        return OCR(module.to(device), None, None, seed, device)
-    if ocr_config.name != "SLATE":
-        raise NotImplementedError(f"OCR '{ocr_config.name}' comes with {LATER}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module = SLATE_Module(ocr_config, env_config, decoder=True)
-    module = module.to(device)
+        module = build_module(ocr_config, env_config, decoder=True).to(device)
+    if ocr_config.name != "SLATE":
+        return OCR(module, None, None, seed, device)
     return OCR(module, make_optimizer(module, ocr_config), ocr_config.learning.clip,
                seed, device)
+

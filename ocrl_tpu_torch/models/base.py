@@ -15,6 +15,9 @@ import torch
 from torch import nn
 
 
+PRETRAINING = "the slice that ports train_ocr for VAE, MAE and IODINE"
+
+
 def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
     """uint8 images become float32 in [0, 1] on their device; float inputs
     are taken as already in [0, 1] (base.py:289-295)."""
@@ -64,6 +67,10 @@ class OCR:
 
     def _step(self, obs: torch.Tensor, masks: torch.Tensor | None, step: int,
               noise: dict | None) -> dict:
+        if self.optimizer is None:
+            raise NotImplementedError(
+                f"{type(self.module).__name__} takes no pretraining step in the port: "
+                f"GT has none, and the other OCRs' come with {PRETRAINING}")
         self.module.train()
         self.optimizer.zero_grad()
         loss, metrics = self.module.loss(obs, masks, step, True,
@@ -111,10 +118,12 @@ class OCR:
         return metrics
 
     def save(self) -> dict:
-        return {"ocr_module_state_dict": self.module.state_dict(),
-                "ocr_opt_state_dict": self.optimizer.state_dict()}
+        ckpt = {"ocr_module_state_dict": self.module.state_dict()}
+        if self.optimizer is not None:
+            ckpt["ocr_opt_state_dict"] = self.optimizer.state_dict()
+        return ckpt
 
     def load(self, checkpoint: dict) -> None:
         self.module.load_state_dict(checkpoint["ocr_module_state_dict"])
-        if "ocr_opt_state_dict" in checkpoint:
+        if self.optimizer is not None and "ocr_opt_state_dict" in checkpoint:
             self.optimizer.load_state_dict(checkpoint["ocr_opt_state_dict"])

@@ -51,9 +51,28 @@ def conv2d(in_channels: int, out_channels: int, kernel_size: int,
 
 
 def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
-    """flax's default Dense init: truncated normal, variance 1/fan_in."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    """flax's default Dense and Conv init: truncated normal, variance
+    1/fan_in (a Linear's in_features, a conv's in_channels * kh * kw)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
+
+
+def dense(in_features: int, out_features: int) -> nn.Linear:
+    """flax nn.Dense with its default init: lecun-normal kernel, zero bias."""
+    m = nn.Linear(in_features, out_features)
+    lecun_normal_(m.weight)
+    nn.init.zeros_(m.bias)
+    return m
+
+
+def flax_conv(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+              padding: int = 0, groups: int = 1) -> nn.Conv2d:
+    """flax nn.Conv with its default init (lecun-normal kernel, zero bias);
+    ``padding`` an int is flax's explicit symmetric padding, 0 its VALID."""
+    m = nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding, groups=groups)
+    lecun_normal_(m.weight)
+    nn.init.zeros_(m.bias)
+    return m
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +134,71 @@ class FusedGRUCell(nn.Module):
         z = torch.sigmoid(zi[..., D:2 * D] + zh[..., D:2 * D])
         n = torch.tanh(zi[..., 2 * D:] + r * zh[..., 2 * D:])
         return (1.0 - z) * n + z * h
+
+
+def img_to_slot(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, D] -> [B, H*W, D], row-major over the image
+    (ocrl_tpu/utils/viz.py:34-38)."""
+    B, H, W, D = x.shape
+    return x.reshape(B, H * W, D)
+
+
+def slot_to_img(slot: torch.Tensor) -> torch.Tensor:
+    """[B, N, D] -> [B, sqrt(N), sqrt(N), D] (ocrl_tpu/utils/viz.py:41-45)."""
+    B, N, D = slot.shape
+    size = int(round(N ** 0.5))
+    return slot.reshape(B, size, size, D)
+
+
+_MLP_ACTS = {"relu": torch.relu, "tanh": torch.tanh, "none": None, "linear": None, None: None}
+
+
+class MLP(nn.ModuleList):
+    """Dense layers with per-layer activations ("relu", "tanh", or none:
+    "none", "linear", None), flax's default init
+    (ocrl_tpu/models/common.py:177-196)."""
+
+    def __init__(self, in_features: int, dims, acts):
+        for act in acts:
+            if act not in _MLP_ACTS:
+                raise ValueError(f"activation '{act}' is not implemented")
+        dims = (in_features,) + tuple(dims)
+        super().__init__(dense(a, b) for a, b in zip(dims, dims[1:]))
+        self.acts = tuple(acts)
+        self.out_features = dims[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer, act in zip(self, self.acts):
+            x = layer(x)
+            if _MLP_ACTS[act] is not None:
+                x = _MLP_ACTS[act](x)
+        return x
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax.linen.MultiHeadDotProductAttention, self-attention, no dropout.
+    ``query``/``key``/``value`` map to heads x head_dim, ``out`` back."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} is not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.query = dense(d_model, d_model)
+        self.key = dense(d_model, d_model)
+        self.value = dense(d_model, d_model)
+        self.out = dense(d_model, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.num_heads
+        hd = D // H
+        q = self.query(x).view(B, L, H, hd) / math.sqrt(hd)
+        k = self.key(x).view(B, L, H, hd)
+        v = self.value(x).view(B, L, H, hd)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, D)
+        return self.out(o)
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -8,38 +8,18 @@ import torch
 from torch import nn
 
 from ..config import GTConfig, SyntheticEnvConfig
-from .common import lecun_normal_
-
-_ACTS = {"relu": torch.relu, "tanh": torch.tanh, "none": None, "linear": None, None: None}
-
-
-def _dense(in_features: int, out_features: int) -> nn.Linear:
-    """flax nn.Dense: lecun-normal kernel, zero bias."""
-    m = nn.Linear(in_features, out_features)
-    lecun_normal_(m.weight)
-    nn.init.zeros_(m.bias)
-    return m
+from .common import MLP
 
 
 class GT_Module(nn.Module):
     def __init__(self, ocr_config: GTConfig, env_config: SyntheticEnvConfig):
         super().__init__()
-        for act in ocr_config.acts:
-            if act not in _ACTS:
-                raise ValueError(f"activation '{act}' is not implemented")
-        dims = (env_config.state_size,) + tuple(ocr_config.dims)
-        self.mlp = nn.ModuleList(_dense(a, b) for a, b in zip(dims, dims[1:]))
-        self._acts = tuple(ocr_config.acts)
+        self.mlp = MLP(env_config.state_size, ocr_config.dims, ocr_config.acts)
 
     def forward(self, obs: torch.Tensor, noise=None, generator=None) -> torch.Tensor:
         """obs [B, rows, state_size] -> [B, rows, rep_dim]; ``noise`` and
         ``generator`` are taken for the policy's sake and unused."""
-        x = obs
-        for layer, act in zip(self.mlp, self._acts):
-            x = layer(x)
-            if _ACTS[act] is not None:
-                x = _ACTS[act](x)
-        return x
+        return self.mlp(obs)
 
 
 def dims(ocr_config: GTConfig, env_config: SyntheticEnvConfig) -> tuple[int, int]:

@@ -1,0 +1,281 @@
+"""IODINE, iterative amortized inference (counterpart of
+ocrl_tpu/models/iodine.py): ``num_slots`` Gaussian posteriors over slots of
+``slot_size``, refined ``num_iterations`` times. Each iteration draws slots
+(mean + exp(log sigma) * eps), decodes each slot to RGB and a mask logit
+with the spatial-broadcast ``Decoder``, scores the image under the masks'
+mixture (the ELBO), and feeds the refinement network with 17 maps per slot
+(the image, the decoded RGB, mask, mask logit and mask posterior, the ELBO's
+gradients with respect to the RGB and the mask, the likelihood, the
+leave-one-out likelihood and the coordinates) and the posterior with the
+ELBO's gradients with respect to it; an LSTM turns these into the
+posterior's update.
+
+The gradients are of B x ELBO: with respect to the posterior's mean and
+log sigma through the draw and the decoder, with respect to the decoded
+RGB and mask as they are. One ``torch.autograd.grad`` call gives all four;
+they are detached, as JAX stops their gradients. The forward therefore
+needs autograd even where its caller has none (a frozen OCR, a rollout's
+policy call under ``inference_mode``): it opens it locally, and then builds
+the inner graph from detached leaves and returns detached slots. Where the
+caller records a graph (the OCR trained end to end), the outer graph runs
+through every iteration as JAX's does, and the inner call retains it.
+
+The representation is the slots drawn in the last iteration. That
+iteration's refinement step feeds only the pretraining loss, so the
+forward stops at the draw (and decodes once more only for the masks).
+Noise is [num_iterations, B, K, L] (``eps_all`` of the JAX module), so a
+policy slices its batch on axis 1 (``noise_batch_axis``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import EnvConfig, IodineConfig
+from .base import PRETRAINING
+from .common import dense, flax_conv, lecun_normal_
+
+
+class MultiLayerConv(nn.ModuleList):
+    """ELU conv stack, padding kernel // 2 (ocrl_tpu/models/iodine.py:26-43); NCHW."""
+
+    def __init__(self, in_channels: int, features: int, n_layers: int, kernel_size: int,
+                 stride: int = 1):
+        super().__init__(flax_conv(in_channels if i == 0 else features, features,
+                                   kernel_size, stride, kernel_size // 2)
+                         for i in range(n_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self:
+            x = F.elu(conv(x))
+        return x
+
+
+class Decoder(nn.Module):
+    """Spatial-broadcast decoder: [B, K, L] -> (RGB [B, K, H, W, 3], mask
+    logits [B, K, H, W, 1]) (ocrl_tpu/models/iodine.py:46-93). The first
+    conv's input, concat(broadcast(slot), coordinates), is linear in its two
+    halves, so as in JAX it is evaluated as the slot half on a
+    (2 pad + 1)^2 grid, tiled back to H x W, plus the coordinate half once,
+    minus the bias counted twice. The tiling repeats the grid's middle row
+    and column by expansion, not by an index: the inner gradient goes back
+    through it twice a refinement step, and an index's backward is a
+    scatter."""
+
+    def __init__(self, slot_size: int, dim_hidden: int, n_layers: int, kernel_size: int,
+                 img_size: int):
+        super().__init__()
+        self.img_size = img_size
+        self.pad = pad = kernel_size // 2
+        self.conv1 = flax_conv(slot_size + 2, dim_hidden, kernel_size, 1, pad)
+        self.mlc = (MultiLayerConv(dim_hidden, dim_hidden, n_layers - 1, kernel_size)
+                    if n_layers > 1 else None)
+        self.conv_out = flax_conv(dim_hidden, 4, kernel_size, 1, pad)
+        lin = torch.linspace(-1, 1, img_size)
+        yy, xx = torch.meshgrid(lin, lin, indexing="ij")
+        self.register_buffer("coords", torch.stack([xx, yy])[None], persistent=False)
+
+    def _tile(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The (2 pad + 1) grid's axis ``dim`` stretched to the image: its
+        first and last ``pad`` rows at the borders, its middle row repeated
+        between them (an expand, whose backward is a sum)."""
+        p, H = self.pad, self.img_size
+        shape = list(x.shape)
+        shape[dim] = H - 2 * p
+        return torch.cat([x.narrow(dim, 0, p), x.narrow(dim, p, 1).expand(shape),
+                          x.narrow(dim, p + 1, p)], dim)
+
+    def forward(self, slots: torch.Tensor):
+        B, K, L = slots.shape
+        H = W = self.img_size
+        g = 2 * self.pad + 1
+        w, b = self.conv1.weight, self.conv1.bias
+        small = F.conv2d(slots.reshape(B * K, L, 1, 1).expand(B * K, L, g, g), w[:, :L], b,
+                         padding=self.pad)
+        coordc = F.conv2d(self.coords, w[:, L:], b, padding=self.pad)
+        x = F.elu(self._tile(self._tile(small, 2), 3) + coordc - b[:, None, None])
+        if self.mlc is not None:
+            x = self.mlc(x)
+        x = self.conv_out(x).permute(0, 2, 3, 1)                 # NHWC
+        return x[..., :3].reshape(B, K, H, W, 3), x[..., 3:].reshape(B, K, H, W, 1)
+
+
+class LSTMCell(nn.Module):
+    """flax's OptimizedLSTMCell with its gates i, f, g, o packed: ``ih``
+    (no bias) holds the input kernels ii, if, ig, io, ``hh`` the hidden ones
+    hi, hf, hg, ho with their biases. The carry is (c, h)."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__()
+        self.features = features
+        self.ih = nn.Linear(input_size, 4 * features, bias=False)
+        self.hh = nn.Linear(features, 4 * features)
+        for k in range(4):
+            block = slice(k * features, (k + 1) * features)
+            lecun_normal_(self.ih.weight.data[block])
+            nn.init.orthogonal_(self.hh.weight.data[block])
+        nn.init.zeros_(self.hh.bias)
+
+    def forward(self, carry, x: torch.Tensor):
+        c, h = carry
+        i, f, g, o = (self.ih(x) + self.hh(h)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class RefinementNetwork(nn.Module):
+    """conv stack -> mean over the image -> ELU Dense -> with the posterior
+    inputs, the LSTM -> the posterior's deltas
+    (ocrl_tpu/models/iodine.py:96-134)."""
+
+    def __init__(self, in_channels: int, latent_size: int, dim_conv: int, dim_hidden: int,
+                 dim_out: int, n_layers: int, kernel_size: int, stride: int):
+        super().__init__()
+        self.dim_hidden = dim_hidden
+        self.mlc = MultiLayerConv(in_channels, dim_conv, n_layers, kernel_size, stride)
+        self.mlp = dense(dim_conv, dim_hidden)
+        self.lstm = LSTMCell(dim_hidden + latent_size, dim_hidden)
+        self.mean_update = dense(dim_hidden, dim_out)
+        self.logsig_update = dense(dim_hidden, dim_out)
+
+    def forward(self, x: torch.Tensor, latent: torch.Tensor, state):
+        """x [B, K, H, W, D], latent [B, K, 4L], state (c, h) [B*K, hidden]."""
+        B, K = x.shape[:2]
+        x = self.mlc(x.reshape((B * K,) + x.shape[2:]).permute(0, 3, 1, 2))
+        x = F.elu(self.mlp(x.mean(dim=(2, 3))))
+        state, h = self.lstm(state, torch.cat([x, latent.reshape(B * K, -1)], dim=-1))
+        return (self.mean_update(h).reshape(B, K, -1),
+                self.logsig_update(h).reshape(B, K, -1), state)
+
+
+def _kl_std_normal(mean: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (mean ** 2 + torch.exp(2 * log_sigma) - 1.0) - log_sigma
+
+
+def _gaussian_log_prob(value: torch.Tensor, mean: torch.Tensor, sigma: float) -> torch.Tensor:
+    var = sigma ** 2
+    return -0.5 * (((value - mean) ** 2) / var + math.log(var) + math.log(2 * math.pi))
+
+
+def layernorm_stat(x: torch.Tensor) -> torch.Tensor:
+    """Per-slot standardisation (ocrl_tpu/models/iodine.py:144-153): over L
+    with the sample std (ddof 1) for [B, K, L], over H, W, C with the
+    population std for [B, K, H, W, C]; then / (std + 1e-5)."""
+    if x.dim() == 3:
+        mu = x.mean(dim=2, keepdim=True)
+        std = x.std(dim=2, keepdim=True, correction=1)
+    else:
+        mu = x.mean(dim=(2, 3, 4), keepdim=True)
+        std = torch.sqrt(((x - mu) ** 2).mean(dim=(2, 3, 4), keepdim=True))
+    return (x - mu) / (std + 1e-5)
+
+
+class Iodine_Module(nn.Module):
+    noise_batch_axis = 1
+
+    def __init__(self, ocr_config: IodineConfig, env_config: EnvConfig):
+        super().__init__()
+        ocr = ocr_config
+        self.slot_size, self.num_slots = ocr.slot_size, ocr.num_slots
+        self.num_iterations = ocr.num_iterations
+        self.img_size = env_config.obs_size
+        self.beta, self.sigma, self.use_layernorm = ocr.beta, ocr.sigma, ocr.layer_norm
+        self.refine = RefinementNetwork(
+            17, 4 * ocr.slot_size, ocr.ref_cnn_hidden_size, ocr.ref_mlp_hidden_size,
+            ocr.slot_size, ocr.ref_cnn_layers, ocr.ref_cnn_kernel_size,
+            ocr.ref_cnn_stride_size)
+        self.decoder = Decoder(ocr.slot_size, ocr.dec_cnn_hidden_size, ocr.dec_cnn_layers,
+                               ocr.dec_cnn_kernel_size, self.img_size)
+        self.slot_mean_init = nn.Parameter(torch.zeros(1, 1, ocr.slot_size))
+        self.slot_logsig_init = nn.Parameter(torch.zeros(1, 1, ocr.slot_size))
+
+    def _ln(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_stat(x) if self.use_layernorm else x
+
+    def _elbo(self, image, means, logsigs, recons, masks):
+        """(ELBO, pixel log-likelihood [B, 1, H, W, 3], component log
+        densities [B, K, H, W, 3]); image [B, 1, H, W, 3]."""
+        B = image.shape[0]
+        kl = _kl_std_normal(means, logsigs).sum() / B
+        comp_lp = _gaussian_log_prob(image, recons, self.sigma)
+        pixel_ll = torch.logsumexp(torch.log(masks + 1e-12) + comp_lp, dim=1, keepdim=True)
+        return pixel_ll.sum() / B - self.beta * kl, pixel_ll, comp_lp
+
+    def _encoding(self, image, recons, masks, mask_logits, comp_lp, pixel_ll, g_recons,
+                  g_masks) -> torch.Tensor:
+        """The refinement network's 17 input maps [B, K, H, W, 17]
+        (ocrl_tpu/models/iodine.py:219-245)."""
+        B, K, H, W, _ = recons.shape
+        comp_sum = comp_lp.sum(-1, keepdim=True)
+        a_ll = torch.exp(pixel_ll.sum(-1, keepdim=True)).expand(B, K, H, W, 1)
+        comp_probs = torch.exp(comp_sum)
+        weighted = (masks * comp_probs).sum(1, keepdim=True)
+        loo = (weighted - masks * comp_probs) / (1 - masks + 1e-5)
+        coords = self.decoder.coords[0].permute(1, 2, 0).expand(B, K, H, W, 2)
+        return torch.cat([image.expand(B, K, H, W, 3), recons, masks, mask_logits,
+                          torch.log_softmax(comp_sum, dim=1), self._ln(g_recons),
+                          self._ln(g_masks), self._ln(a_ll).detach(), self._ln(loo).detach(),
+                          coords], dim=-1)
+
+    def _iterations(self, image: torch.Tensor, eps: torch.Tensor, with_masks: bool,
+                    outer: bool):
+        B = image.shape[0]
+        K, L = self.num_slots, self.slot_size
+        means = self.slot_mean_init.expand(B, K, L)
+        logsigs = self.slot_logsig_init.expand(B, K, L)
+        state = (image.new_zeros(B * K, self.refine.dim_hidden),) * 2
+        image = image[:, None]
+        for it in range(self.num_iterations - 1):
+            if not (outer and means.requires_grad and logsigs.requires_grad):
+                means, logsigs = means.detach().requires_grad_(), logsigs.detach().requires_grad_()
+            slots = means + torch.exp(logsigs) * eps[it]
+            recons, mask_logits = self.decoder(slots)
+            masks = torch.softmax(mask_logits, dim=1)
+            elbo, pixel_ll, comp_lp = self._elbo(image, means, logsigs, recons, masks)
+            g_means, g_logsigs, g_recons, g_masks = torch.autograd.grad(
+                B * elbo, (means, logsigs, recons, masks), retain_graph=outer)
+            with torch.set_grad_enabled(outer):
+                latent = torch.cat([means, logsigs, self._ln(g_means), self._ln(g_logsigs)],
+                                   dim=-1)
+                encoding = self._encoding(image, recons, masks, mask_logits, comp_lp,
+                                          pixel_ll, g_recons, g_masks)
+                mean_delta, logsig_delta, state = self.refine(encoding, latent, state)
+                means, logsigs = means + mean_delta, logsigs + logsig_delta
+        with torch.set_grad_enabled(outer):
+            slots = means + torch.exp(logsigs) * eps[-1]
+            masks = torch.softmax(self.decoder(slots)[1], dim=1) if with_masks else None
+        return slots, masks
+
+    def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
+                generator: torch.Generator | None = None, with_masks: bool = False):
+        """obs [B, H, W, C] in [0, 1] -> slots [B, K, L] (and the last
+        iteration's masks [B, K, H, W, 1] with ``with_masks``). ``noise``
+        [num_iterations, B, K, L] is the draws' eps; without it they come
+        from ``generator``."""
+        B = obs.shape[0]
+        outer = torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
+        with torch.inference_mode(False), torch.enable_grad():
+            # an inference tensor cannot be saved for backward: copy it out
+            image = obs.clone() if obs.is_inference() else obs
+            if noise is None:
+                eps = torch.randn((self.num_iterations, B, self.num_slots, self.slot_size),
+                                  generator=generator, device=obs.device)
+            else:
+                eps = noise.clone() if noise.is_inference() else noise
+            slots, masks = self._iterations(image, eps, with_masks, outer)
+        if not outer:
+            slots = slots.detach()
+            masks = None if masks is None else masks.detach()
+        return (slots, masks) if with_masks else slots
+
+    def loss(self, *args, **kwargs):
+        raise NotImplementedError(f"IODINE's loss comes with {PRETRAINING}")
+
+
+def dims(ocr_config: IodineConfig, env_config: EnvConfig) -> tuple[int, int]:
+    return ocr_config.slot_size, ocr_config.num_slots

@@ -1,5 +1,8 @@
-"""Poolings of the port (so far: the Transformer pooling)."""
+"""Poolings of the port: Transformer, RN, MLP, CNN_Linear, CNN_Transformer
+and Identity."""
 
-from .modules import Transformer_Module, create_pooling_module, pooled_dim
+from .modules import (CNN_Linear_Module, CNN_Transformer_Module, Identity_Module, MLP_Module,
+                      RN_Module, Transformer_Module, create_pooling_module, pooled_dim)
 
-__all__ = ["Transformer_Module", "create_pooling_module", "pooled_dim"]
+__all__ = ["CNN_Linear_Module", "CNN_Transformer_Module", "Identity_Module", "MLP_Module",
+           "RN_Module", "Transformer_Module", "create_pooling_module", "pooled_dim"]

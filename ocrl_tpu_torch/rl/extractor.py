@@ -1,5 +1,5 @@
 """Policy construction (counterpart of ocrl_tpu/rl/extractor.py): OCR +
-pooling + actor-critic heads, for SLATE (and Slot-Attention) and GT.
+pooling + actor-critic heads, for every OCR and pooling of the port.
 
 The JAX freeze rule (ocrl_tpu/rl/extractor.py:24-25): a configured OCR
 checkpoint (``pooling.ocr_checkpoint``) makes the OCR pretrained, and a
@@ -15,7 +15,7 @@ import torch
 
 from ..config import PolicyConfig
 from ..device import resolve_device
-from ..models import LATER, GT_Module, SLATE_Module, dims
+from ..models import build_module, dims
 from ..poolings import create_pooling_module, pooled_dim
 from ..utils.checkpoint import get_ocr, resolve_ocr_checkpoint_path
 from .ac_nets import ActorCriticPolicy
@@ -31,17 +31,12 @@ def build_policy(config: PolicyConfig, seed: int = 0,
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        if config.ocr.name == "GT":
-            ocr = GT_Module(config.ocr, config.env)
-        elif config.ocr.name == "SLATE":
-            ocr = SLATE_Module(config.ocr, config.env)
-        else:
-            raise NotImplementedError(f"OCR '{config.ocr.name}' comes with {LATER}")
+        ocr = build_module(config.ocr, config.env)
         rep_dim, num_slots = dims(config.ocr, config.env)
-        pooling = create_pooling_module(config.pooling, rep_dim, num_slots,
-                                        config.env.num_stacked_obss)
+        name, stacked = config.pooling.name, config.env.num_stacked_obss
+        pooling = create_pooling_module(name, rep_dim, num_slots, config.pooling, stacked)
         policy = ActorCriticPolicy(ocr, pooling, config.sb3_acnet,
-                                   pooled_dim(config.pooling),
+                                   pooled_dim(name, config.pooling, rep_dim, num_slots, stacked),
                                    getattr(config, "num_actions", 4), freeze_ocr=False)
     policy = policy.to(device).eval()
     cpt = config.pooling.ocr_checkpoint

@@ -229,7 +229,9 @@ class OnPolicyAlgo:
 
     def _forward(self, minibatch: dict, noise: torch.Tensor | None):
         """(log-probabilities of the taken actions, entropy, values)."""
-        noise = None if noise is None else noise[:minibatch["obs"].shape[0]]
+        if noise is not None:      # its first rows (IODINE's batch is its axis 1)
+            axis = getattr(self.policy.ocr_module, "noise_batch_axis", 0)
+            noise = noise.narrow(axis, 0, minibatch["obs"].shape[0])
         logits, values = self.policy(self.prep(minibatch["obs"]), noise=noise,
                                      generator=self.generator)
         logp_all = torch.log_softmax(logits, dim=-1)

@@ -13,13 +13,26 @@ built by the JAX package (nested dicts of numpy arrays, as
 - FusedGRUCell ``wi``/``wh [D, 3D]`` -> ``wi.weight``/``wh.weight [3D, D]``,
   ``bi``/``bh`` -> ``wi.bias``/``wh.bias``;
 - Embed ``embedding [V, d]`` -> ``weight [V, d]``;
-- ``slot_mu``, ``slot_log_sigma``, ``cls_token``, ``bos`` and ``pe`` as they
-  are.
+- a vmapped leaf (MultipleCNN's, stacked on axis 0 over K modules): conv
+  kernels ``[K, h, w, I, O]`` -> one grouped OIHW weight ``[K*O, I, h, w]``,
+  biases ``[K, O]`` -> ``[K*O]``; the Dense ``[K, in, out]`` ->
+  ``[K, out, in]``, its bias ``[K, out]`` as it is;
+- flax's OptimizedLSTMCell: the input kernels ``ii/if/ig/io`` -> ``ih``,
+  the hidden ones ``hi/hf/hg/ho`` and their biases -> ``hh``, each
+  ``[4 * hidden, in]`` in the gate order i, f, g, o;
+- every Dense, Conv, LayerNorm and attention leaf of NatureCNN, VAE, MAE,
+  IODINE and the poolings by the same rules; a Dense after a convolution
+  reads the map flattened as H, W, C in both packages, so its kernel needs
+  no permutation;
+- ``slot_mu``, ``slot_log_sigma``, ``cls_token``, ``bos``, ``pe``,
+  ``mask_token``, ``slot_mean_init`` and ``slot_logsig_init`` as they are.
 
 ``ocr_from_flax(params)`` does the same for an OCR's own tree, as
 ``OCR.params`` of the JAX package holds it (or a checkpoint's
 ``ocr_module_state_dict``), and returns the ``state_dict`` of the port's
-``SLATE_Module(..., decoder=True)``, the broadcast decoder's included.
+whole OCR module (``models.build_module(..., decoder=True)``): SLATE's with
+the broadcast decoder's, the VAE's with ``in_dec`` and ``dec``, MAE's with
+its decoder.
 
 A key the port does not build raises.
 """
@@ -34,6 +47,7 @@ import torch
 _SA = "ocr_module/slotattn/slot_attention"
 _LAYER = r"pooling_module/CoreTransformer_0/TorchEncoderLayer_(\d+)"
 _DEC = r"ocr_module/tfdec/blocks_(\d+)"
+_VIT = r"ocr_module/(blocks|decoder_blocks)_(\d+)"
 # (flax module path, port module path); full matches over "/"-joined paths
 _MODULES = [
     (r"ocr_module/enc/Conv2dBlock_(\d+)/Conv_0", r"ocr_module.enc.blocks.\1.conv"),
@@ -57,6 +71,29 @@ _MODULES = [
     (r"ocr_module/bcdec/rest/layers_2", "ocr_module.bcdec.rest.2"),
     (r"ocr_module/(dictionary|z_pos|slotproj|out)", r"ocr_module.\1"),
     (r"ocr_module/MLP_0/Dense_(\d+)", r"ocr_module.mlp.\1"),           # GT
+    # NatureCNN, and MultipleCNN's vmapped NatureCNN (leaves stacked on axis 0)
+    (r"ocr_module/(?:VmapNatureCNN_Module_0/)?Conv_(\d+)", r"ocr_module.convs.\1"),
+    (r"ocr_module/(?:VmapNatureCNN_Module_0/)?Dense_0", "ocr_module.dense"),
+    # VAE
+    (r"ocr_module/dec/Conv2dBlock_(\d+)/Conv_0", r"ocr_module.dec.blocks.\1.conv"),
+    (r"ocr_module/dec/Conv_0", "ocr_module.dec.out"),
+    (r"ocr_module/(mu|var|in_dec)", r"ocr_module.\1"),
+    # MAE
+    (r"ocr_module/(patch_embed|encoder_norm|decoder_embed|decoder_norm|decoder_pred)",
+     r"ocr_module.\1"),
+    (_VIT + r"/LayerNorm_0", r"ocr_module.\1.\2.norm1"),
+    (_VIT + r"/LayerNorm_1", r"ocr_module.\1.\2.norm2"),
+    (_VIT + r"/MultiHeadDotProductAttention_0/(query|key|value|out)",
+     r"ocr_module.\1.\2.attn.\3"),
+    (_VIT + r"/Dense_0", r"ocr_module.\1.\2.fc1"),
+    (_VIT + r"/Dense_1", r"ocr_module.\1.\2.fc2"),
+    # IODINE
+    (r"ocr_module/decoder/Conv_0", "ocr_module.decoder.conv1"),
+    (r"ocr_module/decoder/Conv_1", "ocr_module.decoder.conv_out"),
+    (r"ocr_module/decoder/MultiLayerConv_0/Conv_(\d+)", r"ocr_module.decoder.mlc.\1"),
+    (r"ocr_module/refine/mlc/Conv_(\d+)", r"ocr_module.refine.mlc.\1"),
+    (r"ocr_module/refine/(mlp|mean_update|logsig_update)", r"ocr_module.refine.\1"),
+    (r"ocr_module/refine/lstm/([ih][ifgo])", r"ocr_module.refine.lstm.\1"),
     (_DEC + r"/(self_attn|encoder_decoder_attn)/(proj_[qkvo])",
      r"ocr_module.tfdec.blocks.\1.\2.\3"),
     (_DEC + r"/(self_attn_layer_norm|encoder_decoder_attn_layer_norm|ffn_layer_norm)",
@@ -65,6 +102,12 @@ _MODULES = [
     (_DEC + r"/ffn/Dense_1", r"ocr_module.tfdec.blocks.\1.ffn.fc2"),
     (r"ocr_module/tfdec/layer_norm", "ocr_module.tfdec.layer_norm"),
     (r"pooling_module/CoreTransformer_0", "pooling_module.core"),
+    (r"pooling_module/Dense_(\d+)", r"pooling_module.dense.\1"),
+    (r"pooling_module/Embed_(\d+)", r"pooling_module.embed.\1"),
+    (r"pooling_module/(arm_emb|obj_emb)", r"pooling_module.\1"),
+    (r"pooling_module/MLP_0/Dense_(\d+)", r"pooling_module.mlp.\1"),
+    (r"pooling_module/PoolNatureCNN_0/Conv_(\d+)", r"pooling_module.cnn.convs.\1"),
+    (r"pooling_module/PoolNatureCNN_0/Dense_0", "pooling_module.cnn.dense"),
     (r"pooling_module/CoreTransformer_0/Dense_0", "pooling_module.core.proj"),
     (_LAYER + r"/MultiHeadDotProductAttention_0/(query|key|value|out)",
      r"pooling_module.core.layers.\1.attn.\2"),
@@ -75,7 +118,10 @@ _MODULES = [
     (r"acnet/(shared|policy|value)_(\d+)", r"acnet.\1.\2"),
     (r"(action_net|value_net_out)", r"\1"),
 ]
-_KEPT = ("slot_mu", "slot_log_sigma", "cls_token", "bos", "pe")
+_KEPT = ("slot_mu", "slot_log_sigma", "cls_token", "bos", "pe", "mask_token",
+         "slot_mean_init", "slot_logsig_init")
+# flax OptimizedLSTMCell kernels, in the order of the port's packed gates
+_GATES = ("i", "f", "g", "o")
 
 
 def _flatten(tree: dict, prefix: tuple = ()):
@@ -94,16 +140,22 @@ def _module(path: str) -> str:
 
 
 def _leaf(module: str, name: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+    stacked_dense = module == "ocr_module.dense" and x.ndim == (3 if name == "kernel" else 2)
     if name == "kernel":
+        if x.ndim == 5:                # K stacked HWIO -> K blocks of O, grouped OIHW
+            K, h, w, i, o = x.shape
+            return "weight", x.transpose(0, 4, 3, 1, 2).reshape(K * o, i, h, w)
         if x.ndim == 4:                                   # HWIO -> OIHW
             return "weight", x.transpose(3, 2, 0, 1)
+        if stacked_dense:                                 # [K, in, out] -> [K, out, in]
+            return "weight", x.transpose(0, 2, 1)
         if x.ndim == 3 and module.endswith(".attn.out"):  # [H, hd, out]
             return "weight", x.reshape(-1, x.shape[-1]).T
         if x.ndim == 3:                                   # [in, H, hd]
             return "weight", x.reshape(x.shape[0], -1).T
         return "weight", x.T
     if name == "bias":
-        return "bias", x.reshape(-1)
+        return "bias", x if stacked_dense else x.reshape(-1)
     if name in ("scale", "embedding"):
         return "weight", x
     if name in ("wi", "wh"):
@@ -126,6 +178,18 @@ def from_flax(params: dict) -> dict[str, torch.Tensor]:
             raise KeyError(f"no port counterpart for flax parameter "
                            f"'{'/'.join(path)}'") from None
         state[f"{module}.{name}"] = torch.from_numpy(np.array(x, order="C"))
+    return _pack_lstm(state)
+
+
+def _pack_lstm(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """flax's per-gate LSTM kernels (``ii`` ... ``io`` without bias, ``hi``
+    ... ``ho`` with one) -> the port's ``ih`` and ``hh``, gates i, f, g, o."""
+    for key in [k for k in state if k.endswith(".lstm.ii.weight")]:
+        lstm = key[:-len(".ii.weight")]
+        for side, names in (("ih", ("weight",)), ("hh", ("weight", "bias"))):
+            for name in names:
+                parts = [state.pop(f"{lstm}.{side[0]}{g}.{name}") for g in _GATES]
+                state[f"{lstm}.{side}.{name}"] = torch.cat(parts)
     return state
 
 

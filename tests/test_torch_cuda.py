@@ -10,7 +10,8 @@ soft Gumbel sample (values in [0, 1]) to 1e-5 absolute; token ids exactly,
 since both sides add the same fp32 logits and field; each drawn field to
 1e-5 of its exact numpy replay at every value (about five fp32 ulps at the
 largest g, 16.64). The sweep kernels sum in a fixed order (no atomics), so
-two launches on the same inputs are held to bitwise equality."""
+two launches on the same inputs are held to bitwise equality. The other
+OCRs and poolings (no kernel of their own) are held card against CPU."""
 
 import math
 
@@ -280,3 +281,100 @@ def test_ppo_update_goes_through_the_sweep_kernels(cuda, freeze):
     same = all(torch.equal(v, ocr_before[k])
                for k, v in algo.policy.ocr_module.state_dict().items())
     assert same == freeze
+
+
+SMALL_POOL = ["pooling=transformer", "pooling.d_model=32", "pooling.nhead=4"]
+OTHER_OCRS = {   # small widths; the CPU tests hold each against JAX
+    "naturecnn": ["ocr=naturecnn", "ocr.rep_dim=32", "pooling=identity",
+                  "sb3_acnet=identity_orthoinit"],
+    "naturecnn-feat": ["ocr=naturecnn", "ocr.use_cnn_feat=True", "pooling.pos_emb=ape"]
+    + SMALL_POOL,
+    "multiple_cnn": ["ocr=multiple_cnn", "ocr.num_modules=3", "ocr.rep_dim=32"] + SMALL_POOL,
+    "vae": ["ocr=vae", "pooling=mlp"],
+    "mae": ["ocr=mae", "ocr.vit_size=tiny", "ocr.patch_size=8"] + SMALL_POOL,
+    "mae-cls": ["ocr=mae", "ocr.vit_size=tiny", "ocr.patch_size=8", "ocr.return_cls=True",
+                "pooling=mlp"],
+    "iodine": ["ocr=iodine_large", "ocr.slot_size=8", "ocr.num_iterations=3"] + SMALL_POOL,
+}
+
+
+def _other_config(variant):
+    from ocrl_tpu_torch.config import TrainSB3Config, compose
+
+    return compose(TrainSB3Config(), OTHER_OCRS[variant] + ["sb3=ppo", "env=target-N4C4S3S1"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", OTHER_OCRS)
+def test_other_ocr_policies_match_the_cpu_on_the_card(cuda, variant):
+    """Each other OCR's policy (64x64 frames; seed 0) on the card against
+    the same weights on the CPU: logits and values within 1e-5 of
+    max(|value|, 1), IODINE (3 iterations, the same noise) within 1e-4;
+    no kernel launched."""
+    from ocrl_tpu_torch.rl import build_policy
+
+    cfg = _other_config(variant).policy_config()
+    rng = np.random.default_rng(0)
+    obs = torch.from_numpy(rng.random((6, 64, 64, 3)).astype(np.float32))
+    noise = None
+    if cfg.ocr.name == "Iodine":
+        noise = torch.from_numpy(rng.standard_normal((3, 6, 6, 8)).astype(np.float32))
+    outs = []
+    reset_launches()
+    for device in ("cuda", "cpu"):
+        policy = build_policy(cfg, seed=0, device=device)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in policy(
+                obs.to(device), noise=None if noise is None else noise.to(device))])
+    assert LAUNCHES == {}
+    tol = 1e-4 if noise is not None else 1e-5
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol * max(want.abs().max().item(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True], ids=["e2e", "frozen"])
+def test_iodine_updates_and_acts_on_the_card(cuda, freeze):
+    """IODINE's forward opens autograd inside the rollout's inference_mode
+    and the frozen update's no_grad on the card too: acting works, a frozen
+    update leaves the OCR bitwise unchanged, an end-to-end one moves it."""
+    from ocrl_tpu_torch.rl import PPO, build_policy
+
+    cfg = _other_config("iodine")
+    algo = PPO(build_policy(cfg.policy_config(), seed=0), (64, 64, 3), True, 1,
+               freeze_ocr=freeze)
+    rng = np.random.default_rng(1)
+    batch = {"obs": rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+             "actions": rng.integers(0, 4, 8).astype(np.int32),
+             "logprobs": np.full(8, np.log(0.25), np.float32),
+             "values": np.zeros(8, np.float32),
+             "advantages": rng.standard_normal(8).astype(np.float32),
+             "returns": rng.standard_normal(8).astype(np.float32)}
+    action, logprob, value = algo.act(batch["obs"][:4])
+    assert action.shape == (4,) and torch.isfinite(logprob).all()
+    before = {k: v.clone() for k, v in algo.policy.ocr_module.state_dict().items()}
+    metrics = algo.update_minibatch(algo.upload(batch), torch.arange(8, device="cuda"))
+    assert all(torch.isfinite(v) for v in metrics.values())
+    same = all(torch.equal(v, before[k])
+               for k, v in algo.policy.ocr_module.state_dict().items())
+    assert same == freeze
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("rn", (3, 5, 16)), ("mlp", (3, 5, 16)),
+                                        ("identity", (3, 5, 16)),
+                                        ("cnn_linear", (2, 4096, 8)),
+                                        ("cnn_transformer", (2, 4096, 8))])
+def test_other_poolings_match_the_cpu_on_the_card(cuda, name, shape):
+    from ocrl_tpu_torch.config import TrainSB3Config, compose
+    from ocrl_tpu_torch.poolings import create_pooling_module
+
+    cfg = compose(TrainSB3Config(), [f"pooling={name}", "ocr=gt", "env=target-N4C4S3S1"]).pooling
+    torch.manual_seed(0)
+    module = create_pooling_module(cfg.name, shape[2], shape[1], cfg).eval()
+    state = torch.from_numpy(np.random.default_rng(2).random(shape).astype(np.float32))
+    with torch.no_grad():
+        want = module(state)
+        got = module.cuda()(state.cuda()).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-2)

@@ -430,5 +430,5 @@ def test_main_evaluates_in_batches_and_refuses_what_it_cannot_score(tmp_path):
         evaluate(ocr, [{"obss": obs}])
     with pytest.raises(ValueError, match="bg_mask_idx"):
         main(port_eval_config(bg_mask_idx=0), data, device="cpu")
-    with pytest.raises(NotImplementedError, match="other OCRs"):
+    with pytest.raises(NotImplementedError, match="get_ari_mse for VAE, MAE and IODINE"):
         main(port_eval_config(**{"ocr.name": "Iodine"}), data, device="cpu")

@@ -35,7 +35,7 @@ from ocrl_tpu_torch.models.common import (Conv2dBlock, FusedGRUCell,
                                           PositionalEmbedding)
 from ocrl_tpu_torch.models.dvae import SlotAttnCNNEncoder
 from ocrl_tpu_torch.models.slot_attention import SlotAttention
-from ocrl_tpu_torch.poolings import Transformer_Module
+from ocrl_tpu_torch.poolings import Transformer_Module, create_pooling_module
 from ocrl_tpu_torch.rl.ac_nets import CustomNetwork
 from ocrl_tpu_torch.utils.convert import from_flax
 
@@ -193,9 +193,16 @@ def test_transformer_pooling(pos_emb, stacked):
 
 
 def test_pooling_refuses_later_options():
+    """Every pooling option is ported; what is still refused on the pooling
+    path: the CausalWorld envs whose states cw_embedding reads (a later
+    slice), and a pooling that does not exist."""
     port = small_port_config().pooling
-    with pytest.raises(NotImplementedError, match="later|other poolings"):
-        Transformer_Module(32, 3, dataclasses.replace(port, use_mlp1=True))
+    Transformer_Module(32, 3, dataclasses.replace(port, use_mlp1=True))
+    with pytest.raises(NotImplementedError, match="CausalWorld"):
+        tcfg.compose(tcfg.TrainSB3Config(), ["pooling=transformer", "pooling.cw_embedding=True",
+                                             "env=cw-target-N4C4S1S1"])
+    with pytest.raises(ValueError, match="Unknown pooling"):
+        create_pooling_module("Sum", 32, 3, port)
 
 
 def test_actor_critic_heads():
@@ -496,16 +503,19 @@ def test_slate_loss_and_metrics(step, monkeypatch):
 
 def test_slate_training_surface_refuses_later_slices():
     """What is still refused: the loss of a module built without its decoder
-    (a policy's), and OCRs other than SLATE, which come with a later slice.
-    Masks, generation and use_bcdec, refused before the evaluation slice,
-    are held against JAX in test_torch_eval.py."""
+    (a policy's), and the pretraining step of the other OCRs (here IODINE),
+    which comes with the slice that ports train_ocr for them. Masks,
+    generation and use_bcdec, refused before the evaluation slice, are held
+    against JAX in test_torch_eval.py; the other OCRs' serving and RL paths
+    in test_torch_ocrs.py."""
     from ocrl_tpu_torch.models import create_ocr
 
     port = small_port_config()
     obs = torch.zeros(1, 16, 16, 3)
     with pytest.raises(RuntimeError, match="without its decoder"):
         SLATE_Module(port.ocr, port.env).loss(obs, torch.zeros(1, 4, 16, 16, 1))
-    with pytest.raises(NotImplementedError, match="other OCRs"):
-        create_ocr(tcfg.replace(port.ocr, "name", "Iodine"), port.env, device="cpu")
+    iodine = tcfg.IodineConfig(slot_size=8, num_iterations=2)
+    with pytest.raises(NotImplementedError, match="train_ocr"):
+        create_ocr(iodine, port.env, device="cpu").update(obs, None, 0)
     _, _, tm = small_train_modules([("ocr.use_bcdec", True)])
     assert tm.use_bcdec and hasattr(tm, "bcdec") and hasattr(tm, "tfdec")

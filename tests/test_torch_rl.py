@@ -119,9 +119,10 @@ def close(got: dict, want: dict, what: str, floor: float) -> None:
 class Pair:
     """The JAX algorithm and the port's on the same initial weights."""
 
-    def __init__(self, setup: str, algo: str = "ppo", freeze: bool = False,
+    def __init__(self, setup, algo: str = "ppo", freeze: bool = False,
                  noise: np.ndarray | None = None, **kwargs):
-        jax_args, port_cfg, self.obs_shape, self.is_image = SETUPS[setup]
+        jax_args, port_cfg, self.obs_shape, self.is_image = (
+            SETUPS[setup] if isinstance(setup, str) else setup)
         self.noise = noise
         cfg = compose("train_sb3", jax_args)
         jpolicy, _, _, _ = jbuild_policy(cfg, seed=0)
@@ -141,13 +142,15 @@ class Pair:
 
     @contextmanager
     def patched(self):
-        """JAX's slot-noise draw replaced by the test's array (its first rows
-        for a batch of fewer), baked in when JAX traces."""
+        """JAX's slot-noise draw replaced by the test's array (its leading
+        block of the drawn shape, so its first rows for a batch of fewer),
+        baked in when JAX traces."""
         with pytest.MonkeyPatch.context() as mp:
             if self.noise is not None:
                 noise = self.noise
                 mp.setattr(jax.random, "normal",
-                           lambda key, shape, dtype=jnp.float32: jnp.asarray(noise[:shape[0]]))
+                           lambda key, shape, dtype=jnp.float32: jnp.asarray(
+                               noise[tuple(slice(0, n) for n in shape)]))
             yield
 
     def jax_update(self, data: dict, idx) -> dict:
@@ -162,7 +165,8 @@ class Pair:
                                           self.t_noise)
         return {k: float(v) for k, v in metrics.items()}
 
-    def check(self, got_metrics: dict, want_metrics: dict) -> None:
+    def check(self, got_metrics: dict, want_metrics: dict,
+              param_floor: float = PARAM_FLOOR) -> None:
         """The rule of the module docstring: metrics within TOL of
         max(|value|, METRIC_FLOOR); parameters within TOL of max(the leaf's
         largest entry, PARAM_FLOOR); each optimizer moment within TOL of the
@@ -172,7 +176,7 @@ class Pair:
             assert abs(got_metrics[k] - w) <= TOL * max(abs(w), METRIC_FLOOR), \
                 (k, got_metrics[k], w)
         close(self.t.policy.state_dict(), from_flax(jax.tree.map(np.asarray, self.j.params)),
-              "parameter", PARAM_FLOOR)
+              "parameter", param_floor)
         want_mu, want_nu = _moments(self.j.opt_state)
         names = self.t.param_names
         for got, want, what in ((self.t.optimizer.mu, want_mu, "mu"),

@@ -96,10 +96,12 @@ def test_compose_overrides():
     with pytest.raises(KeyError):            # a field A2C does not have
         tcfg.compose(tcfg.TrainSB3Config(), ["sb3=a2c", "sb3.algo_kwargs.batch_size=4"])
     for argv, match in [(["seeds=1,2,3"], "multi-seed"), (["sb3=sac"], "SAC"),
-                        (["video.interval=5"], "videos"), (["ocr=vae"], "not ported"),
+                        (["video.interval=5"], "videos"), (["ocr=vae", "seeds=1,2"], "multi-seed"),
                         (["env=cw-target-N4C4S1S1"], "CausalWorld")]:
         with pytest.raises(NotImplementedError, match=match):
             tcfg.compose(tcfg.TrainSB3Config(), argv)
+    with pytest.raises(FileNotFoundError, match="available: .*iodine_large"):
+        tcfg.compose(tcfg.TrainSB3Config(), ["ocr=iodine"])
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path):
