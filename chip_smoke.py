@@ -71,7 +71,18 @@ Phases, each printing its own line with its seconds:
    against CPU (IODINE on the same numpy noise), with each side's distance
    from a float64 run on the CPU; RN, MLP, Identity, CNN_Linear and
    CNN_Transformer (on a 64x64 grid of 8-wide slots) and the Transformer's
-   push embedding, card against CPU; one end-to-end IODINE update of 32.
+   push embedding, card against CPU; one end-to-end IODINE update of 32;
+10. pretraining: VAE (vae.yaml), MAE-base (mae.yaml, its lr x 24 / 256 by
+   train_ocr's rule) and IODINE-large (iodine_large.yaml, 2-norm clip 5.0),
+   full width, seed 0, through create_ocr and OCR.update_many (k = 4) on
+   uint8 batches of 24 painted scenes: one step card against CPU at batch 4
+   on the same weights and numpy noise (loss, metrics, norm, gradients,
+   every parameter), 12 steps of warm-up after which the loss on the batch
+   with fixed noise is lower than before, then windows of 20 timed steps,
+   3 s in all (ms a step as the median window and its spread, images/s,
+   finite metrics); then get_ari_mse.evaluate of IODINE-large
+   on 2 batches of 32 painted scenes with masks (ari, mse, ms a batch), one
+   batch card against CPU; no kernel launched in the phase.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -91,8 +102,9 @@ import numpy as np
 import torch
 
 from ocrl_tpu_torch import test_sb3, train_sb3
-from ocrl_tpu_torch.config import (EnvConfig, OCRCheckpointConfig, OCRConfig, PolicyConfig,
-                                   TestSB3Config, TrainSB3Config, compose)
+from ocrl_tpu_torch.config import (GROUPS, EnvConfig, IodineConfig, OCRCheckpointConfig,
+                                   OCRConfig, PolicyConfig, TestSB3Config, TrainSB3Config,
+                                   compose)
 from ocrl_tpu_torch.config import replace as config_replace
 from ocrl_tpu_torch.envs import make_env
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
@@ -103,6 +115,7 @@ from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_rou
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
 from ocrl_tpu_torch.poolings import create_pooling_module
 from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
+from ocrl_tpu_torch.train_ocr import pretraining_config
 from ocrl_tpu_torch.utils.checkpoint import get_ocr
 from ocrl_tpu_torch.utils.metrics import mask_labels
 
@@ -178,6 +191,31 @@ OTHER_CHECK = 8
 # (tests/test_torch_ocrs.py), and the run prints each side's distance from
 # float64 here as well.
 OTHER_TOL, IODINE_CARD_TOL = 1e-5, 1e-4
+# The pretraining phase: VAE (vae.yaml), MAE-base (mae.yaml, its lr scaled by
+# train_ocr's rule at batch 24) and IODINE-large (iodine_large.yaml), full
+# width, seed 0, on uint8 batches of TRAIN_BATCH painted scenes through
+# update_many at k = TRAIN_K, all on one batch: PRETRAIN_FALL steps (the
+# warm-up), after which its loss on fixed noise must be lower; then windows
+# of TRAIN_STEPS timed steps, at least PRETRAIN_WINDOWS of them and
+# PRETRAIN_SECONDS in all, reported as the median window and its spread.
+PRETRAIN_OCRS = ("vae", "mae", "iodine_large")
+PRETRAIN_FALL, PRETRAIN_WINDOWS, PRETRAIN_SECONDS, PRETRAIN_CHECK = 12, 3, 3.0, 4
+# One pretraining step card against CPU at batch PRETRAIN_CHECK, the same
+# weights and numpy noise: the loss, each metric and norm to 1e-5 of
+# max(|value|, 1) (IODINE to IODINE_CARD_TOL: on the CPU a float32 step lies
+# 1.2e-6 from float64 in its norm, and its forward is ill-conditioned at full
+# width, tests/test_torch_ocrs.py); each gradient as STEP_GRAD_TOL /
+# STEP_GRAD_FLOOR; every parameter after the step to 1e-5 of max(|leaf|,
+# 1e-2) where the CPU's gradient exceeds PRETRAIN_SURE of its leaf's largest
+# and STEP_GRAD_FLOOR of the model's. Adam's first step g / (|g| + eps) moves
+# by at most a quarter of the gradient's relative error, so it is as sure as
+# the gradient; an entry far below those scales keeps mostly rounding (MAE's
+# attention key biases, zero in exact arithmetic, lie near 1e-9 of the
+# model's largest), and there each side's change is held to Adam's bound,
+# lr x (1 + weight_decay x |p|). On the CPU a float32 step lies at most
+# 3.7e-7 of max(|leaf|, 1e-2) from float64 on the sure entries of the three
+# models, at batch 4 with these seeds.
+PRETRAIN_TOL, PRETRAIN_SURE = 1e-5, 1e-4
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -608,6 +646,21 @@ def plain_kernels(fields: dict):
          gumbel.gumbel_argmax_ids) = saved
 
 
+def compare_grads(got: dict, want: dict) -> tuple[float, bool, float]:
+    """Each gradient of ``got`` against ``want`` (name -> tensor) to
+    STEP_GRAD_TOL of its leaf's largest entry plus STEP_GRAD_FLOOR of the
+    model's: (the worst share of its tolerance, all within, the model's
+    largest entry)."""
+    top = max(g.abs().max().item() for g in want.values())
+    worst, ok = 0.0, True
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item()
+        limit = STEP_GRAD_TOL * g.abs().max().item() + STEP_GRAD_FLOOR * top
+        worst = max(worst, err / max(limit, 1e-30))
+        ok &= err <= limit
+    return worst, ok, top
+
+
 def check_step(ocr_cfg, env_cfg, obs: np.ndarray):
     """One update of a fresh model through the kernels against the same
     update through the plain versions, from identical params and generator
@@ -626,15 +679,10 @@ def check_step(ocr_cfg, env_cfg, obs: np.ndarray):
         raise SystemExit("the plain run drew other slot noise: generators out of step")
     loss, want_loss = got["loss"].item(), want["loss"].item()
     loss_ok = abs(loss - want_loss) <= STEP_LOSS_RTOL * abs(want_loss) and np.isfinite(loss)
-    grads = dict(kernel_ocr.module.named_parameters())
     plain_grads = dict(plain_ocr.module.named_parameters())
-    top = max(p.grad.abs().max().item() for p in plain_grads.values())
-    worst_grad, grad_ok = 0.0, True
-    for name, p in plain_grads.items():
-        err = (grads[name].grad - p.grad).abs().max().item()
-        limit = STEP_GRAD_TOL * p.grad.abs().max().item() + STEP_GRAD_FLOOR * top
-        worst_grad = max(worst_grad, err / max(limit, 1e-30))
-        grad_ok &= err <= limit
+    worst_grad, grad_ok, top = compare_grads(
+        {n: p.grad for n, p in kernel_ocr.module.named_parameters()},
+        {n: p.grad for n, p in plain_grads.items()})
     lrs = {g["group"]: g["lr"] for g in plain_ocr.optimizer.adam.param_groups}
     after, plain_after = kernel_ocr.module.state_dict(), plain_ocr.module.state_dict()
     worst_move, compared, total = 0.0, 0, 0
@@ -1188,6 +1236,141 @@ def other_ocrs_phase(card: str) -> dict:
     return dict(launches=launches, keep=keep)
 
 
+def pretraining_noise(ocr_cfg, env_cfg, B: int, rng) -> dict:
+    """One step's draws as numpy, under the loss's noise key: the VAE's eps
+    [B, latent], MAE's masking order [B, N], IODINE's eps [N, B, K, L]."""
+    if ocr_cfg.name == "VAE":
+        return {"eps": rng.standard_normal((B, ocr_cfg.latent_dim)).astype(np.float32)}
+    if ocr_cfg.name == "MAE":
+        N = (env_cfg.obs_size // ocr_cfg.patch_size) ** 2
+        return {"masking": rng.random((B, N), dtype=np.float32)}
+    return {"eps": rng.standard_normal((ocr_cfg.num_iterations, B, ocr_cfg.num_slots,
+                                        ocr_cfg.slot_size)).astype(np.float32)}
+
+
+def check_pretraining_step(ocr_cfg, env_cfg, obs: np.ndarray, noise: dict,
+                           tol: float = PRETRAIN_TOL) -> dict:
+    """One update of a fresh OCR (seed 0) on the card against the same
+    update on the CPU, on ``obs`` (uint8) with ``noise`` (numpy) on both
+    sides, under the rules stated at PRETRAIN_TOL. Returns what it found."""
+    sides = {}
+    for device in ("cuda", "cpu"):
+        ocr = create_ocr(ocr_cfg, env_cfg, seed=0, device=device)
+        start = {k: v.clone() for k, v in ocr.module.state_dict().items()}
+        metrics = ocr.update(obs, None, 0, noise={k: torch.from_numpy(v).to(device)
+                                                   for k, v in noise.items()})
+        groups = {id(p): (g["lr"], g["weight_decay"]) for g in ocr.optimizer.adam.param_groups
+                  for p in g["params"]}
+        sides[device] = dict(
+            metrics={k: float(v) for k, v in metrics.items()}, start=start,
+            grads={n: p.grad.cpu() for n, p in ocr.module.named_parameters()},
+            groups={n: groups[id(p)] for n, p in ocr.module.named_parameters()},
+            after={k: v.cpu() for k, v in ocr.module.state_dict().items()})
+    torch.cuda.synchronize()
+    card, cpu = sides["cuda"], sides["cpu"]
+    errs = {k: abs(card["metrics"][k] - v) / max(abs(v), 1.0) for k, v in cpu["metrics"].items()}
+    worst_metric = max(errs, key=errs.get)
+    metrics_ok = (set(card["metrics"]) == set(cpu["metrics"]) and errs[worst_metric] <= tol
+                  and all(np.isfinite(v) for v in card["metrics"].values()))
+    worst_grad, grad_ok, top = compare_grads(card["grads"], cpu["grads"])
+    worst_param, noisy, param_ok = 0.0, 0, True
+    for name, g in cpu["grads"].items():
+        lr, decay = cpu["groups"][name]
+        p0 = cpu["start"][name].cpu()
+        sure = (g.abs() > PRETRAIN_SURE * g.abs().max()) & (g.abs() > STEP_GRAD_FLOOR * top)
+        scale = max(cpu["after"][name].abs().max().item(), 1e-2)
+        if sure.any():
+            err = (card["after"][name] - cpu["after"][name])[sure].abs().max().item() / scale
+            worst_param = max(worst_param, err)
+            param_ok &= err <= tol
+        bound = lr * (1 + decay * p0[~sure].abs()) * (1 + 1e-3)
+        for side in (card, cpu):
+            param_ok &= bool(((side["after"][name] - p0)[~sure].abs() <= bound).all())
+        noisy += int((~sure).sum())
+    print(f"  {ocr_cfg.name}: one step at batch {obs.shape[0]}, card against CPU: metrics "
+          f"worst {worst_metric} {errs[worst_metric]:.3e} of max(|value|, 1) (tolerance {tol}); "
+          f"gradients worst {worst_grad:.3f} of their tolerance; parameters worst "
+          f"{worst_param:.3e} of max(|leaf|, 1e-2) where |g| > {PRETRAIN_SURE} of its leaf's "
+          f"largest and {STEP_GRAD_FLOOR} of the model's (tolerance {tol}), "
+          f"{noisy} entries below within Adam's bound: "
+          f"{'ok' if metrics_ok and grad_ok and param_ok else 'MISMATCH'}", flush=True)
+    if not (metrics_ok and grad_ok and param_ok):
+        raise SystemExit(f"{ocr_cfg.name}'s pretraining step disagrees between card and CPU")
+    return dict(metric_err=errs[worst_metric], grad=worst_grad, param=worst_param)
+
+
+def pretraining_phase(card: str) -> dict:
+    """VAE, MAE-base and IODINE-large pretraining steps at full width (see
+    PRETRAIN_OCRS), timed, each checked card against CPU, with a falling
+    loss and no kernel launched; then get_ari_mse.evaluate of IODINE-large
+    on two batches of EVAL_BATCH painted scenes, one of them card against
+    CPU. Returns the launch counts (none expected) and the OCRs and their
+    superbatches, for the profile."""
+    env_cfg = EnvConfig()
+    obs, _ = painted(TRAIN_BATCH, env_cfg.obs_size, EVAL_OBJECTS, seed=10)
+    superbatch = np.concatenate([obs] * TRAIN_K)
+    reset_launches()
+    keep = {}
+    for name in PRETRAIN_OCRS:
+        ocr_cfg = pretraining_config(GROUPS["ocr"][name], TRAIN_BATCH)
+        rng = np.random.default_rng(0)
+        check_pretraining_step(ocr_cfg, env_cfg, obs[:PRETRAIN_CHECK],
+                               pretraining_noise(ocr_cfg, env_cfg, PRETRAIN_CHECK, rng),
+                               IODINE_CARD_TOL if ocr_cfg.name == "Iodine" else PRETRAIN_TOL)
+        fixed = {k: torch.from_numpy(v).cuda()
+                 for k, v in pretraining_noise(ocr_cfg, env_cfg, TRAIN_BATCH, rng).items()}
+        ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+        before = ocr.get_loss(obs, noise=dict(fixed))["loss"].item()
+        _, first = train_steps(ocr, [obs] * PRETRAIN_FALL, 0)      # and warm-up
+        after = ocr.get_loss(obs, noise=dict(fixed))["loss"].item()
+        windows, step = [], PRETRAIN_FALL
+        while len(windows) < PRETRAIN_WINDOWS or sum(windows) < PRETRAIN_SECONDS:
+            seconds, metrics = train_steps(ocr, [obs] * TRAIN_STEPS, step)
+            windows.append(seconds)
+            step += TRAIN_STEPS
+        ms = sorted(1e3 * w / TRAIN_STEPS for w in windows)
+        median = ms[len(ms) // 2]
+        finite = all(torch.isfinite(v).all() for m in (first, metrics) for v in m.values())
+        print(f"  {card}: {ocr_cfg.name} ({name}.yaml, lr {ocr_cfg.learning.lr:g}): "
+              f"{len(windows)} windows of {TRAIN_STEPS} steps at batch {TRAIN_BATCH} "
+              f"(update_many k={TRAIN_K}), {sum(windows):.3f} s: {median:.3f} ms/step "
+              f"median ({ms[0]:.3f}-{ms[-1]:.3f}), {1e3 * TRAIN_BATCH / median:.1f} "
+              f"images/s; last step { {k: round(v[-1].item(), 6) for k, v in metrics.items()} }; "
+              f"loss on the fixed batch and noise {before:.6f} before, {after:.6f} after "
+              f"{PRETRAIN_FALL} steps; metrics finite: {'yes' if finite else 'NO'}", flush=True)
+        if not (finite and np.isfinite(after) and after < before):
+            raise SystemExit(f"{ocr_cfg.name}: pretraining metrics not finite or the loss "
+                             f"did not fall")
+        keep[name] = dict(ocr=ocr, superbatch=superbatch)
+
+    iodine = create_ocr(IodineConfig(), env_cfg, seed=0)
+    eobs, emasks = painted(2 * EVAL_BATCH, env_cfg.obs_size, EVAL_OBJECTS, seed=11)
+    batches = list(batches_of({"obss": eobs, "masks": emasks}, EVAL_BATCH))
+    evaluate(iodine, batches[:1], seed=0)                            # warm-up
+    drawn = [{}, {}]
+    result = evaluate(iodine, batches, seed=0, noise=drawn)
+    cpu = create_ocr(IodineConfig(), env_cfg, seed=0, device="cpu")
+    want = evaluate(cpu, batches[:1], seed=0, noise=[{"eps": drawn[0]["eps"].cpu()}])
+    got = result["batches"][0]
+    ari_err, mse_err = abs(got["ari"] - want["ari"]), rel_err(got["mse"], want["mse"])
+    ok = ari_err <= 1e-6 and mse_err <= IODINE_CARD_TOL and np.isfinite(
+        [result["ari"], result["mse"]]).all()
+    batch_ms = ", ".join(f"{1e3 * b['loss_s']:.3f}" for b in result["batches"])
+    print(f"  {card}: get_ari_mse of IODINE-large on {len(batches)} batches of {EVAL_BATCH} "
+          f"painted scenes: ari {result['ari']:.6f}, mse {result['mse']:.4f}, "
+          f"{batch_ms} ms a batch; "
+          f"batch 0 card against CPU: ari {got['ari']:.6f} vs {want['ari']:.6f}, mse "
+          f"{got['mse']!r} vs {want['mse']!r}, {mse_err:.3e} relative (tolerance "
+          f"{IODINE_CARD_TOL}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit("IODINE's get_ari_mse disagrees between card and CPU")
+    launches = dict(LAUNCHES)
+    if launches:
+        raise SystemExit(f"the pretraining phase launched kernels: {launches}")
+    return dict(launches=launches, keep=keep)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -1314,6 +1497,9 @@ def main() -> int:
     with phase("other-ocrs"):
         other = other_ocrs_phase(card)
 
+    with phase("pretraining"):
+        pretrain = pretraining_phase(card)
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
@@ -1349,13 +1535,18 @@ def main() -> int:
             e2e = other["keep"]["iodine-e2e"]
             profile("IODINE e2e: 3 minibatch updates of 32",
                     lambda: e2e["algo"].update_minibatch(e2e["data"], e2e["idx"]), 3, 20)
+            for name, kept in pretrain["keep"].items():
+                profile(f"pretraining {name}: {TRAIN_K} steps at batch {TRAIN_BATCH}",
+                        lambda: kept["ocr"].update_many(kept["superbatch"], None, 0, TRAIN_K),
+                        1, 20)
 
     def row(name, source, replaces, result):
         # launches: summed over the main-path runs: serving, training,
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
-        # frozen updates, the RL evaluation and the other OCRs' iterations
+        # frozen updates, the RL evaluation, the other OCRs' iterations and
+        # the pretraining phase
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
-            other["launches"],)
+            other["launches"], pretrain["launches"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

@@ -7,8 +7,8 @@
 - configs/pooling/_base.yaml with transformer.yaml (``PoolingConfig``),
   rn.yaml, mlp.yaml, cnn_linear.yaml, cnn_transformer.yaml and identity.yaml
   (``RNConfig`` ... ``IdentityPoolingConfig``), each with the YAML's keys,
-- configs/sb3_acnet/_base.yaml with mlp.yaml, identity.yaml and
-  identity_orthoinit.yaml (``ACNetConfig``),
+- configs/sb3_acnet/_base.yaml with mlp.yaml, mlp_orthoinit.yaml,
+  identity.yaml and identity_orthoinit.yaml (``ACNetConfig``),
 - configs/sb3/{ppo,a2c}.yaml (``SB3Config`` over ``PPOConfig`` /
   ``A2CConfig``, whose defaults are ocrl_tpu/rl/ppo.py:24-62),
 - the image size of the synthetic envs (``EnvConfig``), and a whole
@@ -387,11 +387,12 @@ class PolicyConfig:
 
 @dataclass(frozen=True)
 class GetAriMseConfig:
-    """``get_ari_mse ocr=slate`` (``slotattention``: ``ocr.use_bcdec``).
-    ``bg_mask_idx`` names the masks' background channel, which the
-    foreground ARI takes as the last one."""
+    """``get_ari_mse ocr=slate`` (``slotattention``: ``ocr.use_bcdec``;
+    ``ocr=iodine_large``: an ``IodineConfig``). ``bg_mask_idx`` names the
+    masks' background channel, which the foreground ARI takes as the last
+    one."""
 
-    ocr: OCRConfig = field(default_factory=OCRConfig)
+    ocr: OCRConfig | IodineConfig = field(default_factory=OCRConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
     ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
     batch_size: int = 32
@@ -740,6 +741,7 @@ GROUPS = {
                 "identity": IdentityPoolingConfig()},
     "sb3": {"ppo": SB3Config("PPO", PPOConfig()), "a2c": SB3Config("A2C", A2CConfig())},
     "sb3_acnet": {"mlp": ACNetConfig(),
+                  "mlp_orthoinit": ACNetConfig("MLPOrthoInit", True),
                   "identity": ACNetConfig("Identity", False, NetConfig(), NetConfig(),
                                           NetConfig()),
                   "identity_orthoinit": ACNetConfig("IdentityOrthoInit", True, NetConfig(),

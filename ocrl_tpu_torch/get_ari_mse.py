@@ -15,9 +15,10 @@ Per batch: the foreground ARI of ``OCR.get_loss(obs, masks)``, which draws
 from the OCR's own generator; then for SLATE with the transformer decoder
 the autoregressive MSE, sum((obs - gen_imgs(slots)) ** 2) / B, with the
 slots of a second slot-attention pass on noise from a generator seeded by
-``seed``; for ``use_bcdec`` the loss's ``mse`` instead. The results are the
-means over the batches. Runs on the card unless the OCR was built with
-``device="cpu"``.
+``seed``; for ``use_bcdec`` and for IODINE the loss's ``mse`` instead. The
+other OCRs produce no masks and raise ``ValueError``, as JAX's entry does.
+The results are the means over the batches. Runs on the card unless the
+OCR was built with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -30,12 +31,18 @@ import torch
 
 from .config import GetAriMseConfig
 from .models.base import OCR, normalize_obs
+from .models.iodine import Iodine_Module
 from .models.slate import SLATE_Module
 from .utils.checkpoint import get_ocr
 
 log = logging.getLogger(__name__)
-OTHER_OCRS = ("the slice that ports train_ocr and get_ari_mse for VAE, MAE and IODINE "
-              "(IODINE's ARI among them)")
+# the OCRs that produce masks, by config name: the only ones scored here
+SCORED = {"SLATE": SLATE_Module, "Iodine": Iodine_Module}
+
+
+def _refuse_unmasked(name: str) -> None:
+    raise ValueError(f"get_ari_mse needs a mask-producing OCR (SLATE/Slot-Attention/"
+                     f"Iodine), got {name}")
 
 
 def batches_of(data: dict, batch_size: int):
@@ -71,12 +78,12 @@ def evaluate(ocr: OCR, batches, seed: int = 0, *, with_gen_mse: bool = True,
 
     ``noise``, one dict per batch, holds the draws to use or receives those
     made: the loss's ``soft``, ``ids`` and ``slots`` (see ``SLATE_Module``)
-    and the generation's slot noise ``gen_slots``."""
+    and the generation's slot noise ``gen_slots``; IODINE's ``eps``."""
     module = ocr.module
-    if not isinstance(module, SLATE_Module):
-        raise NotImplementedError(f"get_ari_mse for this OCR comes with {OTHER_OCRS}")
+    if not isinstance(module, tuple(SCORED.values())):
+        _refuse_unmasked(type(module).__name__)
     generator = torch.Generator(device=ocr.device).manual_seed(seed)
-    gen_mse = with_gen_mse and not module.use_bcdec
+    gen_mse = with_gen_mse and isinstance(module, SLATE_Module) and not module.use_bcdec
     per_batch = []
     for i, batch in enumerate(batches):
         if "masks" not in batch:
@@ -107,9 +114,8 @@ def main(config: GetAriMseConfig, data: dict,
     """Build the OCR of ``config`` (weights from ``config.ocr_checkpoint``),
     evaluate it on ``data`` ({"obss", "masks"} arrays) in batches of
     ``config.batch_size`` and return {"ari", "mse", "batches"}."""
-    if config.ocr.name != "SLATE":
-        raise NotImplementedError(f"get_ari_mse for '{config.ocr.name}' comes with "
-                                  f"{OTHER_OCRS}")
+    if config.ocr.name not in SCORED:
+        _refuse_unmasked(config.ocr.name)
     if config.bg_mask_idx != -1:
         raise ValueError("the foreground ARI takes the background as the last mask "
                          f"(bg_mask_idx -1), not {config.bg_mask_idx}")

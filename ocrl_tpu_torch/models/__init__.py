@@ -1,7 +1,8 @@
-"""OCR models of the port: SLATE and Slot-Attention (served, trained and
-evaluated), GT (the ground-truth state), NatureCNN, MultipleCNN, VAE, MAE
-and IODINE (served and trained end to end on the RL path; their OCR
-pretraining comes with the slice that ports train_ocr for them)."""
+"""OCR models of the port: SLATE and Slot-Attention (served, pretrained
+and evaluated), GT (the ground-truth state), NatureCNN and MultipleCNN
+(served and trained end to end on the RL path; their pretraining step
+leaves them as they are, as in JAX), VAE, MAE and IODINE (served, trained
+end to end on the RL path, and pretrained; IODINE also evaluated)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from torch import nn
 from ..config import EnvConfig, OCRConfigs
 from ..device import resolve_device
 from . import gt, iodine, mae, multiple_cnn, naturecnn, slate, vae
-from .base import OCR
+from .base import OCR, MultiGroupAdam, constant
 from .gt import GT_Module
 from .iodine import Iodine_Module
 from .mae import MAE_Module
@@ -65,15 +66,24 @@ def create_ocr(ocr_config: OCRConfigs, env_config: EnvConfig, seed: int = 0,
     unless asked otherwise; with no card and no device this raises). The
     weights are drawn on the CPU from ``seed``, so a seed gives the same
     weights on every device (counterpart of ocrl_tpu/models/__init__.py).
-    Only SLATE has an optimizer: GT takes no training step, as in JAX, and
-    the other OCRs' pretraining steps come with the slice that ports
-    train_ocr for them (``update`` and ``get_loss`` raise)."""
+    Each OCR gets the optimizer and clip of its JAX ``build_spec``: SLATE
+    its three Adam groups and the inf-norm clip, MAE its AdamW, IODINE Adam
+    and the 2-norm clip of its config, the VAE, NatureCNN and MultipleCNN
+    Adam, unclipped; GT none (it takes no training step)."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         module = build_module(ocr_config, env_config, decoder=True).to(device)
-    if ocr_config.name != "SLATE":
+    name = ocr_config.name
+    if name == "GT":
         return OCR(module, None, None, seed, device)
-    return OCR(module, make_optimizer(module, ocr_config), ocr_config.learning.clip,
-               seed, device)
+    learning = ocr_config.learning
+    if name == "SLATE":
+        return OCR(module, make_optimizer(module, ocr_config), learning.clip, seed, device)
+    if name == "MAE":
+        return OCR(module, mae.make_optimizer(module, ocr_config), None, seed, device)
+    adam = MultiGroupAdam({"all": (list(module.parameters()), constant(learning.lr), 0.0)})
+    if name == "Iodine":
+        return OCR(module, adam, learning.clip, seed, device, learning.clip_norm_type)
+    return OCR(module, adam, None, seed, device)
 

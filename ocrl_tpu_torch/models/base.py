@@ -2,20 +2,21 @@
 its optimizer and its random state, and takes training steps.
 
 A step is the JAX train step of base.py:138-149: the loss and its gradients,
-the ``norm`` metric and the clip by the inf-norm over every group together,
-then the optimizer. ``update_many`` takes k such steps in a Python loop on
-the device, where JAX scans them in one program. Random state is one
-``torch.Generator`` on the model's device, seeded from ``seed``.
+the ``norm`` metric and the clip over every parameter together, by the
+inf-norm (SLATE) or the 2-norm (IODINE), then the optimizer; an OCR with
+no clip reports no ``norm``. ``update_many`` takes k such steps in a Python
+loop on the device, where JAX scans them in one program. Random state is
+one ``torch.Generator`` on the model's device, seeded from ``seed``.
+``MultiGroupAdam`` is the optimizer of every OCR that trains.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 from torch import nn
-
-
-PRETRAINING = "the slice that ports train_ocr for VAE, MAE and IODINE"
 
 
 def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
@@ -26,12 +27,52 @@ def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
     return obs.to(torch.float32)
 
 
-def clip_by_total_norm(params: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_total_norm(params: list[torch.Tensor], max_norm: float,
+                       ord: float = float("inf")) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by
-    min(1, max_norm / (max |g| + 1e-6)), the max over all of them together,
-    and return that max: the inf-norm clip and the ``norm`` metric of
-    base.py:22-52. torch's clip_grad_norm_ computes exactly this formula."""
-    return nn.utils.clip_grad_norm_(params, max_norm, norm_type=float("inf"))
+    min(1, max_norm / (total + 1e-6)) and return ``total``, the ``ord``-norm
+    of all of them together (the max |g| for the inf-norm): the clip and
+    the ``norm`` metric of base.py:22-52. torch's clip_grad_norm_ computes
+    exactly this formula for either order."""
+    return nn.utils.clip_grad_norm_(params, max_norm, norm_type=ord)
+
+
+class MultiGroupAdam:
+    """optax's adam, adamw, or a multi_transform of them over named groups
+    of parameters: ``groups`` maps a name to (parameters, lr schedule,
+    weight decay). A schedule takes optax's ``count`` (0 at the first
+    update) and is evaluated here at this optimizer's own count. A decayed
+    group takes p -= lr * (adam + weight_decay * p) (torch's AdamW computes
+    the same update), the others plain Adam."""
+
+    def __init__(self, groups: dict[str, tuple[list[torch.Tensor], Callable[[int], float], float]],
+                 betas: tuple[float, float] = (0.9, 0.999)):
+        self.schedules = {name: schedule for name, (_, schedule, _) in groups.items()}
+        self.adam = torch.optim.AdamW(
+            [{"params": params, "group": name, "weight_decay": decay}
+             for name, (params, _, decay) in groups.items()],
+            lr=0.0, betas=betas, eps=1e-8)
+        self.count = 0
+
+    def step(self) -> None:
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedules[group["group"]](self.count)
+        self.adam.step()
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = state["count"]
+
+
+def constant(lr: float) -> Callable[[int], float]:
+    return lambda count: lr
 
 
 def _stack(values: list) -> torch.Tensor:
@@ -42,13 +83,16 @@ def _stack(values: list) -> torch.Tensor:
 
 class OCR:
     """Host-side handle of one OCR model: ``update``, ``update_many``,
-    ``get_loss``, ``save`` / ``load``."""
+    ``get_loss``, ``get_samples``, ``save`` / ``load``. GT has no
+    optimizer: its ``update`` and ``update_many`` take no step and return
+    {}, as JAX's do."""
 
-    def __init__(self, module: nn.Module, optimizer, clip: float | None,
-                 seed: int, device: torch.device):
+    def __init__(self, module: nn.Module, optimizer: MultiGroupAdam | None,
+                 clip: float | None, seed: int, device: torch.device,
+                 clip_ord: float = float("inf")):
         self.module = module
         self.optimizer = optimizer
-        self.clip = clip
+        self.clip, self.clip_ord = clip, clip_ord
         self.device = device
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._last_step = 0
@@ -67,18 +111,14 @@ class OCR:
 
     def _step(self, obs: torch.Tensor, masks: torch.Tensor | None, step: int,
               noise: dict | None) -> dict:
-        if self.optimizer is None:
-            raise NotImplementedError(
-                f"{type(self.module).__name__} takes no pretraining step in the port: "
-                f"GT has none, and the other OCRs' come with {PRETRAINING}")
         self.module.train()
         self.optimizer.zero_grad()
         loss, metrics = self.module.loss(obs, masks, step, True,
                                          generator=self.generator, noise=noise)
         loss.backward()
         if self.clip is not None:
-            metrics["norm"] = clip_by_total_norm(list(self.module.parameters()),
-                                                 self.clip)
+            metrics["norm"] = clip_by_total_norm(list(self.module.parameters()), self.clip,
+                                                 self.clip_ord)
         self.optimizer.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else v
                 for k, v in metrics.items()}
@@ -86,14 +126,23 @@ class OCR:
     def update(self, obs, masks, step: int, *, noise: dict | None = None) -> dict:
         """One optimizer step on a batch of observations (uint8 or float in
         [0, 1], NHWC), with masks [B, K, H, W, 1] an ``ari`` metric too.
-        Returns the metrics, tensors left on the device."""
+        Returns the metrics, tensors left on the device. ``noise``, a dict,
+        holds the module's draws to use, or receives those it makes (each
+        module's docstring names its keys)."""
         self._last_step = int(step)
+        if self.optimizer is None:
+            return {}
         return self._step(self._obs(obs), self._masks(masks), int(step), noise)
 
-    def update_many(self, obs, masks, step: int, k: int) -> dict:
+    def update_many(self, obs, masks, step: int, k: int, *,
+                    noise: dict | None = None) -> dict:
         """k optimizer steps (step .. step+k-1) over a superbatch of k*B
         observations (and masks), one batch each. Returns the metrics
-        stacked (k,)."""
+        stacked (k,). ``noise`` is given to every one of the k steps, so a
+        draw it holds (or the first step records) serves them all."""
+        if self.optimizer is None:
+            self._last_step = int(step) + k - 1
+            return {}
         obs, masks = self._obs(obs), self._masks(masks)
         if obs.shape[0] % k:
             raise ValueError(f"superbatch of {obs.shape[0]} is not k={k} batches")
@@ -101,7 +150,7 @@ class OCR:
         if masks is not None:
             masks = masks.reshape((k, masks.shape[0] // k) + masks.shape[1:])
         steps = [self._step(batches[i], None if masks is None else masks[i],
-                            int(step) + i, None) for i in range(k)]
+                            int(step) + i, noise) for i in range(k)]
         self._last_step = int(step) + k - 1
         return {key: _stack([m[key] for m in steps]) for key in steps[0]}
 
@@ -116,6 +165,15 @@ class OCR:
         _, metrics = self.module.loss(self._obs(obs), self._masks(masks), step, False,
                                       generator=self.generator, noise=noise)
         return metrics
+
+    @torch.no_grad()
+    def get_samples(self, obs, *, noise: dict | None = None) -> dict:
+        """The module's sample grid {"samples": uint8 [B, H', W', C]}, from
+        its ``sample_arrays`` brought to the host (base.py:258-268)."""
+        self.module.eval()
+        kwargs = {} if noise is None else {"noise": noise}
+        arrays = self.module.sample_arrays(self._obs(obs), generator=self.generator, **kwargs)
+        return self.module.samples_grid(*(a.detach().cpu().numpy() for a in arrays))
 
     def save(self) -> dict:
         ckpt = {"ocr_module_state_dict": self.module.state_dict()}

@@ -247,6 +247,17 @@ def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor, tau: float = 1.0,
     return y_hard - y_soft.detach() + y_soft
 
 
+def given_or_drawn(noise: dict | None, key: str, draw) -> torch.Tensor:
+    """``noise[key]`` where the dict holds it; else ``draw()``, stored into
+    ``noise`` when there is one, so that a caller can replay it."""
+    if noise is not None and key in noise:
+        return noise[key]
+    value = draw()
+    if noise is not None:
+        noise[key] = value
+    return value
+
+
 def keep_mask(shape, keep_prob: float, generator: torch.Generator | None,
               device: torch.device) -> torch.Tensor:
     """Bernoulli(keep_prob) mask of a dropout, drawn from ``generator``."""

@@ -24,7 +24,14 @@ The representation is the slots drawn in the last iteration. That
 iteration's refinement step feeds only the pretraining loss, so the
 forward stops at the draw (and decodes once more only for the masks).
 Noise is [num_iterations, B, K, L] (``eps_all`` of the JAX module), so a
-policy slices its batch on axis 1 (``noise_batch_axis``).
+policy slices its batch on axis 1 (``noise_batch_axis``); the loss and
+``sample_arrays`` take it as ``noise["eps"]``.
+
+The pretraining ``loss`` runs all ``num_iterations`` refinements: each
+iteration's ELBO enters the loss, and the reported KL is that of the
+posterior after the last refinement. Trained, the outer graph runs
+through every iteration's refined posterior; the four inner gradients
+carry none, as JAX stops theirs.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import EnvConfig, IodineConfig
-from .base import PRETRAINING
-from .common import dense, flax_conv, lecun_normal_
+from ..utils.metrics import calculate_ari
+from ..utils.viz import for_viz, visualize
+from .common import dense, flax_conv, given_or_drawn, lecun_normal_
 
 
 class MultiLayerConv(nn.ModuleList):
@@ -222,34 +230,85 @@ class Iodine_Module(nn.Module):
                           self._ln(g_masks), self._ln(a_ll).detach(), self._ln(loo).detach(),
                           coords], dim=-1)
 
-    def _iterations(self, image: torch.Tensor, eps: torch.Tensor, with_masks: bool,
-                    outer: bool):
+    def _refine(self, image, means, logsigs, state, eps, outer: bool):
+        """One iteration: the draw, its decoding and ELBO, the four inner
+        gradients and the refinement. Returns (slots, recons, masks, ELBO,
+        the refined means and log sigmas, the LSTM state). Where the caller
+        records no graph, the posterior enters as detached leaves; where it
+        does, it always requires grad, so the outer graph runs through
+        every iteration."""
         B = image.shape[0]
-        K, L = self.num_slots, self.slot_size
-        means = self.slot_mean_init.expand(B, K, L)
-        logsigs = self.slot_logsig_init.expand(B, K, L)
-        state = (image.new_zeros(B * K, self.refine.dim_hidden),) * 2
+        if not (outer and means.requires_grad and logsigs.requires_grad):
+            means, logsigs = means.detach().requires_grad_(), logsigs.detach().requires_grad_()
+        slots = means + torch.exp(logsigs) * eps
+        recons, mask_logits = self.decoder(slots)
+        masks = torch.softmax(mask_logits, dim=1)
+        elbo, pixel_ll, comp_lp = self._elbo(image, means, logsigs, recons, masks)
+        g_means, g_logsigs, g_recons, g_masks = torch.autograd.grad(
+            B * elbo, (means, logsigs, recons, masks), retain_graph=outer)
+        with torch.set_grad_enabled(outer):
+            latent = torch.cat([means, logsigs, self._ln(g_means), self._ln(g_logsigs)], dim=-1)
+            encoding = self._encoding(image, recons, masks, mask_logits, comp_lp, pixel_ll,
+                                      g_recons, g_masks)
+            mean_delta, logsig_delta, state = self.refine(encoding, latent, state)
+            return (slots, recons, masks, elbo, means + mean_delta, logsigs + logsig_delta,
+                    state)
+
+    def _initial(self, image: torch.Tensor):
+        B, K, L = image.shape[0], self.num_slots, self.slot_size
+        return (self.slot_mean_init.expand(B, K, L), self.slot_logsig_init.expand(B, K, L),
+                (image.new_zeros(B * K, self.refine.dim_hidden),) * 2)
+
+    def _iterations(self, image: torch.Tensor, eps: torch.Tensor, outer: bool,
+                    with_masks: bool):
+        """The representation's loop: (the last iteration's slots, and its
+        masks with ``with_masks``). That iteration's refinement feeds only
+        the loss, so it stops at the draw."""
+        means, logsigs, state = self._initial(image)
         image = image[:, None]
         for it in range(self.num_iterations - 1):
-            if not (outer and means.requires_grad and logsigs.requires_grad):
-                means, logsigs = means.detach().requires_grad_(), logsigs.detach().requires_grad_()
-            slots = means + torch.exp(logsigs) * eps[it]
-            recons, mask_logits = self.decoder(slots)
-            masks = torch.softmax(mask_logits, dim=1)
-            elbo, pixel_ll, comp_lp = self._elbo(image, means, logsigs, recons, masks)
-            g_means, g_logsigs, g_recons, g_masks = torch.autograd.grad(
-                B * elbo, (means, logsigs, recons, masks), retain_graph=outer)
-            with torch.set_grad_enabled(outer):
-                latent = torch.cat([means, logsigs, self._ln(g_means), self._ln(g_logsigs)],
-                                   dim=-1)
-                encoding = self._encoding(image, recons, masks, mask_logits, comp_lp,
-                                          pixel_ll, g_recons, g_masks)
-                mean_delta, logsig_delta, state = self.refine(encoding, latent, state)
-                means, logsigs = means + mean_delta, logsigs + logsig_delta
+            *_, means, logsigs, state = self._refine(image, means, logsigs, state, eps[it],
+                                                     outer)
         with torch.set_grad_enabled(outer):
             slots = means + torch.exp(logsigs) * eps[-1]
             masks = torch.softmax(self.decoder(slots)[1], dim=1) if with_masks else None
         return slots, masks
+
+    def _all_iterations(self, image: torch.Tensor, eps: torch.Tensor, outer: bool):
+        """The loss's loop (iodine.py:253-302): every iteration with its
+        refinement. Returns the last iteration's slots, decoded RGB and
+        masks, every iteration's ELBO [N], and the posterior after the last
+        refinement (means, log sigmas), on which the reported KL is taken."""
+        means, logsigs, state = self._initial(image)
+        image = image[:, None]
+        elbos = []
+        for it in range(self.num_iterations):
+            slots, recons, masks, elbo, means, logsigs, state = self._refine(
+                image, means, logsigs, state, eps[it], outer)
+            elbos.append(elbo)
+        return slots, recons, masks, torch.stack(elbos), means, logsigs
+
+    def _with_autograd(self, obs: torch.Tensor, eps: torch.Tensor | None,
+                       generator: torch.Generator | None, loop, *args):
+        """``loop(image, eps, outer, *args)`` with autograd open, whatever
+        the caller's mode; ``eps`` drawn from ``generator`` when None. Its
+        tensors come back detached where the caller records no graph."""
+        outer = torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
+        with torch.inference_mode(False), torch.enable_grad():
+            # an inference tensor cannot be saved for backward: copy it out
+            image = obs.clone() if obs.is_inference() else obs
+            if eps is None:
+                eps = self._draw(obs.shape[0], generator, obs.device)
+            elif eps.is_inference():
+                eps = eps.clone()
+            out = loop(image, eps, outer, *args)
+        if not outer:
+            out = tuple(None if t is None else t.detach() for t in out)
+        return out
+
+    def _draw(self, B: int, generator: torch.Generator | None, device) -> torch.Tensor:
+        return torch.randn((self.num_iterations, B, self.num_slots, self.slot_size),
+                           generator=generator, device=device)
 
     def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, with_masks: bool = False):
@@ -257,24 +316,51 @@ class Iodine_Module(nn.Module):
         iteration's masks [B, K, H, W, 1] with ``with_masks``). ``noise``
         [num_iterations, B, K, L] is the draws' eps; without it they come
         from ``generator``."""
-        B = obs.shape[0]
-        outer = torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
-        with torch.inference_mode(False), torch.enable_grad():
-            # an inference tensor cannot be saved for backward: copy it out
-            image = obs.clone() if obs.is_inference() else obs
-            if noise is None:
-                eps = torch.randn((self.num_iterations, B, self.num_slots, self.slot_size),
-                                  generator=generator, device=obs.device)
-            else:
-                eps = noise.clone() if noise.is_inference() else noise
-            slots, masks = self._iterations(image, eps, with_masks, outer)
-        if not outer:
-            slots = slots.detach()
-            masks = None if masks is None else masks.detach()
+        slots, masks = self._with_autograd(obs, noise, generator, self._iterations, with_masks)
         return (slots, masks) if with_masks else slots
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(f"IODINE's loss comes with {PRETRAINING}")
+    def _full(self, obs: torch.Tensor, generator, noise: dict | None):
+        eps = given_or_drawn(noise, "eps", lambda: self._draw(obs.shape[0], generator,
+                                                              obs.device))
+        return self._with_autograd(obs, eps, generator, self._all_iterations)
+
+    def loss(self, obs: torch.Tensor, masks: torch.Tensor | None = None, step: int = 0,
+             train: bool = False, *, generator: torch.Generator | None = None,
+             noise: dict | None = None):
+        """(loss, metrics) of obs [B, H, W, C] in [0, 1] (iodine.py:290-320):
+        the loss is -sum_i (i + 1) / N ELBO_i; ``mse`` is the last
+        iteration's summed squared error over B, unclipped; ``kld`` the KL
+        of the posterior after the last refinement over B; with masks
+        [B, K', H, W, 1] (background last) the foreground ``ari`` of the
+        last masks, concat([masks * fg, fg]) as JAX builds it. ``step`` and
+        ``train`` are unused."""
+        B = obs.shape[0]
+        _, recons, attns, elbos, means, logsigs = self._full(obs, generator, noise)
+        N = self.num_iterations
+        weights = torch.arange(1, N + 1, dtype=torch.float32, device=obs.device) / N
+        loss = -(weights * elbos).sum()
+        metrics = {"loss": loss,
+                   "mse": ((obs - (attns * recons).sum(1)) ** 2).sum() / B,
+                   "kld": _kl_std_normal(means, logsigs).sum() / B}
+        if masks is not None:
+            fg = 1.0 - masks[:, -1:]
+            metrics["ari"] = calculate_ari(masks, torch.cat([attns * fg, fg], dim=1)).mean()
+        return loss, metrics
+
+    @torch.no_grad()
+    def sample_arrays(self, obs: torch.Tensor, generator: torch.Generator | None = None,
+                      noise: dict | None = None):
+        """(obs, the mixture's image, each slot's masked RGB, its mask as
+        RGB, its RGB) (iodine.py:322-326), clipped to [0, 1]."""
+        _, recons, masks, *_ = self._full(obs, generator, noise)
+        clipped = recons.clamp(0.0, 1.0)
+        return (obs, (masks * recons).sum(1).clamp(0.0, 1.0),
+                (clipped * masks).clamp(0.0, 1.0), masks.expand(-1, -1, -1, -1, 3), clipped)
+
+    @staticmethod
+    def samples_grid(obs, recon, masked, masks3, recons) -> dict:
+        """Every array side by side along the width, uint8."""
+        return {"samples": for_viz(visualize([obs, recon, masked, masks3, recons]))}
 
 
 def dims(ocr_config: IodineConfig, env_config: EnvConfig) -> tuple[int, int]:

@@ -55,9 +55,12 @@ class MultipleCNN_Module(nn.Module):
         x = x.view(B, self.num_modules, -1, H, W).permute(0, 1, 3, 4, 2)   # [B, K, H, W, C]
         return F.relu(self.dense(x.reshape(B, self.num_modules, -1)))
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("MultipleCNN has no pretraining loss: it trains end to end "
-                                  "with the policy")
+    def loss(self, obs: torch.Tensor, masks=None, step: int = 0, train: bool = False, *,
+             generator=None, noise=None):
+        """No pretraining loss: 0 * sum(rep) and no metrics, as in JAX, so
+        that a step leaves the parameters where they are (it trains end to
+        end with the policy)."""
+        return 0.0 * self(obs).sum(), {}
 
 
 def dims(ocr_config: MultipleCNNConfig, env_config: EnvConfig) -> tuple[int, int]:

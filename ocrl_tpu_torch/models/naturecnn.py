@@ -65,9 +65,12 @@ class NatureCNN_Module(NatureCNN):
         x = super().forward(obs)
         return x.reshape(x.shape[0], -1, x.shape[-1]) if self.use_cnn_feat else x
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("NatureCNN has no pretraining loss: it trains end to end "
-                                  "with the policy")
+    def loss(self, obs: torch.Tensor, masks=None, step: int = 0, train: bool = False, *,
+             generator=None, noise=None):
+        """No pretraining loss: 0 * sum(rep) and no metrics, as in JAX, so
+        that a step leaves the parameters where they are (it trains end to
+        end with the policy)."""
+        return 0.0 * self(obs).sum(), {}
 
 
 def dims(ocr_config: NatureCNNConfig, env_config: EnvConfig) -> tuple[int, int]:

@@ -32,6 +32,8 @@ from torch import nn
 from ..config import EnvConfig, OCRConfig
 from ..ops import gumbel
 from ..utils.metrics import calculate_ari
+from ..utils.viz import for_viz, visualize
+from .base import MultiGroupAdam, constant
 from .common import PositionalEmbedding, cosine_anneal, linear, linear_warmup
 from .dvae import BroadCastDecoder, SlotAttnCNNEncoder, dVAE
 from .slot_attention import SlotAttentionEncoder
@@ -257,6 +259,11 @@ class SLATE_Module(nn.Module):
         slots, attns_vis = self.forward_with_attns(obs, generator=generator)
         return obs, self.dvae.decode(z), self.gen_imgs(slots), attns_vis
 
+    @staticmethod
+    def samples_grid(*arrays) -> dict:
+        """The sample arrays side by side along the width, uint8 (slate.py:258-260)."""
+        return {"samples": for_viz(visualize(list(arrays)))}
+
 
 def dims(ocr_config: OCRConfig, env_config: EnvConfig) -> tuple[int, int]:
     """(representation size, number of slots) of the OCR's output."""
@@ -284,43 +291,18 @@ def group_schedule(base_lr: float, warmup_steps: int, half_life: int):
     return schedule
 
 
-class MultiGroupAdam:
-    """optax.multi_transform of three optax.adam (b1 0.9, b2 0.999, eps
-    1e-8): ``dvae`` at a constant lr, ``sa`` and ``dec`` on their schedules.
-    The schedules are evaluated here at this optimizer's own count, not
-    through an LR scheduler's step."""
-
-    def __init__(self, module: nn.Module, ocr_config: OCRConfig):
-        lr = ocr_config.learning
-        self.schedules = {
-            "dvae": lambda count: lr.lr_dvae,
-            "sa": group_schedule(lr.lr_enc, lr.lr_warmup_steps, lr.lr_half_life),
-            "dec": group_schedule(lr.lr_dec, lr.lr_warmup_steps, lr.lr_half_life),
-        }
-        params = {name: [] for name in self.schedules}
-        for name, p in module.named_parameters():
-            params[GROUP_OF[name.split(".")[0]]].append(p)
-        self.adam = torch.optim.Adam(
-            [{"params": ps, "group": name} for name, ps in params.items()],
-            lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-        self.count = 0
-
-    def step(self) -> None:
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedules[group["group"]](self.count)
-        self.adam.step()
-        self.count += 1
-
-    def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
-
-    def state_dict(self) -> dict:
-        return {"adam": self.adam.state_dict(), "count": self.count}
-
-    def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state["adam"])
-        self.count = state["count"]
-
-
 def make_optimizer(module: nn.Module, ocr_config: OCRConfig) -> MultiGroupAdam:
-    return MultiGroupAdam(module, ocr_config)
+    """optax.multi_transform of three optax.adam (b1 0.9, b2 0.999, eps
+    1e-8): ``dvae`` at a constant lr, ``sa`` and ``dec`` on their
+    schedules."""
+    lr = ocr_config.learning
+    schedules = {
+        "dvae": constant(lr.lr_dvae),
+        "sa": group_schedule(lr.lr_enc, lr.lr_warmup_steps, lr.lr_half_life),
+        "dec": group_schedule(lr.lr_dec, lr.lr_warmup_steps, lr.lr_half_life),
+    }
+    params = {name: [] for name in schedules}
+    for name, p in module.named_parameters():
+        params[GROUP_OF[name.split(".")[0]]].append(p)
+    return MultiGroupAdam({name: (params[name], schedule, 0.0)
+                           for name, schedule in schedules.items()})

@@ -9,19 +9,24 @@ blocks and a 1x1 block to 256 channels (shuffled to twice the size), then a
 1x1 conv to the image's channels. The policy's module (the default) holds
 what the representation reads, as the JAX policy's parameter tree does
 (``enc``, ``mu``, ``var``); with ``decoder=True`` it also holds ``in_dec``
-and ``dec``, as a checkpoint does. The decoder's forward and the loss come
-with the slice that ports train_ocr for the VAE."""
+and ``dec``, as a checkpoint does, and takes the pretraining ``loss``
+(ocrl_tpu/models/vae.py:88-104): the reparameterised draw
+mu + eps * exp(log_var / 2) decoded, its summed squared error over the
+batch size, and the KL weighted by ``kld_weight``. ``noise["eps"]``
+[B, latent_dim] is the draw's standard normal."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import EnvConfig, VAEConfig
-from .base import PRETRAINING
-from .common import Conv2dBlock, conv2d, conv_nhwc, dense, img_to_slot
+from ..utils.viz import for_viz
+from .common import (Conv2dBlock, conv2d, conv_nhwc, dense, given_or_drawn, img_to_slot,
+                     pixel_shuffle)
 
 
 def _stages(compression_rate: int) -> int:
@@ -46,7 +51,8 @@ class VAEEncoder(nn.Module):
 
 
 class VAEDecoder(nn.Module):
-    """The decoder's parameters (its forward comes with the VAE's loss)."""
+    """[B, s, s, 64] -> [B, H, W, obs_channels], NHWC
+    (ocrl_tpu/models/vae.py:38-53)."""
 
     def __init__(self, obs_channels: int, compression_rate: int):
         super().__init__()
@@ -57,12 +63,21 @@ class VAEDecoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.out = conv2d(64, obs_channels, 1)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.blocks[0](x)
+        for i, block in enumerate(self.blocks[1:]):
+            x = block(x)
+            if i % 4 == 3:                       # the stage's last block: to twice the size
+                x = pixel_shuffle(x, 2)
+        return conv_nhwc(self.out, x)
+
 
 class VAE_Module(nn.Module):
     def __init__(self, ocr_config: VAEConfig, env_config: EnvConfig, *,
                  decoder: bool = False):
         super().__init__()
         s = ocr_config.cnn_feat_size
+        self.cnn_feat_size, self.kld_weight = s, ocr_config.learning.kld_weight
         self.use_cnn_feat = ocr_config.use_cnn_feat
         compression = env_config.obs_size // s
         self.enc = VAEEncoder(env_config.obs_channels, 64, compression)
@@ -81,8 +96,37 @@ class VAE_Module(nn.Module):
             return img_to_slot(feat)
         return self.mu(feat.reshape(feat.shape[0], -1))
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(f"the VAE's loss comes with {PRETRAINING}")
+    def _reconstruct(self, obs: torch.Tensor, generator, noise: dict | None):
+        """(mu, log_var, the decoded draw [B, H, W, C])."""
+        flat = self.enc(obs).reshape(obs.shape[0], -1)
+        mu, log_var = self.mu(flat), self.var(flat)
+        eps = given_or_drawn(noise, "eps", lambda: torch.randn(
+            mu.shape, generator=generator, device=mu.device))
+        latent = mu + eps * torch.exp(0.5 * log_var)
+        s = self.cnn_feat_size
+        return mu, log_var, self.dec(self.in_dec(latent).reshape(obs.shape[0], s, s, 64))
+
+    def loss(self, obs: torch.Tensor, masks=None, step: int = 0, train: bool = False, *,
+             generator: torch.Generator | None = None, noise: dict | None = None):
+        """(loss, {"loss", "mse", "kld"}) of obs [B, H, W, C] in [0, 1]; the
+        reported ``kld`` is minus the KL term (vae.py:97). ``masks``,
+        ``step`` and ``train`` are unused."""
+        mu, log_var, recon = self._reconstruct(obs, generator, noise)
+        mse = ((obs - recon) ** 2).sum() / obs.shape[0]
+        kld = (-0.5 * (1 + log_var - mu ** 2 - torch.exp(log_var)).sum(1)).mean()
+        loss = mse + self.kld_weight * kld
+        return loss, {"loss": loss, "mse": mse, "kld": -kld}
+
+    @torch.no_grad()
+    def sample_arrays(self, obs: torch.Tensor, generator: torch.Generator | None = None,
+                      noise: dict | None = None):
+        """(obs, the decoded draw) (vae.py:99-103)."""
+        return obs, self._reconstruct(obs, generator, noise)[2]
+
+    @staticmethod
+    def samples_grid(obs, recon) -> dict:
+        """obs above its reconstruction, uint8."""
+        return {"samples": np.concatenate([for_viz(obs), for_viz(recon)], axis=-3)}
 
 
 def dims(ocr_config: VAEConfig, env_config: EnvConfig) -> tuple[int, int]:

@@ -11,7 +11,8 @@ since both sides add the same fp32 logits and field; each drawn field to
 1e-5 of its exact numpy replay at every value (about five fp32 ulps at the
 largest g, 16.64). The sweep kernels sum in a fixed order (no atomics), so
 two launches on the same inputs are held to bitwise equality. The other
-OCRs and poolings (no kernel of their own) are held card against CPU."""
+OCRs and poolings (no kernel of their own), and the pretraining steps of
+VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU."""
 
 import math
 
@@ -378,3 +379,66 @@ def test_other_poolings_match_the_cpu_on_the_card(cuda, name, shape):
         want = module(state)
         got = module.cuda()(state.cuda()).cpu()
     assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-2)
+
+
+PRETRAIN_SMALL = {"vae": ("VAEConfig", {}),
+                  "mae": ("MAEConfig", {"vit_size": "tiny", "patch_size": 4}),
+                  "iodine": ("IodineConfig", {"slot_size": 8, "num_iterations": 3})}
+
+
+def _pretrain_config(name):
+    from ocrl_tpu_torch import config
+
+    cls, fields = PRETRAIN_SMALL[name]
+    return getattr(config, cls)(**fields), config.EnvConfig(obs_size=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PRETRAIN_SMALL)
+def test_pretraining_step_matches_the_cpu_on_the_card(cuda, name):
+    """One pretraining step at small widths (obs 16) on the card against
+    the same step on the CPU, same weights and numpy noise, under the rules
+    of chip_smoke.py's pretraining phase (``check_pretraining_step``: loss,
+    metrics and norm 1e-5 of max(|value|, 1), IODINE 1e-4; gradients;
+    parameters); no kernel launched."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import IODINE_CARD_TOL, PRETRAIN_TOL, check_pretraining_step, painted
+    from chip_smoke import pretraining_noise
+
+    ocr_cfg, env_cfg = _pretrain_config(name)
+    obs, _ = painted(4, 16, 3, seed=1)
+    reset_launches()
+    found = check_pretraining_step(ocr_cfg, env_cfg, obs,
+                                   pretraining_noise(ocr_cfg, env_cfg, 4,
+                                                     np.random.default_rng(2)),
+                                   IODINE_CARD_TOL if name == "iodine" else PRETRAIN_TOL)
+    assert LAUNCHES == {} and found["grad"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_iodine_evaluation_matches_the_cpu_on_the_card(cuda):
+    """get_ari_mse.evaluate of IODINE (small widths) on the card against the
+    CPU on the draws the card made: ARI within 1e-6, MSE within 1e-4
+    relative; no kernel launched."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import painted
+    from ocrl_tpu_torch.get_ari_mse import evaluate
+    from ocrl_tpu_torch.models import create_ocr
+
+    ocr_cfg, env_cfg = _pretrain_config("iodine")
+    obs, masks = painted(8, 16, 3, seed=3)
+    batches = [{"obss": obs[:4], "masks": masks[:4]}, {"obss": obs[4:], "masks": masks[4:]}]
+    drawn = [{}, {}]
+    reset_launches()
+    got = evaluate(create_ocr(ocr_cfg, env_cfg, seed=0), batches, noise=drawn)
+    assert LAUNCHES == {}
+    want = evaluate(create_ocr(ocr_cfg, env_cfg, seed=0, device="cpu"), batches,
+                    noise=[{"eps": d["eps"].cpu()} for d in drawn])
+    assert abs(got["ari"] - want["ari"]) <= 1e-6
+    assert abs(got["mse"] - want["mse"]) <= 1e-4 * abs(want["mse"])

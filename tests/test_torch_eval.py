@@ -415,7 +415,8 @@ def test_evaluate_matches_the_jax_loop(ocr, tmp_path, monkeypatch):
 def test_main_evaluates_in_batches_and_refuses_what_it_cannot_score(tmp_path):
     """main() = evaluate() of get_ocr's OCR over batches of batch_size, the
     last one partial; a batch without masks, a background not last and an
-    OCR other than SLATE raise."""
+    OCR without masks (the VAE) raise, as JAX's entry does; IODINE scores
+    (held against JAX in test_torch_pretrain.py)."""
     obs, masks = painted(6, 16, seed=8)
     data = {"obss": obs, "masks": masks}
     cfg = port_eval_config(batch_size=4)
@@ -430,5 +431,9 @@ def test_main_evaluates_in_batches_and_refuses_what_it_cannot_score(tmp_path):
         evaluate(ocr, [{"obss": obs}])
     with pytest.raises(ValueError, match="bg_mask_idx"):
         main(port_eval_config(bg_mask_idx=0), data, device="cpu")
-    with pytest.raises(NotImplementedError, match="get_ari_mse for VAE, MAE and IODINE"):
-        main(port_eval_config(**{"ocr.name": "Iodine"}), data, device="cpu")
+    with pytest.raises(ValueError, match="mask-producing"):
+        main(tcfg.GetAriMseConfig(ocr=tcfg.VAEConfig(), env=cfg.env), data, device="cpu")
+    iodine = tcfg.GetAriMseConfig(ocr=tcfg.IodineConfig(slot_size=8, num_iterations=2),
+                                  env=cfg.env, batch_size=4)
+    scored = main(iodine, data, device="cpu")
+    assert len(scored["batches"]) == 2 and np.isfinite([scored["ari"], scored["mse"]]).all()

@@ -503,11 +503,11 @@ def test_slate_loss_and_metrics(step, monkeypatch):
 
 def test_slate_training_surface_refuses_later_slices():
     """What is still refused: the loss of a module built without its decoder
-    (a policy's), and the pretraining step of the other OCRs (here IODINE),
-    which comes with the slice that ports train_ocr for them. Masks,
-    generation and use_bcdec, refused before the evaluation slice, are held
-    against JAX in test_torch_eval.py; the other OCRs' serving and RL paths
-    in test_torch_ocrs.py."""
+    (a policy's). The other OCRs' pretraining step (here IODINE's) runs
+    since the slice that ports it, held against JAX in
+    test_torch_pretrain.py. Masks, generation and use_bcdec, refused before
+    the evaluation slice, are held against JAX in test_torch_eval.py; the
+    other OCRs' serving and RL paths in test_torch_ocrs.py."""
     from ocrl_tpu_torch.models import create_ocr
 
     port = small_port_config()
@@ -515,7 +515,8 @@ def test_slate_training_surface_refuses_later_slices():
     with pytest.raises(RuntimeError, match="without its decoder"):
         SLATE_Module(port.ocr, port.env).loss(obs, torch.zeros(1, 4, 16, 16, 1))
     iodine = tcfg.IodineConfig(slot_size=8, num_iterations=2)
-    with pytest.raises(NotImplementedError, match="train_ocr"):
-        create_ocr(iodine, port.env, device="cpu").update(obs, None, 0)
+    metrics = create_ocr(iodine, port.env, device="cpu").update(obs, None, 0)
+    assert {"loss", "mse", "kld", "norm"} == set(metrics)
+    assert all(torch.isfinite(v) for v in metrics.values())
     _, _, tm = small_train_modules([("ocr.use_bcdec", True)])
     assert tm.use_bcdec and hasattr(tm, "bcdec") and hasattr(tm, "tfdec")

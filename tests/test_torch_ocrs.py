@@ -13,7 +13,8 @@ same numpy noise (JAX's normal draw replaced by the test's array):
   of env frames, each package loading the file with its own reader;
 - every OCR's whole tree (decoders included) loading into the port's
   ``build_module(..., decoder=True)``, each OCR config against its YAML,
-  and what is still refused (the OCR pretraining steps).
+  and each OCR's pretraining step (held against JAX in
+  test_torch_pretrain.py).
 
 Tolerances, relative to the output's scale (``close``: max |got - want| <=
 tol x max(max |want|, 1e-2)): the convolution stacks, the ViT, IODINE's
@@ -275,18 +276,28 @@ def test_iodine_grad_modes_agree():
 
 @pytest.mark.parametrize("variant", ["naturecnn", "multiple_cnn", "vae", "mae", "iodine"])
 def test_other_ocrs_build_and_refuse_pretraining(variant):
-    """create_ocr builds each OCR (on the CPU when asked); the OCR steps of
-    VAE, MAE and IODINE come with the slice that ports train_ocr for them,
-    and NatureCNN and MultipleCNN have none (they train end to end)."""
+    """create_ocr builds each OCR (on the CPU when asked) with its
+    optimizer, and each takes a pretraining step: VAE, MAE and IODINE move
+    their parameters and report finite metrics (held against JAX in
+    test_torch_pretrain.py); NatureCNN and MultipleCNN have no pretraining
+    loss (they train end to end), so their step returns {} and leaves them
+    as they are, as JAX's does. save() carries the optimizer state."""
     _, cfg = configs(VARIANTS[variant])
     ocr = create_ocr(cfg.ocr, cfg.env, seed=0, device="cpu")
-    obs = np.zeros((2, cfg.env.obs_size, cfg.env.obs_size, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="train_ocr"):
-        ocr.update(obs, None, 0)
-    loss = "no pretraining loss" if "cnn" in variant else "train_ocr"
-    with pytest.raises(NotImplementedError, match=loss):
-        ocr.get_loss(obs)
-    assert set(ocr.save()) == {"ocr_module_state_dict"}
+    obs = np.random.default_rng(0).integers(
+        0, 256, (2, cfg.env.obs_size, cfg.env.obs_size, 3), dtype=np.uint8)
+    start = {k: v.clone() for k, v in ocr.module.state_dict().items()}
+    metrics = ocr.update(obs, None, 0)
+    moved = [k for k, v in ocr.module.state_dict().items() if not torch.equal(v, start[k])]
+    if "cnn" in variant:
+        assert metrics == {} and ocr.get_loss(obs) == {} and not moved
+    else:
+        assert "loss" in metrics and moved
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        assert set(ocr.get_loss(obs)) == set(metrics) - {"norm"}
+    ckpt = ocr.save()
+    assert set(ckpt) == {"ocr_module_state_dict", "ocr_opt_state_dict"}
+    assert ckpt["ocr_opt_state_dict"]["count"] == 1
 
 
 def _plain(x):

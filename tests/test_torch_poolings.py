@@ -7,8 +7,9 @@ each embedding option (push_embedding, cw_embedding, use_mlp1, use_mlp2),
 the position table (ape) and stacked frames. Also ``sinusoid_lookup``
 against JAX's ``_sinusoid_lookup`` at the push embedding's 10^7 rows and
 against the table at 997 rows,
-``pooled_dim``, the identity acnets, and each pooling and acnet config
-against its YAML (the port's reader and the JAX compose).
+``pooled_dim``, the identity acnets, the orthogonal initial gains of
+``mlp_orthoinit``, and each pooling and acnet config against its YAML
+(the port's reader and the JAX compose).
 
 Tolerance: 1e-5 of max(|want|, 1e-2) for every pooling (a few fp32
 layers summed in other orders). The sinusoid rows 1e-5 absolute, where
@@ -42,7 +43,7 @@ TOL, FLOOR = 1e-5, 1e-2
 REP = np.random.default_rng(0).random((3, 5, 16)).astype(np.float32)
 GRID = np.random.default_rng(1).random((2, 64 * 64, 8)).astype(np.float32)
 POOLINGS = ["transformer", "rn", "mlp", "cnn_linear", "cnn_transformer", "identity"]
-ACNETS = ["mlp", "identity", "identity_orthoinit"]
+ACNETS = ["mlp", "mlp_orthoinit", "identity", "identity_orthoinit"]
 
 
 @pytest.fixture(autouse=True)
@@ -223,6 +224,44 @@ def test_identity_acnets_match_jax(acnet):
     logits, values = policy(torch.from_numpy(obs))
     close(logits, want_logits)
     close(values, want_values)
+
+
+def _singular_values(kernel) -> np.ndarray:
+    return np.linalg.svd(np.asarray(kernel, np.float64), compute_uv=False)
+
+
+def test_mlp_orthoinit_gains_match_jax():
+    """``sb3_acnet=mlp_orthoinit``: the shared, policy and value layers start
+    orthogonal with gain sqrt(2), the action head with 0.01 and the value
+    head with 1.0 (ocrl_tpu/rl/ac_nets.py:28,66-70): every singular value
+    of each kernel is its gain, on both sides, to 1e-5 relative; the
+    biases are zero. The draws differ (two generators), so the gains are
+    what is compared."""
+    argv = ["ocr=gt", "pooling=identity", "sb3=ppo", "sb3_acnet=mlp_orthoinit",
+            "env=push-N3C4S1S1", "env.render_mode=state"]
+    jcfg = compose("train_sb3", argv)
+    cfg = tcfg.compose(tcfg.TrainSB3Config(), argv).policy_config()
+    from ocrl_tpu.models import build_spec
+
+    spec = build_spec(jcfg.ocr, jcfg.env)
+    jm = JPolicy(ocr_module=spec.module,
+                 pooling_module=jcreate("Identity", spec.rep_dim, spec.num_slots,
+                                        jcfg.pooling),
+                 acnet_config=StaticConfig(jcfg.sb3_acnet), num_actions=4,
+                 freeze_ocr=False)
+    obs = np.zeros((1, 5, 5), np.float32)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), obs)["params"])
+    state = {k: v.numpy() for k, v in build_policy(cfg, seed=0, device="cpu").state_dict().items()}
+    gains = {"acnet.shared.0": math.sqrt(2), "acnet.shared.1": math.sqrt(2),
+             "acnet.policy.0": math.sqrt(2), "acnet.value.0": math.sqrt(2),
+             "action_net": 0.01, "value_net_out": 1.0}
+    assert set(from_flax(params)) == set(state) == {f"{k}.{w}" for k in gains
+                                                    for w in ("weight", "bias")}
+    for layer, gain in gains.items():
+        for side in (state, {k: v.numpy() for k, v in from_flax(params).items()}):
+            np.testing.assert_allclose(_singular_values(side[f"{layer}.weight"]), gain,
+                                       rtol=1e-5, err_msg=layer)
+            assert not side[f"{layer}.bias"].any()
 
 
 def _plain(x):
