@@ -82,7 +82,22 @@ Phases, each printing its own line with its seconds:
    3 s in all (ms a step as the median window and its spread, images/s,
    finite metrics); then get_ari_mse.evaluate of IODINE-large
    on 2 batches of 32 painted scenes with masks (ari, mse, ms a batch), one
-   batch card against CPU; no kernel launched in the phase.
+   batch card against CPU; no kernel launched in the phase;
+11. train-ocr: the port's collector on env=random-N5C4S4S2 (64x64x3, 5
+   objects, masks on): 1536 training and 64 validation images on up to 8
+   forked workers, images/s, the file read back through the port's HDF5
+   reader bitwise equal to what the workers return; then train_ocr.main
+   ocr=slate at full width (seed 0) on that file, batch 24, superbatch 4,
+   log_interval 8, eval_interval 32, max_steps 64 (one epoch), with the
+   launch counts reset just before and read just after: train/* finite once
+   for every step, val/* at 32 and twice at 64, model_32 / model_64 /
+   model_latest / model_best, every sample PNG decoded (CRC and zlib
+   checked), B1-B4 launched exactly as the steps, the validation batches
+   and the sample passes predict; the loop's images/s over steps 16-64
+   without the evaluations, beside update_many alone on the same
+   superbatches; then the run resumed to max_steps 96 from its
+   model_latest: it starts at step 64 with parameters and Adam moments
+   bitwise those saved, and ends at 96.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -101,21 +116,27 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 import torch
 
-from ocrl_tpu_torch import test_sb3, train_sb3
+from ocrl_tpu_torch import test_sb3, train_ocr, train_sb3
 from ocrl_tpu_torch.config import (GROUPS, EnvConfig, IodineConfig, OCRCheckpointConfig,
                                    OCRConfig, PolicyConfig, TestSB3Config, TrainSB3Config,
                                    compose)
+from ocrl_tpu_torch.config import read_env_config
 from ocrl_tpu_torch.config import replace as config_replace
+from ocrl_tpu_torch.data import DataLoader, H5Dataset
+from ocrl_tpu_torch.data.collect import collect_chunks, collect_dataset
+from ocrl_tpu_torch.data.hdf5_format import read_layout
 from ocrl_tpu_torch.envs import make_env
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
 from ocrl_tpu_torch.models import create_ocr
-from ocrl_tpu_torch.models.base import normalize_obs
+from ocrl_tpu_torch.models.base import OCR, normalize_obs
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
 from ocrl_tpu_torch.poolings import create_pooling_module
 from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
 from ocrl_tpu_torch.train_ocr import pretraining_config
+from ocrl_tpu_torch.utils import checkpoint as ckpt
+from ocrl_tpu_torch.utils import png
 from ocrl_tpu_torch.utils.checkpoint import get_ocr
 from ocrl_tpu_torch.utils.metrics import mask_labels
 
@@ -216,6 +237,15 @@ PRETRAIN_FALL, PRETRAIN_WINDOWS, PRETRAIN_SECONDS, PRETRAIN_CHECK = 12, 3, 3.0, 
 # 3.7e-7 of max(|leaf|, 1e-2) from float64 on the sure entries of the three
 # models, at batch 4 with these seeds.
 PRETRAIN_TOL, PRETRAIN_SURE = 1e-5, 1e-4
+# The train-ocr phase: the port's collector on OCR_ENV with masks, OCR_TRAIN
+# training and OCR_VAL validation images (one epoch of 64 steps of 24, three
+# validation batches), then train_ocr.main at full width on that file to
+# OCR_STEPS and, resumed, to OCR_RESUMED; the loop's images/s over the steps
+# OCR_TIMED, evaluations left out.
+OCR_ENV, OCR_TRAIN, OCR_VAL, OCR_WORKERS = "random-N5C4S4S2", 1536, 64, 8
+OCR_ARGV = ["ocr=slate", f"dataset={OCR_ENV}", "batch_size=24", "superbatch=4",
+            "log_interval=8", "eval_interval=32"]
+OCR_STEPS, OCR_RESUMED, OCR_TIMED = 64, 96, (16, 64)
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -1371,6 +1401,172 @@ def pretraining_phase(card: str) -> dict:
     return dict(launches=launches, keep=keep)
 
 
+def same_tree(a, b) -> bool:
+    """Equal nested dicts of arrays, bitwise and in dtype."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys() and \
+            all(same_tree(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def collect_phase(card: str, path) -> None:
+    """The port's collector on OCR_ENV with masks into ``path``; the file
+    read back through the port's reader against what the workers return."""
+    import os
+
+    env_cfg = read_env_config(OCR_ENV)
+    workers = min(OCR_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    collect_dataset(env_cfg, OCR_TRAIN, OCR_VAL, num_proc=workers, with_masks=True,
+                    out_file=path)
+    seconds = time.perf_counter() - t0
+    layout = read_layout(path)
+    splits = (("TrainingSet", OCR_TRAIN, 0), ("ValidationSet", OCR_VAL, 10_000))
+    for split, written, n, arrays in collect_chunks(env_cfg, splits, workers, 100000,
+                                                    (True, True, False, False)):
+        for key, arr in arrays.items():
+            offset, shape, dtype = layout[split][key]
+            stored = np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=shape)
+            if dtype != arr.dtype or stored[written:written + n].tobytes() != arr.tobytes():
+                raise SystemExit(f"{split}/{key} does not read back as the workers wrote it")
+    sizes = {k: f"{np.dtype(d).name} {list(s)}" for k, (_, s, d) in layout["TrainingSet"].items()}
+    print(f"  {card}: collected {OCR_TRAIN} + {OCR_VAL} images of env={OCR_ENV} "
+          f"(masks) on {workers} workers in {seconds:.3f} s, "
+          f"{(OCR_TRAIN + OCR_VAL) / seconds:.1f} images/s; {path.stat().st_size} bytes, "
+          f"TrainingSet {sizes}; read back bitwise equal to the workers' arrays", flush=True)
+
+
+def train_ocr_phase(card: str) -> dict:
+    """The collector, then train_ocr.main of SLATE at full width on its
+    file, then the run resumed (see the module docstring). Returns the
+    launch counts of the two runs."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"{OCR_ENV}.hdf5"
+        collect_phase(card, path)
+        run_dir = Path(tmp) / "run"
+        argv = OCR_ARGV + [f"dataset.datadir={path}", f"run_dir={run_dir}"]
+        marks, evals, loads = {}, [], []
+        update_many, eval_and_save, load = OCR.update_many, train_ocr.eval_and_save, \
+            train_ocr.load
+
+        def timed_update_many(self, obs, masks, step, k, **kwargs):
+            if step == OCR_TIMED[0]:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            out = update_many(self, obs, masks, step, k, **kwargs)
+            if step + k == OCR_TIMED[1]:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return out
+
+        def timed_eval_and_save(model, val_dl, epoch, step, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eval_and_save(model, val_dl, epoch, step, *args)
+            torch.cuda.synchronize()
+            evals.append((step, time.perf_counter() - t0))
+            return out
+
+        def checked_load(ocr, **kwargs):
+            saved = run_dir / "checkpoints" / "model_latest.ckpt"
+            file_tree = ckpt.load_checkpoint(saved)[0] if saved.exists() else None
+            out = load(ocr, **kwargs)
+            loads.append((out, file_tree, ckpt.checkpoint_tree(ocr)))
+            return out
+
+        OCR.update_many, train_ocr.eval_and_save, train_ocr.load = \
+            timed_update_many, timed_eval_and_save, checked_load
+        try:
+            reset_launches()
+            first = train_ocr.main(argv + [f"max_steps={OCR_STEPS}"])
+            first_launches = dict(LAUNCHES)
+            first_evals = len(evals)
+            records = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+            first_samples = sum("samples" in r for r in records)
+            saved_state = ckpt.checkpoint_tree(first["model"])
+            reset_launches()
+            second = train_ocr.main(argv + [f"max_steps={OCR_RESUMED}"])
+            second_launches = dict(LAUNCHES)
+        finally:
+            OCR.update_many, train_ocr.eval_and_save, train_ocr.load = \
+                update_many, eval_and_save, load
+
+        records = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+        train_steps_logged = sorted(r["_step"] for r in records if "train/loss" in r)
+        finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                     if k.startswith(("train/", "val/")))
+        val_steps = [r["_step"] for r in records if "val/loss" in r]
+        keys = sorted(k for k in records[0] if k.startswith("train/"))
+        files = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+        samples = [p for r in records for p in r.get("samples", [])]
+        images = [png.decode((run_dir / p).read_bytes()) for p in samples]
+        val_batches = -(-OCR_VAL // 24)
+        iters = GROUPS["ocr"]["slate"].slotattr.num_iterations
+
+        def expected(steps, n_evals, n_samples):
+            return {gumbel.SOFT_KERNEL: steps + val_batches * n_evals + n_samples,
+                    gumbel.IDS_KERNEL: steps + val_batches * n_evals,
+                    slot_routing.KERNEL: iters * (steps + val_batches * n_evals + n_samples),
+                    slot_routing.BWD_KERNEL: iters * steps}
+
+        want_first = expected(OCR_STEPS, first_evals, first_samples)
+        want_second = expected(OCR_RESUMED - OCR_STEPS, len(evals) - first_evals,
+                               sum("samples" in r for r in records) - first_samples)
+        (start, epoch, best), file_tree, loaded_tree = loads[1]
+        bitwise = same_tree(loaded_tree, file_tree) and same_tree(file_tree, saved_state)
+        loop_s = marks["t1"] - marks["t0"] - sum(
+            s for step, s in evals[:first_evals] if OCR_TIMED[0] < step < OCR_TIMED[1])
+        loop_images = (OCR_TIMED[1] - OCR_TIMED[0]) * 24
+
+        # update_many alone on the same superbatches (epoch 0's order), in this process
+        loader = DataLoader(H5Dataset(path, "TrainingSet"), 24, shuffle=True, seed=0)
+        batches = list(loader)[OCR_TIMED[0]:OCR_TIMED[1]]
+        staged = [{k: torch.from_numpy(np.concatenate([b[k] for b in batches[i:i + 4]])).cuda()
+                   for k in batches[0]} for i in range(0, len(batches), 4)]
+        model = second["model"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, sb in enumerate(staged):
+            model.update_many(sb["obss"], sb["masks"], OCR_RESUMED + 4 * i, 4)
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+
+    print(f"  {card}: train_ocr.main ocr=slate to step {first['step']} (epoch "
+          f"{first['epoch']}), then resumed to {second['step']}: {len(train_steps_logged)} "
+          f"train records ({keys}), val/* at {val_steps}, all finite: "
+          f"{'yes' if finite else 'NO'}; checkpoints {files}; {len(images)} sample PNGs of "
+          f"{sorted({i.shape for i in images})} decoded", flush=True)
+    print(f"  {card}: evaluations (step, s): "
+          f"{[(s, round(t, 3)) for s, t in evals]}", flush=True)
+    print(f"  {card}: the first run started from {loads[0][0]} (no file); the second "
+          f"resumed at step {start}, epoch {epoch}, best {best:.6f}, its parameters and Adam "
+          f"moments bitwise those of model_latest.ckpt and of the first run's final state: "
+          f"{'yes' if bitwise else 'NO'}", flush=True)
+    print(f"  {card}: the loop over steps {OCR_TIMED[0]}-{OCR_TIMED[1]} without its "
+          f"evaluation: {loop_s:.3f} s, {loop_images / loop_s:.1f} images/s, "
+          f"{1e3 * loop_s / (OCR_TIMED[1] - OCR_TIMED[0]):.3f} ms/step; update_many alone on "
+          f"the same {len(staged)} superbatches: {alone_s:.3f} s, {loop_images / alone_s:.1f} "
+          f"images/s, {1e3 * alone_s / (OCR_TIMED[1] - OCR_TIMED[0]):.3f} ms/step", flush=True)
+    print(f"  launches: first run {first_launches}, expected {want_first} ({first_evals} "
+          f"evaluations of {val_batches} batches, {first_samples} sample passes); resumed run "
+          f"{second_launches}, expected {want_second}", flush=True)
+    ok = (train_steps_logged == list(range(OCR_RESUMED)) and finite
+          and val_steps == [32, 64, 64, 96, 96]
+          and {"model_32.ckpt", "model_64.ckpt", "model_96.ckpt", "model_latest.ckpt",
+               "model_best.ckpt"} <= set(files)
+          and images and all(i.ndim == 3 and i.shape[-1] == 3 for i in images)
+          and first_launches == want_first and second_launches == want_second
+          and (first["step"], second["step"]) == (OCR_STEPS, OCR_RESUMED)
+          and loads[0][0] == (0, 0, 1e10) and start == OCR_STEPS and bitwise)
+    if not ok:
+        raise SystemExit("the train-ocr phase failed a check")
+    return dict(launches=(first_launches, second_launches))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -1500,6 +1696,9 @@ def main() -> int:
     with phase("pretraining"):
         pretrain = pretraining_phase(card)
 
+    with phase("train-ocr"):
+        ocr_train = train_ocr_phase(card)
+
     if args.profile:
         with phase("profile"):
             for E in BATCHES:
@@ -1543,10 +1742,10 @@ def main() -> int:
     def row(name, source, replaces, result):
         # launches: summed over the main-path runs: serving, training,
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
-        # frozen updates, the RL evaluation, the other OCRs' iterations and
-        # the pretraining phase
+        # frozen updates, the RL evaluation, the other OCRs' iterations, the
+        # pretraining phase and train_ocr's two runs
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
-            other["launches"], pretrain["launches"])
+            other["launches"], pretrain["launches"]) + ocr_train["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

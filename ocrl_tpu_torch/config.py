@@ -17,13 +17,18 @@
 - configs/get_ari_mse.yaml with the seed of configs/_base.yaml
   (``GetAriMseConfig``),
 - configs/{train_sb3,test_sb3}.yaml over configs/_base.yaml
-  (``TrainSB3Config``, ``TestSB3Config``).
+  (``TrainSB3Config``, ``TestSB3Config``), configs/train_ocr.yaml over it
+  (``TrainOCRConfig``) and configs/collect_dataset_from_synthetic_envs.yaml
+  (``CollectConfig``),
+- a dataset file of configs/dataset (``DatasetConfig``).
 
-Only the env files are read at run time (``read_env_config``), by a small
-reader of the YAML subset they use (``parse_yaml``): block mappings and
-sequences, flow lists (nested too), quoted and plain scalars with YAML 1.1's
-nulls, booleans, ints and floats (``3e-2`` included, as OmegaConf reads it),
-and ``defaults:`` chaining within the directory. ``compose`` applies the
+Only the env and dataset files are read at run time (``read_env_config``,
+``read_dataset_config``), by a small reader of the YAML subset the config
+files use (``parse_yaml``): block mappings and sequences, flow lists and
+mappings (nested, and continued on more indented lines), quoted and plain
+scalars with YAML 1.1's nulls, booleans, ints and floats (``3e-2``
+included, as OmegaConf reads it), and ``defaults:`` chaining within the
+directory. ``compose`` applies the
 ``key=value`` overrides of the entry points.
 
 One value differs from the YAML on purpose: ``slotattr.fused`` is
@@ -506,6 +511,92 @@ class TestSB3Config:
         return PolicyConfig(self.ocr, self.pooling, self.sb3_acnet, self.env)
 
 
+@dataclass(frozen=True)
+class DatasetCheckpointConfig:
+    entity: str = ""
+    file: str = ""
+    project: str = ""
+    run_id: str = ""
+
+
+@dataclass(frozen=True)
+class DatasetConfig(EnvConfig):
+    """configs/dataset/<stem>.yaml chained to its _synthetic_env_base and
+    _base: the image size the OCR is built for, and where the file is
+    (``datadir``, else ``<dataset_dir>/<dataset_checkpoint.file>``). Keys
+    that name no field (``properties``, ...) are dropped."""
+
+    datadir: Optional[str] = None
+    dataset_checkpoint: DatasetCheckpointConfig = field(
+        default_factory=DatasetCheckpointConfig)
+    dataset_dir: str = "datasets"
+    num_labels: int = 4
+    num_objects_range: tuple[int, int] = (4, 4)
+    state_size: int = 5
+    name: str = ""
+    tags: str = ""
+
+
+@dataclass(frozen=True)
+class LoadConfig:
+    resume_run_path: Optional[str] = None
+    resume_checkpoint: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class TrainOCRConfig:
+    """configs/train_ocr.yaml over configs/_base.yaml, with the keys the
+    JAX entry point reads beyond them and its defaults (train_ocr.py:44,52,
+    71,77): ``log_interval``, ``superbatch``, ``max_steps`` (None: train by
+    epochs only) and ``profile_dir`` (None: no trace). ``run_dir`` empty:
+    outputs/train_ocr/<ocr>-<dataset>/<time>. ``num_workers`` is read and
+    unused, as in JAX."""
+
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    eval_interval: int = 1000
+    run_dir: str = ""
+    batch_size: int = 24
+    num_visualization: int = 5
+    tags: str = ""
+    seed: int = 0
+    num_workers: int = 1
+    load: LoadConfig = field(default_factory=LoadConfig)
+    max_epochs: int = 1000
+    log_interval: int = 50
+    superbatch: int = 16
+    max_steps: Optional[float] = None
+    profile_dir: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class CollectionConfig:
+    """configs/collect_dataset_from_synthetic_envs.yaml's ``collection``,
+    plus ``out_file`` (None: ``<out_dir>/<canonical file name>``)."""
+
+    num_tr: int = 1000000
+    num_val: int = 10000
+    num_proc: int = 10
+    only_initial: bool = True
+    seed: int = 0
+    chunk_size: int = 100000
+    with_masks: bool = False
+    with_labels: bool = False
+    with_states: bool = False
+    out_dir: str = "datasets"
+    out_file: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class CollectConfig:
+    """configs/collect_dataset_from_synthetic_envs.yaml. ``run_dir`` empty:
+    outputs/dataset_collection/<env name>/<time>."""
+
+    env: SyntheticEnvConfig = field(default_factory=SyntheticEnvConfig)
+    collection: CollectionConfig = field(default_factory=CollectionConfig)
+    run_dir: str = ""
+
+
 def _coerce(old, value):
     """``value`` in the type of the field's current value where YAML gives
     another: a list as a tuple, an int as a float."""
@@ -545,14 +636,14 @@ _QUOTES = ("'", '"')
 
 
 def parse_scalar(text: str):
-    """One plain or quoted YAML scalar, or a flow list, as PyYAML's
-    SafeLoader with OmegaConf's float rule reads it."""
+    """One plain or quoted YAML scalar, or a flow list or mapping, as
+    PyYAML's SafeLoader with OmegaConf's float rule reads it."""
     text = text.strip()
-    if text.startswith("["):
-        items, rest = _flow_list(text, 1)
-        if rest.strip():
-            raise ValueError(f"text after a flow list: {rest!r}")
-        return items
+    if text[:1] in ("[", "{"):
+        value, i = _flow(text, 0)
+        if text[i:].strip():
+            raise ValueError(f"text after a flow collection: {text[i:]!r}")
+        return value
     if len(text) >= 2 and text[0] == text[-1] and text[0] in _QUOTES:
         body = text[1:-1]
         return body.replace(text[0] * 2, text[0]) if text[0] == _QUOTES[0] else body
@@ -565,42 +656,87 @@ def parse_scalar(text: str):
     if _FLOAT.match(text):
         return float(text.replace("_", "").lower().replace(".inf", "inf")
                      .replace(".nan", "nan"))
-    if text[0] in "{&*!|>":
+    if text[0] in "&*!|>}]":
         raise ValueError(f"YAML outside the subset the config files use: {text!r}")
     return text
 
 
-def _flow_list(text: str, i: int):
-    """The flow list whose ``[`` stands just before ``text[i]``: (its items,
-    the text after its ``]``)."""
-    items, token, quote = [], "", None
-    while i < len(text):
-        c = text[i]
+def _skip_space(text: str, i: int) -> int:
+    while i < len(text) and text[i].isspace():
+        i += 1
+    return i
+
+
+def _flow_item(text: str, i: int):
+    """The flow collection, quoted or plain scalar at ``text[i]`` inside a
+    flow collection: (its value, the index after it). A plain scalar ends
+    at ``,``, ``]``, ``}`` or a ``:`` before a space or one of those."""
+    i = _skip_space(text, i)
+    if i < len(text) and text[i] in "[{":
+        return _flow(text, i)
+    if i < len(text) and text[i] in _QUOTES:
+        quote, j = text[i], i + 1
+        while j < len(text):
+            if text[j] == quote:
+                if quote == "'" and text[j + 1:j + 2] == "'":
+                    j += 2
+                    continue
+                return parse_scalar(text[i:j + 1]), j + 1
+            j += 1
+        raise ValueError(f"unterminated quoted scalar: {text!r}")
+    j = i
+    while j < len(text) and text[j] not in ",]}" and not (
+            text[j] == ":" and (j + 1 == len(text) or text[j + 1] in " ,]}")):
+        j += 1
+    return parse_scalar(text[i:j]), j
+
+
+def _flow(text: str, i: int):
+    """The flow list or mapping that opens at ``text[i]``: (its value, the
+    index after its closing bracket)."""
+    close = "]" if text[i] == "[" else "}"
+    out: list | dict = [] if close == "]" else {}
+    i += 1
+    while True:
+        i = _skip_space(text, i)
+        if i == len(text):
+            raise ValueError(f"unterminated flow collection: {text!r}")
+        if text[i] == close:
+            return out, i + 1
+        if text[i] == ",":
+            raise ValueError(f"an empty entry in a flow collection: {text!r}")
+        value, i = _flow_item(text, i)
+        if isinstance(out, dict):
+            i = _skip_space(text, i)
+            key = value
+            value = None
+            if i < len(text) and text[i] == ":":
+                value, i = _flow_item(text, i + 1)
+            if key in out:
+                raise ValueError(f"a duplicate key {key!r}: {text!r}")
+            out[key] = value
+        else:
+            out.append(value)
+        i = _skip_space(text, i)
+        if i < len(text) and text[i] == ",":
+            i += 1
+        elif i == len(text) or text[i] != close:
+            raise ValueError(f"expected ',' or {close!r} in a flow collection: {text!r}")
+
+
+def _flow_depth(line: str) -> int:
+    """How many flow brackets the line leaves open."""
+    depth, quote = 0, None
+    for c in line:
         if quote:
-            token += c
             quote = None if c == quote else quote
         elif c in _QUOTES:
             quote = c
-            token += c
-        elif c == "[":
-            if token.strip():
-                raise ValueError(f"'[' inside a scalar: {text!r}")
-            inner, text = _flow_list(text, i + 1)
-            items.append(inner)
-            token, i = None, 0
-            continue
-        elif c in ",]":
-            if token is not None and (token.strip() or c == ","):
-                items.append(parse_scalar(token))
-            token = ""
-            if c == "]":
-                return items, text[i + 1:]
-        elif token is not None:
-            token += c
-        elif not c.isspace():
-            raise ValueError(f"{c!r} after a nested flow list: {text!r}")
-        i += 1
-    raise ValueError(f"unterminated flow list: {text!r}")
+        elif c in "[{":
+            depth += 1
+        elif c in "]}":
+            depth -= 1
+    return depth
 
 
 def _strip_comment(line: str) -> str:
@@ -657,6 +793,15 @@ def parse_yaml(text: str) -> dict:
     """A config file's mapping (the subset in the module docstring)."""
     lines = [_strip_comment(line).rstrip() for line in text.splitlines()]
     lines = [line for line in lines if line.strip() and line.strip() != "---"]
+    joined: list[str] = []
+    for line in lines:           # a flow collection continued on the next lines
+        if joined and _flow_depth(joined[-1]) > 0:
+            if _indent(line) <= _indent(joined[-1]):
+                raise ValueError(f"a flow collection's next line is not indented: {line!r}")
+            joined[-1] += " " + line.strip()
+        else:
+            joined.append(line)
+    lines = joined
     if not lines:
         return {}
     if any("\t" in line[:_indent(line) + 1] for line in lines):
@@ -729,6 +874,15 @@ def read_env_config(name: str) -> SyntheticEnvConfig:
     return _dataclass_from(SyntheticEnvConfig, values)
 
 
+def read_dataset_config(name: str) -> DatasetConfig:
+    """configs/dataset/<name>.yaml, chained to its bases, as a
+    ``DatasetConfig``."""
+    path = CONFIG_DIR / "dataset" / f"{name}.yaml"
+    if not path.exists():
+        raise FileNotFoundError(f"no dataset config {path}")
+    return _dataclass_from(DatasetConfig, compose_file(path))
+
+
 # -- the entry points' overrides ------------------------------------------------
 
 GROUPS = {
@@ -748,36 +902,45 @@ GROUPS = {
                                                     NetConfig(), NetConfig())},
 }
 LATER = {"seeds": "the multi-seed slice", "video": "the slice that records videos",
-         "resume": "the slice that writes checkpoint files",
+         "resume": "the slice that writes train_sb3's run files (ROADMAP.md Queue A item 2)",
          "sb3=sac": "the slice that ports SAC"}
+# the override groups read from a directory of configs/ at run time
+FILE_GROUPS = {"env": read_env_config, "dataset": read_dataset_config}
 
 
 def compose(cfg, argv):
-    """``cfg`` (a ``TrainSB3Config`` or ``TestSB3Config``) with the
-    ``key=value`` overrides of ``argv``: first the groups ``ocr=``,
-    ``pooling=``, ``sb3=``, ``sb3_acnet=`` and ``env=<file stem>``, then
-    every other key, dotted or plain, in order (values read as YAML scalars;
-    a leading ``+`` is dropped). Multi-seed runs (``seeds=``), SAC, videos
-    and resuming raise ``NotImplementedError`` naming their slice."""
+    """``cfg`` (a ``TrainSB3Config``, ``TestSB3Config``, ``TrainOCRConfig``
+    or ``CollectConfig``) with the ``key=value`` overrides of ``argv``:
+    first the groups ``ocr=``, ``pooling=``, ``sb3=``, ``sb3_acnet=``,
+    ``env=<file stem>`` and ``dataset=<file stem>``, then every other key,
+    dotted or plain, in order (values read as YAML scalars; a leading ``+``
+    is dropped). A group or key the config lacks raises ``KeyError``. For
+    the RL entry points, multi-seed runs (``seeds=``), SAC, videos and
+    resuming raise ``NotImplementedError`` naming their slice."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
     pairs = []
     for arg in argv:
         key, sep, raw = arg.partition("=")
         if not sep:
             raise ValueError(f"override '{arg}' must look like key=value")
         pairs.append((key.lstrip("+"), raw))
+    if "sb3" in fields:
+        for key, raw in pairs:
+            for name in (f"{key}={raw}", key.split(".")[0]):
+                if name in LATER:
+                    raise NotImplementedError(f"{name} comes with {LATER[name]}")
+    groups = [(key, raw) for key, raw in pairs if key in GROUPS or key in FILE_GROUPS]
+    for key, raw in groups:
+        if key not in fields:
+            raise KeyError(f"no config group '{key}' in {type(cfg).__name__}")
+        if key in FILE_GROUPS:
+            cfg = dataclasses.replace(cfg, **{key: FILE_GROUPS[key](raw)})
+            continue
+        if raw not in GROUPS[key]:
+            raise FileNotFoundError(f"no config '{key}={raw}' (available: "
+                                    f"{', '.join(GROUPS[key])})")
+        cfg = dataclasses.replace(cfg, **{key: GROUPS[key][raw]})
     for key, raw in pairs:
-        for name in (f"{key}={raw}", key.split(".")[0]):
-            if name in LATER:
-                raise NotImplementedError(f"{name} comes with {LATER[name]}")
-    for key, raw in pairs:
-        if key in GROUPS:
-            if raw not in GROUPS[key]:
-                raise FileNotFoundError(f"no config '{key}={raw}' (available: "
-                                        f"{', '.join(GROUPS[key])})")
-            cfg = dataclasses.replace(cfg, **{key: GROUPS[key][raw]})
-        elif key == "env":
-            cfg = dataclasses.replace(cfg, env=read_env_config(raw))
-    for key, raw in pairs:
-        if key not in GROUPS and key != "env":
+        if (key, raw) not in groups:
             cfg = replace(cfg, key, parse_scalar(raw))
     return cfg

@@ -15,6 +15,11 @@ class Discrete:
         self.shape = ()
         self.dtype = np.dtype(np.int64)
 
+    def sample(self, rng: np.random.Generator) -> int:
+        """A uniform action drawn from ``rng`` (gymnasium's space draws from
+        its own unseeded generator)."""
+        return int(rng.integers(self.n))
+
     def __repr__(self) -> str:
         return f"Discrete({self.n})"
 

@@ -1,5 +1,5 @@
-"""Read checkpoint files written by the JAX package, without flax or msgpack
-(counterpart of the read side of ocrl_tpu/utils/checkpoint.py).
+"""Checkpoint files of the JAX package, read and written without flax or
+msgpack (counterpart of ocrl_tpu/utils/checkpoint.py).
 
 A file is ``OCRLTPU1``, the length of a JSON metadata block as a little-
 endian u64, the JSON, then the tree as flax's msgpack payload
@@ -11,7 +11,17 @@ scalar, the same payload). It returns what
 ``flax.serialization.msgpack_restore`` returns: nested dicts (flax keeps
 tuples and lists as maps keyed "0", "1", ...) of numpy arrays and Python
 scalars. (flax cuts an array above 2^30 bytes into chunks; no model of the
-repo holds one, and such a leaf comes back as flax's chunk map.)
+repo holds one, and such a leaf comes back as flax's chunk map.) ``packb``
+encodes such a tree the way flax does, every ndarray (0-d ones too) as
+extension type 1, and ``save_checkpoint`` writes the file through a
+temporary name and an atomic rename.
+
+``save`` / ``load`` are the training loop's checkpoints
+(ocrl_tpu/utils/checkpoint.py:103-148): ``checkpoints/model_{step}.ckpt``,
+``model_latest.ckpt`` and, on a new best, ``model_best.ckpt``, holding JAX's
+tree of the OCR (``convert.ocr_to_flax``) and of its optimizer state
+(``convert.optax_state``), so that JAX's ``ocrl_tpu.utils.load`` resumes
+from a file the port wrote and the port from a file JAX wrote.
 
 ``get_ocr`` builds the port's OCR from its configs and, when a checkpoint is
 configured, loads the JAX OCR's parameters from it
@@ -29,7 +39,8 @@ from pathlib import Path
 import numpy as np
 
 from ..models import create_ocr
-from .convert import ocr_from_flax
+from .convert import (attention_heads, load_optax_state, ocr_from_flax, ocr_to_flax,
+                      optax_state)
 
 _MAGIC = b"OCRLTPU1"
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -116,6 +127,107 @@ def unpackb(data: bytes):
     return value
 
 
+def _pack_length(out: bytearray, n: int, small: int | None, codes: tuple) -> None:
+    """The header of a sized msgpack value: ``small | n`` when it fits,
+    else the first of the 8/16/32-bit length codes that holds n."""
+    if small is not None and n < (16 if small in (0x80, 0x90) else 32):
+        out.append(small | n)
+        return
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"a msgpack value of {n} entries or bytes is too long")
+
+
+def _pack_ext(out: bytearray, kind: int, payload: bytes) -> None:
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(payload) in fixed:
+        out.append(fixed[len(payload)])
+    else:
+        _pack_length(out, len(payload), None, (0xc7, 0xc8, 0xc9))
+    out += struct.pack(">b", kind) + payload
+
+
+def _pack(value, out: bytearray) -> None:
+    if value is None:
+        out.append(0xc0)
+    elif value is True or value is False:
+        out.append(0xc3 if value else 0xc2)
+    elif isinstance(value, (np.ndarray, np.generic)):
+        array = np.asarray(value)
+        payload = packb([list(array.shape), array.dtype.name, array.tobytes("C")])
+        _pack_ext(out, _EXT_NDARRAY if isinstance(value, np.ndarray) else _EXT_NPSCALAR,
+                  payload)
+    elif isinstance(value, int):
+        if 0 <= value < 0x80:
+            out.append(value)
+        elif -32 <= value < 0:
+            out.append(value & 0xff)
+        elif value >= 0:
+            for code, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")):
+                if value < 1 << (8 * struct.calcsize(fmt)):
+                    out += bytes([code]) + struct.pack(fmt, value)
+                    return
+            raise ValueError(f"{value} is too large for msgpack")
+        else:
+            for code, fmt in ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"), (0xd3, ">q")):
+                if value >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    out += bytes([code]) + struct.pack(fmt, value)
+                    return
+            raise ValueError(f"{value} is too small for msgpack")
+    elif isinstance(value, float):
+        out += b"\xcb" + struct.pack(">d", value)
+    elif isinstance(value, str):
+        raw = value.encode()
+        _pack_length(out, len(raw), 0xa0, (0xd9, 0xda, 0xdb))
+        out += raw
+    elif isinstance(value, (bytes, bytearray, memoryview)):
+        raw = bytes(value)
+        _pack_length(out, len(raw), None, (0xc4, 0xc5, 0xc6))
+        out += raw
+    elif isinstance(value, dict):
+        _pack_length(out, len(value), 0x80, (None, 0xde, 0xdf))
+        for key, item in value.items():
+            _pack(key, out)
+            _pack(item, out)
+    elif isinstance(value, (list, tuple)):
+        _pack_length(out, len(value), 0x90, (None, 0xdc, 0xdd))
+        for item in value:
+            _pack(item, out)
+    else:
+        raise TypeError(f"msgpack cannot encode {type(value).__name__}")
+
+
+def packb(value) -> bytes:
+    """``value`` as msgpack, as flax's ``msgpack_serialize`` encodes a state
+    dict: maps, lists, str, bytes (bin), ints, floats (64-bit), bool, nil,
+    ndarrays as extension type 1 and numpy scalars as type 3."""
+    out = bytearray()
+    _pack(value, out)
+    return bytes(out)
+
+
+def _write(path: Path, payload: bytes, metadata: dict) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    meta = json.dumps(metadata).encode()
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<Q", len(meta)))
+        f.write(meta)
+        f.write(payload)
+    tmp.replace(path)
+
+
+def save_checkpoint(path: str | Path, tree: dict, metadata: dict) -> None:
+    """Write an ``OCRLTPU1`` file of ``tree`` (a state dict of numpy arrays)
+    and ``metadata`` through a temporary file and an atomic rename, so a
+    crash mid-write never leaves a truncated checkpoint."""
+    _write(Path(path), packb(tree), metadata)
+
+
 def load_checkpoint(path: str | Path) -> tuple[dict, dict]:
     """(tree, metadata) of an ``OCRLTPU1`` file."""
     with open(path, "rb") as f:
@@ -179,3 +291,57 @@ def get_ocr(ocr_config, env_config, cpt_config, seed: int = 0, device=None):
     state.update(ocr_from_flax(migrate_bcdec_tree(tree)["ocr_module_state_dict"]))
     ocr.module.load_state_dict(state)
     return ocr, True
+
+
+def checkpoint_tree(ocr) -> dict:
+    """JAX's ``OCR.save()`` state dict of the port's OCR: the module's tree
+    and, with an optimizer, its optax state."""
+    tree = {"ocr_module_state_dict": ocr_to_flax(ocr.module.state_dict(),
+                                                 attention_heads(ocr.module))}
+    if ocr.optimizer is not None:
+        tree["ocr_opt_state_dict"] = optax_state(ocr)
+    return tree
+
+
+def load_tree(ocr, tree: dict) -> None:
+    """Set the port's OCR from JAX's ``OCR.save()`` state dict: every
+    parameter, and the optimizer state where the tree holds one."""
+    tree = migrate_bcdec_tree(tree)
+    ocr.module.load_state_dict(ocr_from_flax(tree["ocr_module_state_dict"]))
+    if ocr.optimizer is not None and "ocr_opt_state_dict" in tree:
+        load_optax_state(ocr, tree["ocr_opt_state_dict"])
+
+
+def save(ocr, run_dir: str | Path, step: int = 0, epoch: int = 0,
+         best_val_loss: float = 1e5, best: bool = False) -> None:
+    """``<run_dir>/checkpoints/model_{step}.ckpt`` and ``model_latest.ckpt``,
+    and ``model_best.ckpt`` when ``best``, with the metadata step, epoch
+    and best_val_loss (ocrl_tpu/utils/checkpoint.py:103-117)."""
+    ckpt_dir = Path(run_dir) / "checkpoints"
+    metadata = {"step": step, "epoch": epoch, "best_val_loss": float(best_val_loss)}
+    payload = packb(checkpoint_tree(ocr))          # encoded once for every file
+    for name in [f"model_{step}.ckpt", "model_latest.ckpt"] + (["model_best.ckpt"] if best
+                                                                else []):
+        _write(ckpt_dir / name, payload, metadata)
+
+
+def load(ocr, run_dir: str | Path | None = None, resume_checkpoint: str | None = None,
+         resume_run_path: str | None = None) -> tuple[int, int, float]:
+    """Resume ``ocr`` from a checkpoint file, JAX's or the port's, in JAX's
+    order (ocrl_tpu/utils/checkpoint.py:120-148): ``resume_checkpoint``,
+    else the latest of the run ``resume_run_path``, else this run's latest.
+    Returns (step, epoch, best_val_loss), or (0, 0, 1e10) with no file."""
+    path = None
+    if resume_checkpoint is not None:
+        path = Path(resume_checkpoint)
+    elif resume_run_path is not None:
+        path = Path(resume_run_path) / "checkpoints" / "model_latest.ckpt"
+    elif run_dir is not None:
+        candidate = Path(run_dir) / "checkpoints" / "model_latest.ckpt"
+        if candidate.exists():
+            path = candidate
+    if path is None or not path.exists():
+        return 0, 0, 1e10
+    tree, metadata = load_checkpoint(path)
+    load_tree(ocr, tree)
+    return metadata["step"], metadata.get("epoch", 0), metadata.get("best_val_loss", 1e10)

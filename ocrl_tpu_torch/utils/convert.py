@@ -198,3 +198,211 @@ def ocr_from_flax(params: dict) -> dict[str, torch.Tensor]:
     ``state_dict``."""
     prefix = "ocr_module."
     return {k[len(prefix):]: v for k, v in from_flax({"ocr_module": params}).items()}
+
+
+# -- the way back: the port's OCR to JAX's tree --------------------------------
+
+# (port module path, flax module path) of an OCR's tree, full matches; a path
+# no rule names maps its dots to slashes
+_TO_FLAX = [
+    (r"(enc|dec)\.blocks\.(\d+)\.conv", r"\1/Conv2dBlock_\2/Conv_0"),
+    (r"(enc|dec)\.out", r"\1/Conv_0"),
+    (r"slotattn\.(slot_attention\.)?mlp\.(\d+)",
+     lambda m: f"slotattn/{'slot_attention/' if m[1] else ''}mlp/layers_{m[2]}"),
+    (r"dvae\.encoder\.(\d+)\.conv", r"dvae/encoder/layers_\1/Conv_0"),
+    (r"dvae\.encoder\.(\d+)", r"dvae/encoder/layers_\1"),
+    (r"dvae\.decoder_blocks\.(\d+)\.conv", r"dvae/decoder_blocks_\1/Conv_0"),
+    (r"bcdec\.rest\.([01])\.conv", r"bcdec/rest/layers_\1/Conv_0"),
+    (r"bcdec\.rest\.2", "bcdec/rest/layers_2"),
+    (r"mlp\.(\d+)", r"MLP_0/Dense_\1"),                                   # GT
+    (r"tfdec\.blocks\.(\d+)\.ffn\.fc([12])",
+     lambda m: f"tfdec/blocks_{m[1]}/ffn/Dense_{int(m[2]) - 1}"),
+    (r"tfdec\.blocks\.(\d+)\.(.+)", lambda m: f"tfdec/blocks_{m[1]}/{m[2].replace('.', '/')}"),
+    (r"(blocks|decoder_blocks)\.(\d+)\.norm([12])",
+     lambda m: f"{m[1]}_{m[2]}/LayerNorm_{int(m[3]) - 1}"),
+    (r"(blocks|decoder_blocks)\.(\d+)\.attn\.(query|key|value|out)",
+     r"\1_\2/MultiHeadDotProductAttention_0/\3"),
+    (r"(blocks|decoder_blocks)\.(\d+)\.fc([12])",
+     lambda m: f"{m[1]}_{m[2]}/Dense_{int(m[3]) - 1}"),
+    (r"decoder\.conv1", "decoder/Conv_0"),
+    (r"decoder\.conv_out", "decoder/Conv_1"),
+    (r"decoder\.mlc\.(\d+)", r"decoder/MultiLayerConv_0/Conv_\1"),
+    (r"refine\.mlc\.(\d+)", r"refine/mlc/Conv_\1"),
+]
+_VMAP = "VmapNatureCNN_Module_0/"
+
+
+def _flax_module(module: str, stacked: int | None) -> str:
+    if module in ("dense",) or re.fullmatch(r"convs\.(\d+)", module):
+        name = "Dense_0" if module == "dense" else f"Conv_{module.split('.')[1]}"
+        return (_VMAP if stacked else "") + name
+    for pattern, repl in _TO_FLAX:
+        if re.fullmatch(pattern, module):
+            return re.sub(pattern, repl, module)
+    return module.replace(".", "/")
+
+
+def _flax_leaf(module: str, name: str, x: np.ndarray, heads: int | None,
+               stacked: int | None) -> tuple[str, np.ndarray]:
+    """The inverse of ``_leaf``: the flax leaf name and array of the port's
+    ``module.name``."""
+    attn = re.search(r"\.attn\.(query|key|value|out)$", module)
+    if attn and heads is None:
+        raise KeyError(f"{module}: the number of heads of this attention is not given")
+    if name == "weight":
+        if module.endswith("dictionary"):
+            return "embedding", x
+        if x.ndim == 1:
+            return "scale", x
+        if x.ndim == 4 and stacked and module.startswith("convs."):
+            o, i, h, w = x.shape
+            return "kernel", x.reshape(stacked, o // stacked, i, h, w).transpose(0, 3, 4, 2, 1)
+        if x.ndim == 4:                                   # OIHW -> HWIO
+            return "kernel", x.transpose(2, 3, 1, 0)
+        if x.ndim == 3:                                   # [K, out, in] -> [K, in, out]
+            return "kernel", x.transpose(0, 2, 1)
+        if attn and attn[1] == "out":                     # [out, H*hd] -> [H, hd, out]
+            return "kernel", x.T.reshape(heads, -1, x.shape[0])
+        if attn:                                          # [H*hd, in] -> [in, H, hd]
+            return "kernel", x.T.reshape(x.shape[1], heads, -1)
+        return "kernel", x.T
+    if name == "bias":
+        if attn and attn[1] != "out":
+            return "bias", x.reshape(heads, -1)
+        if stacked and module.startswith("convs."):
+            return "bias", x.reshape(stacked, -1)
+        return "bias", x
+    if name in _KEPT:
+        return name, x
+    raise KeyError(f"{module}.{name}")
+
+
+def attention_heads(module: torch.nn.Module) -> dict[str, int]:
+    """{module path: heads} of the module's flax-style attention layers
+    (MAE's), which ``ocr_to_flax`` needs to split their kernels."""
+    return {name: m.num_heads for name, m in module.named_modules()
+            if type(m).__name__ == "MultiHeadDotProductAttention"}
+
+
+def ocr_to_flax(state: dict[str, torch.Tensor], heads: dict[str, int] | None = None) -> dict:
+    """The port OCR module's ``state_dict`` -> JAX's tree of the same OCR
+    (``OCR.params``), the exact inverse of ``ocr_from_flax``: numpy arrays
+    in flax's layouts, the LSTM's gates unpacked, MultipleCNN's grouped
+    convolutions re-stacked over its K modules. ``heads`` gives the heads
+    of each attention (``attention_heads(module)``)."""
+    heads = heads or {}
+    state = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    for key in [k for k in state if k.endswith(".lstm.ih.weight")]:
+        lstm = key[:-len(".ih.weight")]
+        for side, names in (("ih", ("weight",)), ("hh", ("weight", "bias"))):
+            for name in names:
+                for g, part in zip(_GATES, np.split(state.pop(f"{lstm}.{side}.{name}"), 4)):
+                    state[f"{lstm}.{side[0]}{g}.{name}"] = part
+    dense = state.get("dense.weight")
+    stacked = dense.shape[0] if dense is not None and dense.ndim == 3 else None
+    tree: dict = {}
+    for key, x in state.items():
+        module, _, name = key.rpartition(".")
+        gru = re.fullmatch(r"(.*\.gru)\.(wi|wh)", module)
+        if gru:                                        # FusedGRUCell: wi/wh and bi/bh
+            path, leaf = gru[1].replace(".", "/"), \
+                gru[2] if name == "weight" else "b" + gru[2][1]
+            x = x.T if name == "weight" else x
+        else:
+            path = _flax_module(module, stacked) if module else ""
+            leaf, x = _flax_leaf(module, name, x, heads.get(module.rsplit(".", 1)[0]),
+                                 stacked)
+        node = tree
+        for part in [p for p in path.split("/") if p]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(x, order="C")       # a copy: never a view of a live tensor
+    return tree
+
+
+# -- the optimizer state: MultiGroupAdam <-> optax's state dict ---------------------
+
+# optax's tree around the Adam state(s) of each kind of OCR (flax's
+# to_state_dict of ``OCR.opt_state``): the clip of SLATE and IODINE is
+# "0": {} before it; SLATE's multi_transform holds one chain per group, whose
+# "1" is the schedule's {"count"} where the lr follows one; MAE's adamw adds
+# the masked weight decay's {"inner_state": {}}; every chain ends with the
+# learning-rate scale, {}.
+_SLATE_GROUPS = {"dvae": False, "sa": True, "dec": True}     # group: lr on a schedule
+
+
+def _mask_like(full, part):
+    """``full`` with every leaf ``part`` lacks replaced by {} (optax's
+    MaskedNode in a state dict)."""
+    if isinstance(full, dict):
+        return {k: _mask_like(v, part.get(k, {}) if isinstance(part, dict) else {})
+                for k, v in full.items()}
+    return part if isinstance(part, np.ndarray) else {}
+
+
+def _adam_state(ocr, params: list[tuple[str, torch.nn.Parameter]], full) -> dict:
+    adam, heads = ocr.optimizer.adam, attention_heads(ocr.module)
+    moments = {}
+    for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        values = {n: adam.state[p][moment] if moment in adam.state.get(p, {})
+                  else torch.zeros_like(p) for n, p in params}
+        moments[key] = _mask_like(full, ocr_to_flax(values, heads)) if full is not None \
+            else ocr_to_flax(values, heads)
+    return {"count": np.asarray(ocr.optimizer.count, np.int32), **moments}
+
+
+def optax_state(ocr) -> dict:
+    """The port OCR's optimizer state as JAX's ``OCR.opt_state`` state dict
+    for the same OCR (the tree ``flax.serialization.to_state_dict`` gives)."""
+    opt = ocr.optimizer
+    named = {id(p): n for n, p in ocr.module.named_parameters()}
+    groups = {g["group"]: [(named[id(p)], p) for p in g["params"]]
+              for g in opt.adam.param_groups}
+    if set(groups) == set(_SLATE_GROUPS):
+        full = ocr_to_flax(dict(ocr.module.named_parameters()), attention_heads(ocr.module))
+        count = {"count": np.asarray(opt.count, np.int32)}
+        inner = {"inner_states": {
+            g: {"inner_state": {"0": _adam_state(ocr, groups[g], full),
+                                "1": dict(count) if scheduled else {}}}
+            for g, scheduled in _SLATE_GROUPS.items()}}
+    elif set(groups) == {"decay", "no_decay"}:
+        inner = {"0": _adam_state(ocr, groups["decay"] + groups["no_decay"], None),
+                 "1": {"inner_state": {}}, "2": {}}
+    elif set(groups) == {"all"}:
+        inner = {"0": _adam_state(ocr, groups["all"], None), "1": {}}
+    else:
+        raise KeyError(f"no optax layout for the optimizer groups {sorted(groups)}")
+    return {"0": {}, "1": inner} if ocr.clip is not None else inner
+
+
+def load_optax_state(ocr, tree: dict) -> None:
+    """Set the port OCR's optimizer from JAX's optimizer state dict of the
+    same OCR (``optax_state``'s inverse): the moments of every parameter,
+    torch's per-parameter ``step`` and the optimizer's ``count`` from
+    optax's count."""
+    opt = ocr.optimizer
+    if ocr.clip is not None:
+        tree = tree["1"]
+    if "inner_states" in tree:
+        adams = [s["inner_state"]["0"] for s in tree["inner_states"].values()]
+    else:
+        adams = [tree["0"]]
+    params = dict(ocr.module.named_parameters())
+    counts = {int(np.asarray(a["count"])) for a in adams}
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer's groups hold different counts {sorted(counts)}")
+    count = counts.pop()
+    found: dict[str, dict] = {}
+    for a in adams:
+        mu, nu = ocr_from_flax(a["mu"]), ocr_from_flax(a["nu"])
+        for name in mu:
+            found[name] = {"exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    if set(found) != set(params):
+        raise KeyError(f"optimizer state for {sorted(set(found) ^ set(params))[:5]} "
+                       "does not match the module's parameters")
+    opt.adam.state.clear()
+    if count:
+        for name, p in params.items():
+            opt.adam.state[p] = {
+                "step": torch.tensor(float(count)),
+                **{k: v.to(p.device, p.dtype).clone() for k, v in found[name].items()}}
+    opt.count = count

@@ -1,8 +1,10 @@
 """The run's metric log (counterpart of ocrl_tpu/utils/logger.py, without
-wandb, YAML or images): ``Run`` makes the run directory, writes the config
-as ``config.json`` and the run's name and tags as ``run.json``, and appends
+wandb or YAML): ``Run`` makes the run directory, writes the config as
+``config.json`` and the run's name and tags as ``run.json``, and appends
 each ``log`` call to ``metrics.jsonl`` as one JSON line with ``_step`` and
-``_time``."""
+``_time``. A value that is a list of ``Image`` is written as PNGs under
+``media/`` (``utils.png``, no PIL) and logged as its path
+relative to the run directory, as JAX's ``_save_image`` does."""
 
 from __future__ import annotations
 
@@ -12,6 +14,16 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from . import png
+
+
+class Image:
+    """An array to log as an image (like wandb.Image): uint8 as it is,
+    floats clipped to [0, 1] and scaled by 255."""
+
+    def __init__(self, data):
+        self.data = np.asarray(data)
 
 
 def _plain(value):
@@ -52,16 +64,37 @@ class Run:
             step = self._step
         self._step = max(self._step, step) + 1
         record = {"_step": int(step), "_time": time.time()}
-        record.update({k: _scalar(v) for k, v in metrics.items()})
+        for key, value in metrics.items():
+            if isinstance(value, (list, tuple)) and value and isinstance(value[0], Image):
+                record[key] = [self._save_image(f"{key}_{i}", v.data, step)
+                               for i, v in enumerate(value)]
+            else:
+                record[key] = _scalar(value)
         with open(self.metrics_file, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+    def _save_image(self, key: str, arr: np.ndarray, step: int) -> str:
+        """``media/<key>_step<step>.png`` (``/`` in the key as ``_``); its
+        path relative to the run directory."""
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+        path = self.dir / "media" / f"{key.replace('/', '_')}_step{step}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        png.write(path, arr)
+        return str(path.relative_to(self.dir))
 
 
 def log_prefix(config) -> str:
     """The run-name prefix of ocrl_tpu/utils/__init__.py:11-29 for the OCRs
     and the pooling of the port."""
     ocr = config.ocr
-    prefix = f"{ocr.name}N{ocr.slotattr.num_slots}" if ocr.name == "SLATE" else ocr.name
+    if ocr.name == "VAE":
+        prefix = f"{ocr.name}N{ocr.cnn_feat_size ** 2}" if ocr.use_cnn_feat else ocr.name
+    elif ocr.name in ("SlotAttn", "SLATE"):
+        prefix = f"{ocr.name}N{ocr.slotattr.num_slots}"
+    else:
+        prefix = ocr.name
     pooling = getattr(config, "pooling", None)
     if pooling is not None:
         cpt = pooling.ocr_checkpoint

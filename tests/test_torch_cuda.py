@@ -12,7 +12,10 @@ since both sides add the same fp32 logits and field; each drawn field to
 largest g, 16.64). The sweep kernels sum in a fixed order (no atomics), so
 two launches on the same inputs are held to bitwise equality. The other
 OCRs and poolings (no kernel of their own), and the pretraining steps of
-VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU."""
+VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU.
+The data path's prefetch gives on the card exactly the items it gives on
+the CPU, and train_ocr.main at small SLATE widths trains, evaluates, saves
+and resumes on the card through B1-B4."""
 
 import math
 
@@ -442,3 +445,46 @@ def test_iodine_evaluation_matches_the_cpu_on_the_card(cuda):
                     noise=[{"eps": d["eps"].cpu()} for d in drawn])
     assert abs(got["ari"] - want["ari"]) <= 1e-6
     assert abs(got["mse"] - want["mse"]) <= 1e-4 * abs(want["mse"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("superbatch,whole", [(1, False), (3, False), (3, True)])
+def test_prefetch_gives_the_cpu_items_on_the_card(cuda, superbatch, whole):
+    from ocrl_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(1)
+    items = [{"obss": rng.integers(0, 256, (n, 8, 8, 3), dtype=np.uint8),
+              "masks": rng.random((n, 2, 8, 8, 1), dtype=np.float32)}
+             for n in (2, 2, 2, 2, 3, 3, 1)]
+    want = list(prefetch_to_device(items, "cpu", superbatch=superbatch, yield_whole=whole))
+    got = list(prefetch_to_device(items, "cuda", superbatch=superbatch, yield_whole=whole))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in w:
+            assert g[k].is_cuda and torch.equal(g[k].cpu(), w[k])
+
+
+@pytest.mark.cuda
+def test_train_ocr_trains_and_resumes_on_the_card(cuda, tmp_path):
+    """train_ocr.main at small SLATE widths on a collected file: 8 steps
+    through B1-B4 with validation and checkpoints, then resumed to 12."""
+    import json
+
+    from ocrl_tpu_torch import train_ocr
+    from ocrl_tpu_torch.config import read_env_config, replace
+    from ocrl_tpu_torch.data.collect import collect_dataset
+
+    collect_dataset(replace(read_env_config("random-N5C4S4S2"), "obs_size", 16), 16, 4,
+                    out_file=tmp_path / "ds.hdf5")
+    argv = ["ocr=slate", "dataset=random-N5C4S4S2", f"dataset.datadir={tmp_path}/ds.hdf5",
+            "dataset.obs_size=16", "ocr.cnn.hidden_size=16", "ocr.slotattr.num_slots=3",
+            "ocr.slotattr.slot_size=32", "ocr.slotattr.mlp_hidden_size=32",
+            "ocr.dvae.vocab_size=32", "ocr.dvae.d_model=32", "batch_size=2", "superbatch=2",
+            "eval_interval=4", "log_interval=2", f"run_dir={tmp_path}/run"]
+    reset_launches()
+    assert train_ocr.main(argv + ["max_steps=8"])["step"] == 8
+    assert LAUNCHES[tsr.BWD_KERNEL] == 3 * 8 and LAUNCHES[gumbel.IDS_KERNEL] >= 8
+    assert train_ocr.main(argv + ["max_steps=12"])["step"] == 12
+    records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    assert sorted(r["_step"] for r in records if "train/loss" in r) == list(range(12))
+    assert (tmp_path / "run" / "checkpoints" / "model_12.ckpt").exists()

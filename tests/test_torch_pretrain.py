@@ -15,7 +15,7 @@ the port given the array through ``noise=``):
 - the committed artifacts/encoders/{vae,iodine}.ckpt at full width, batch 2;
 - ``get_ari_mse`` of IODINE against the JAX loop, and its refusal of the
   OCRs without masks; NatureCNN's and MultipleCNN's steps; ``sample_arrays``
-  and ``samples_grid``; ``train_ocr.train`` with masks and MAE's lr rule.
+  and ``samples_grid``; ``train_ocr.main`` with masks and MAE's lr rule.
 
 Tolerances (``close``: max |got - want| <= tol x max(max |want|, floor)):
 - losses and metrics 1e-5 of max(|value|, 1): fp32 sums in another order
@@ -45,6 +45,7 @@ Tolerances (``close``: max |got - want| <= tol x max(max |want|, floor)):
 
 import contextlib
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -60,11 +61,13 @@ from ocrl_tpu.poolings import get_ocr as jget_ocr
 from ocrl_tpu.utils.checkpoint import save_checkpoint
 
 from ocrl_tpu_torch import config as tcfg
+from ocrl_tpu_torch import train_ocr
+from ocrl_tpu_torch.data.collect import collect_dataset
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate, main
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.base import clip_by_total_norm
 from ocrl_tpu_torch.models.iodine import _kl_std_normal
-from ocrl_tpu_torch.train_ocr import pretraining_config, train
+from ocrl_tpu_torch.train_ocr import pretraining_config
 from ocrl_tpu_torch.utils.checkpoint import get_ocr
 from ocrl_tpu_torch.utils.convert import _leaf, _module, ocr_from_flax
 
@@ -408,21 +411,33 @@ def test_samples_match_jax(variant):
         close(g, w)
 
 
-def test_train_passes_masks_and_scales_mae_lr():
-    """train_ocr.train: batches with masks give an ``ari`` every step; MAE
+def test_train_passes_masks_and_scales_mae_lr(tmp_path):
+    """train_ocr.main: a file with masks gives an ``ari`` every step; MAE
     trains at lr x batch_size / 256 (train_ocr.py:34-36), the other OCRs at
     their own lr."""
     _, cfg = configs(VARIANTS["iodine"])
-    obs, masks = painted(4, cfg.env.obs_size, K=4, seed=2)
-    batches = [{"obss": obs[:2], "masks": masks[:2]}, {"obss": obs[2:], "masks": masks[2:]}]
-    metrics = train(cfg.ocr, cfg.env, batches, steps=2, k=2, device="cpu")
-    assert len(metrics) == 2 and all(np.isfinite(m["ari"]) for m in metrics)
+    collect_dataset(tcfg.replace(tcfg.read_env_config("random-N5C4S4S2"), "obs_size", 16),
+                    4, 2, with_masks=True, out_file=tmp_path / "ds.hdf5")
+
+    def run(variant, name):
+        argv = [a.replace("env.", "dataset.") for a in VARIANTS[variant]]
+        return train_ocr.main(argv + ["dataset=random-N5C4S4S2",
+                                      f"dataset.datadir={tmp_path}/ds.hdf5",
+                                      "batch_size=2", "superbatch=2", "max_steps=2",
+                                      f"run_dir={tmp_path}/{name}"], device="cpu")
+
+    result = run("iodine", "iodine")
+    records = [json.loads(line) for line in open(tmp_path / "iodine" / "metrics.jsonl")]
+    aris = [r["train/ari"] for r in records if "train/loss" in r]
+    assert len(aris) == 2 and all(np.isfinite(aris))
+    assert result["model"].optimizer.adam.param_groups[0]["lr"] == cfg.ocr.learning.lr
     _, mcfg = configs(VARIANTS["mae"])
     scaled = pretraining_config(mcfg.ocr, 24)
     assert scaled.learning.lr == mcfg.ocr.learning.lr * 24 / 256
     assert dataclasses.replace(scaled, learning=mcfg.ocr.learning) == mcfg.ocr
     assert pretraining_config(cfg.ocr, 24) is cfg.ocr
-    assert len(train(mcfg.ocr, mcfg.env, [obs_of(mcfg, 2)], steps=2, k=1, device="cpu")) == 2
+    lrs = {g["lr"] for g in run("mae", "mae")["model"].optimizer.adam.param_groups}
+    assert lrs == {mcfg.ocr.learning.lr * 2 / 256}
 
 
 def test_recorded_draws_replay_the_step():

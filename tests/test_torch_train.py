@@ -24,6 +24,7 @@ Tolerances, and why:
 """
 
 import io
+import json
 
 import numpy as np
 import pytest
@@ -37,9 +38,11 @@ from ocrl_tpu.models import create_ocr as jcreate_ocr
 from ocrl_tpu.models import slate as jslate
 
 from ocrl_tpu_torch import config as tcfg
+from ocrl_tpu_torch.config import read_env_config
+from ocrl_tpu_torch.data.collect import collect_dataset
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.slate import GROUP_OF, group_schedule
-from ocrl_tpu_torch.train_ocr import train
+from ocrl_tpu_torch.train_ocr import main
 from ocrl_tpu_torch.utils.convert import ocr_from_flax
 
 SMALL = [("env.obs_size", 16), ("ocr.cnn.hidden_size", 16),
@@ -306,12 +309,21 @@ def test_create_ocr_needs_a_device():
         create_ocr(*port_configs())
 
 
-def test_train_drives_update_many():
-    """train() in superbatches of k: one metrics dict per step, finite,
-    and on one fixed batch the loss falls."""
-    ocr_cfg, env_cfg = port_configs()
-    ocr_cfg = tcfg.replace(ocr_cfg, "learning.lr_warmup_steps", 1)
-    batch = np.random.default_rng(7).integers(0, 256, (B, 16, 16, 3), dtype=np.uint8)
-    metrics = train(ocr_cfg, env_cfg, [batch], steps=8, k=4, seed=0, device="cpu")
-    assert len(metrics) == 8 and all(np.isfinite(m["loss"]) for m in metrics)
-    assert metrics[-1]["loss"] < metrics[0]["loss"]
+def test_train_drives_update_many(tmp_path):
+    """train_ocr.main in superbatches of k = 4 on a collected file: one
+    record of finite metrics per step, the loss falls, and ``profile_dir``
+    gets a torch.profiler trace of steps 12-19."""
+    collect_dataset(tcfg.replace(read_env_config("random-N5C4S4S2"), "obs_size", 16), 16, 2,
+                    out_file=tmp_path / "ds.hdf5")
+    over = [f"{'dataset' if k.startswith('env.') else 'ocr'}.{k.split('.', 1)[1]}={v}"
+            for k, v in SMALL]
+    result = main(["ocr=slate", "dataset=random-N5C4S4S2", f"dataset.datadir={tmp_path}/ds.hdf5",
+                   "batch_size=2", "superbatch=4", "eval_interval=100", "log_interval=4",
+                   "max_steps=20", f"run_dir={tmp_path}/run", "ocr.learning.lr_warmup_steps=1",
+                   f"profile_dir={tmp_path}/trace"] + over, device="cpu")
+    assert result["step"] == 20
+    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    losses = {r["_step"]: r["train/loss"] for r in records if "train/loss" in r}
+    assert sorted(losses) == list(range(20)) and all(np.isfinite(v) for v in losses.values())
+    assert np.mean([losses[s] for s in range(16, 20)]) < np.mean([losses[s] for s in range(4)])
