@@ -97,7 +97,27 @@ Phases, each printing its own line with its seconds:
    without the evaluations, beside update_many alone on the same
    superbatches; then the run resumed to max_steps 96 from its
    model_latest: it starts at step 64 with parameters and Adam moments
-   bitwise those saved, and ends at 96.
+   bitwise those saved, and ends at 96; its model_latest.ckpt is kept for
+   the next phase;
+12. multi-seed: the README's benchmark protocol (README.md:39-41) at full
+   SLATE width: train_sb3 ocr=slate pooling=transformer sb3=ppo
+   sb3_acnet=mlp env=target-N4C4S3S1 sb3.algo_kwargs.ent_coef=0.01
+   seeds=1234,2345,3456 pipeline_rollout=True cache_frozen_reps=True on the
+   train-ocr phase's SLATE checkpoint (frozen), cut to num_envs 16 a seed,
+   n_steps 1024 a seed, 2 epochs, one iteration (each cut printed), one GIF
+   of 32 frames and one evaluation; then resumed from its
+   latest_model.ckpt for one more iteration (the state loaded bitwise the
+   file's and the first run's), then test_sb3 seeds= with 16 episodes a
+   seed: files, per-seed metric names, finite values, three seeds, the GIF's
+   blocks walked; B3 launched num_iterations times per vmapped policy,
+   value and encode call whatever S, B4 never (frozen). Before that, B3
+   and B4 under the vmap rule (one launch for three seeds) against the
+   plain sweep, B3 at B = 6 (a rollout bucket: 2 envs a seed), 48 and 384,
+   B4 at 96, bitwise repeatable, timed beside their bounds; after it, the
+   vmapped call at S x E = 48 and at a bucket timed, and one end-to-end
+   vmapped update of the three seeds against three single-seed PPO updates
+   (B3 and B4 launched num_iterations times in all; the tolerances in
+   check_vmapped_update).
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -134,6 +154,7 @@ from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_rou
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
 from ocrl_tpu_torch.poolings import create_pooling_module
 from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
+from ocrl_tpu_torch.rl.multi_seed import bucket_envs
 from ocrl_tpu_torch.train_ocr import pretraining_config
 from ocrl_tpu_torch.utils import checkpoint as ckpt
 from ocrl_tpu_torch.utils import png
@@ -184,6 +205,16 @@ EVAL_RTOL, ARI_SATURATION, GEN_GAP = 1e-5, 1e-6, 1e-4
 # few 1e-5 of a step (as tests/test_torch_rl.py holds the port to JAX).
 # The GT agent, card against CPU: 1e-5 of max(|value|, 1).
 RL_TOL, RL_METRIC_FLOOR, RL_PARAM_FLOOR = 1e-5, 1.0, 1e-2
+# The vmapped update against single-seed updates on the card: the folded
+# launches (B3 and B4 at S x 32 rows) and cuDNN's grouped convolutions sum in
+# other orders than the single-seed calls, and Adam's first step g / (|g| +
+# eps) is linear in g below its eps: there a gradient entry's rounding moves
+# the parameter by lr x (its error) / eps, up to 2.4 x RL_TOL of the leaf
+# (an H100, entries with |g| of 1e-7 to 2e-6). Parameters are held to RL_TOL
+# where the gradient reaches Adam's eps, and every entry to 2 lr (no step of
+# either side exceeds lr); the moments, which carry the gradients, to RL_TOL
+# of their largest entry.
+ADAM_EPS = 1e-5
 RL_ARGV = ["ocr=slate", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
            "env=target-N4C4S3S1", "sb3.algo_kwargs.ent_coef=0.01", "max_steps=2048",
            "run_dir=outputs/chip_smoke/train_sb3"]
@@ -246,6 +277,29 @@ OCR_ENV, OCR_TRAIN, OCR_VAL, OCR_WORKERS = "random-N5C4S4S2", 1536, 64, 8
 OCR_ARGV = ["ocr=slate", f"dataset={OCR_ENV}", "batch_size=24", "superbatch=4",
             "log_interval=8", "eval_interval=32"]
 OCR_STEPS, OCR_RESUMED, OCR_TIMED = 64, 96, (16, 64)
+# The multi-seed phase: the README's protocol (README.md:39-41) at full SLATE
+# width on the train-ocr phase's SLATE checkpoint, frozen, cut as MS_CUTS
+# says (num_envs 64 -> 16 a seed, n_steps 2048 -> 1024 a seed, n_epochs
+# 10 -> 2, one iteration, then one more resumed); one GIF of MS_VIDEO_FRAMES
+# frames, one evaluation at the end of the rollout; then test_sb3 seeds= with
+# MS_TEST_EPISODES episodes a seed. The vmapped sweeps at the phase's shapes:
+# S x 2 (a rollout bucket's policy call: 16 envs a seed in 8 buckets), S x E
+# (values and evaluation), S x 128 (an encode chunk), S x 32 (an update).
+MS_SEEDS = [1234, 2345, 3456]
+MS_STEPS, MS_ENVS, MS_CHUNK, MS_BATCH, MS_VIDEO_FRAMES, MS_TEST_EPISODES = \
+    1024, 16, 128, 32, 32, 16
+MS_SHAPE = (None, 4096, 5, 192)
+MS_ARGV = ["ocr=slate", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
+           "env=target-N4C4S3S1", "sb3.algo_kwargs.ent_coef=0.01",
+           f"seeds={','.join(map(str, MS_SEEDS))}", "pipeline_rollout=True",
+           "cache_frozen_reps=True"]
+MS_CUTS = [f"num_envs={MS_ENVS}", f"sb3.algo_kwargs.n_steps={MS_STEPS}",
+           "sb3.algo_kwargs.n_epochs=2", f"max_steps={MS_STEPS}",
+           f"video.length={MS_VIDEO_FRAMES}", "video.interval=100000000",
+           f"eval.freq={MS_STEPS // MS_ENVS}", f"eval.n_episodes={MS_ENVS}"]
+MS_TEST_ARGV = ["ocr=slate", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
+                "env=target-N4C4S3S1", f"seeds={','.join(map(str, MS_SEEDS))}",
+                f"n_eval_episodes={MS_TEST_EPISODES}"]
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -1437,14 +1491,17 @@ def collect_phase(card: str, path) -> None:
           f"TrainingSet {sizes}; read back bitwise equal to the workers' arrays", flush=True)
 
 
-def train_ocr_phase(card: str) -> dict:
+def train_ocr_phase(card: str, workdir) -> dict:
     """The collector, then train_ocr.main of SLATE at full width on its
-    file, then the run resumed (see the module docstring). Returns the
-    launch counts of the two runs."""
+    file, then the run resumed (see the module docstring), in a temporary
+    directory of ``workdir``. Returns the launch counts of the two runs and
+    the path of the resumed run's model_latest.ckpt, copied into
+    ``workdir`` (the multi-seed phase's frozen encoder)."""
+    import shutil
     import tempfile
     from pathlib import Path
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         path = Path(tmp) / f"{OCR_ENV}.hdf5"
         collect_phase(card, path)
         run_dir = Path(tmp) / "run"
@@ -1534,6 +1591,8 @@ def train_ocr_phase(card: str) -> dict:
             model.update_many(sb["obss"], sb["masks"], OCR_RESUMED + 4 * i, 4)
         torch.cuda.synchronize()
         alone_s = time.perf_counter() - t0
+        encoder = Path(workdir) / "slate_encoder.ckpt"
+        shutil.copy(run_dir / "checkpoints" / "model_latest.ckpt", encoder)
 
     print(f"  {card}: train_ocr.main ocr=slate to step {first['step']} (epoch "
           f"{first['epoch']}), then resumed to {second['step']}: {len(train_steps_logged)} "
@@ -1564,7 +1623,372 @@ def train_ocr_phase(card: str) -> dict:
           and loads[0][0] == (0, 0, 1e10) and start == OCR_STEPS and bitwise)
     if not ok:
         raise SystemExit("the train-ocr phase failed a check")
-    return dict(launches=(first_launches, second_launches))
+    return dict(launches=(first_launches, second_launches), encoder=encoder)
+
+
+def read_gif_blocks(data: bytes) -> tuple[int, int, int]:
+    """(width, height, frames) of a GIF89a file, found by walking its blocks
+    (header, screen, global palette, extensions, images, trailer)."""
+    import struct
+
+    if data[:6] != b"GIF89a":
+        raise SystemExit("the video is not a GIF89a file")
+    width, height, flags = struct.unpack("<HHB", data[6:11])
+    at = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames = 0
+    while data[at] != 0x3b:
+        if data[at] == 0x21:
+            at += 2
+        elif data[at] == 0x2c:
+            frames += 1
+            local = data[at + 9]
+            at += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0) + 1
+        else:
+            raise SystemExit(f"a GIF block 0x{data[at]:02x} at byte {at}")
+        while data[at]:
+            at += data[at] + 1
+        at += 1
+    if at != len(data) - 1:
+        raise SystemExit("bytes after the GIF trailer")
+    return width, height, frames
+
+
+def check_vmapped_sweeps(bw: float, flops: float, gen) -> dict:
+    """B3 and B4 through the vmap rule (three seeds folded into the batch)
+    against the plain sweep on the card at the multi-seed shapes (B3 at S
+    times a rollout bucket's envs, by the deep rollout's own rule, at S x E
+    and at S x an encode chunk; B4 at S x a minibatch), one launch
+    each, bitwise repeatable; the rule's launch timed back to back between
+    CUDA events beside its bound, and the vmapped call as a whole.
+    torch.profiler is not used here: on vmapped calls it read below the
+    bytes bound (0.073 ms at B = 48 against 0.091), so it misses kernel
+    records there."""
+    from torch.func import vjp, vmap
+
+    S, (_, N, K, D) = len(MS_SEEDS), MS_SHAPE
+    results = {}
+    # a rollout bucket's policy call, a whole-env call (values, evaluation)
+    # and the encode chunk
+    for rows in (bucket_envs(MS_ENVS), MS_ENVS, MS_CHUNK):
+        k = torch.randn(S, rows, N, D, device="cuda", generator=gen) * D ** -0.5
+        v = torch.randn(S, rows, N, D, device="cuda", generator=gen)
+        q = torch.randn(S, rows, K, D, device="cuda", generator=gen)
+        fn = vmap(slot_routing.route_sweep)
+        reset_launches()
+        with torch.no_grad():
+            got = fn(k, v, q)
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        want = slot_routing.route_sweep_reference(*(x.reshape((-1,) + x.shape[2:])
+                                                    for x in (k, v, q)))
+        errs = [(g.reshape(w.shape) - w).abs().max().item() / w.abs().max().item()
+                for g, w in zip(got, want)]
+        folded = [x.reshape((-1,) + x.shape[2:]) for x in (k, v, q)]
+        with torch.no_grad():
+            check_repeatable(f"vmapped route_sweep B={S * rows}", lambda: fn(k, v, q), got)
+            ms = wall_ms(lambda: slot_routing._sweep_fwd(*folded))
+            call_ms = wall_ms(lambda: fn(k, v, q))
+        bound, by = sweep_bound_ms(S * rows, N, K, D, bw, flops)
+        ok = launched == {slot_routing.KERNEL: 1} and max(errs) <= SWEEP_TOL
+        print(f"  vmapped route_sweep, {S} seeds x {rows} rows = B {S * rows}: launches "
+              f"{launched}; error/max against the plain sweep {max(errs):.2e} (tolerance "
+              f"{SWEEP_TOL}) {'ok' if ok else 'MISMATCH'}; B3 at B {S * rows} (the rule's "
+              f"launch, back to back between CUDA events) {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), {100 * bound / ms:.1f} % of it; the vmapped call {call_ms:.4f} ms",
+              flush=True)
+        if not ok:
+            raise SystemExit("B3 under the vmap rule failed")
+        results[S * rows] = dict(ms=ms, bound_ms=bound)
+    rows = MS_BATCH
+    k, v = (torch.randn(S, rows, N, D, device="cuda", generator=gen) for _ in range(2))
+    q = torch.randn(S, rows, K, D, device="cuda", generator=gen)
+    cot = (torch.randn(S, rows, K, device="cuda", generator=gen),
+           torch.randn(S, rows, K, D, device="cuda", generator=gen),
+           torch.randn(S, rows, N, K, device="cuda", generator=gen))
+
+    def bwd():
+        return vmap(lambda k, v, q, *c: vjp(slot_routing.route_sweep, k, v, q)[1](c))(
+            k, v, q, *cot)
+
+    reset_launches()
+    got = bwd()
+    torch.cuda.synchronize()
+    launched = dict(LAUNCHES)
+    leaves = [x.reshape((-1,) + x.shape[2:]).clone().requires_grad_() for x in (k, v, q)]
+    want = torch.autograd.grad(slot_routing.route_sweep_reference(*leaves), leaves,
+                               [c.reshape((-1,) + c.shape[2:]) for c in cot])
+    errs = [(g.reshape(w.shape) - w).abs().max().item() / w.abs().max().item()
+            for g, w in zip(got, want)]
+    check_repeatable(f"vmapped route_sweep backward B={S * rows}", bwd, got)
+    with torch.no_grad():                 # B4 as the rule launches it, [S * 32, ...]
+        fold = lambda x: x.reshape((-1,) + x.shape[2:])  # noqa: E731
+        _, _, a = slot_routing._sweep_fwd(*(fold(x) for x in (k, v, q)))
+        g_a = (fold(cot[2]) + fold(cot[0])[:, None, :]).contiguous()
+        ms = wall_ms(lambda: slot_routing._sweep_bwd(fold(k), fold(v), fold(q), a,
+                                                     fold(cot[1]), g_a))
+    call_ms = wall_ms(bwd)
+    bound, by = sweep_bwd_bound_ms(S * rows, N, K, D, bw, flops)
+    want_launches = {slot_routing.KERNEL: 1, slot_routing.BWD_KERNEL: 1}
+    ok = launched == want_launches and max(errs) <= SWEEP_TOL
+    print(f"  vmapped vjp of route_sweep, {S} seeds x {rows} rows = B {S * rows}: launches "
+          f"{launched}, expected {want_launches}; error/max against autograd of the plain "
+          f"sweep {max(errs):.2e} (tolerance {SWEEP_TOL}) {'ok' if ok else 'MISMATCH'}; B4 at "
+          f"B {S * rows} (the rule's launch, back to back between CUDA events) {ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f} % of it; the vmapped vjp "
+          f"(B3 and B4) {call_ms:.4f} ms", flush=True)
+    if not ok:
+        raise SystemExit("B4 under the vmap rule failed")
+    results[S * rows] = dict(ms=ms, bound_ms=bound)
+    return results
+
+
+def adam_step_gap(mu1, nu1, mu2, nu2, count: int, b1: float, b2: float, eps: float):
+    """|u1 - u2| elementwise for Adam's direction u = m_hat / (sqrt(v_hat) +
+    eps) from two (mu, nu) after ``count`` steps: the parameter gap that the
+    two moments explain, per unit of learning rate. Exact algebra, u1 - u2 =
+    (m1 - m2) / (s2 + eps) + m1 (s2 - s1) / ((s1 + eps)(s2 + eps)), bounded
+    by the triangle inequality. Below eps it amplifies a gradient gap by up
+    to 1 / eps."""
+    c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+    m1, m2 = mu1 / c1, mu2 / c1
+    s1, s2 = (nu1 / c2).sqrt(), (nu2 / c2).sqrt()
+    return ((m1 - m2).abs() / (s2 + eps)
+            + m1.abs() * (s1 - s2).abs() / ((s1 + eps) * (s2 + eps)))
+
+
+def check_vmapped_update(cfg) -> None:
+    """One end-to-end (finetuning) vmapped update of the three seeds, one
+    minibatch each, against three single-seed PPO updates of the same
+    seeds, minibatches and slot noise on the card; B4 launches once a slot
+    iteration for all seeds. Metrics within RL_TOL of max(|value|,
+    RL_METRIC_FLOOR); each Adam moment within RL_TOL of that moment's
+    largest entry over the model (test_torch_rl.Pair.check's floor); each
+    parameter within RL_TOL of max(its leaf's largest, RL_PARAM_FLOOR) where
+    its gradient reaches Adam's eps, and below it within that plus lr x the
+    gap that Adam's formula makes of the two moments there
+    (``adam_step_gap``): the kernels sum in another order at S x 32 rows
+    than at 32, and Adam's first step divides a gradient below eps by eps.
+    Printed beside the checks, not held: the parameters against RL_TOL
+    alone everywhere, and the moments against RL_TOL of each leaf's own
+    scale (max(its largest, RL_PARAM_FLOOR x the moment's largest)), next
+    to how far the same single-seed updates on the plain sweep lie from
+    the kernels' at that scale (the conditioning of those gradients)."""
+    from ocrl_tpu_torch.rl import MultiSeedPPO
+
+    S, sa = len(MS_SEEDS), cfg.ocr.slotattr
+    fresh = config_replace(cfg.policy_config(), "pooling.ocr_checkpoint.local_file", "")
+    policies = [build_policy(fresh, seed=s) for s in MS_SEEDS]
+    singles, plains = ([PPO(build_policy(fresh, seed=s), (64, 64, 3), True, cfg.num_envs,
+                            cfg.sb3.algo_kwargs, seed=s) for s in MS_SEEDS] for _ in range(2))
+    multi = MultiSeedPPO(policies, (64, 64, 3), True, cfg.num_envs, cfg.sb3.algo_kwargs,
+                         MS_SEEDS)
+    rng = np.random.default_rng(11)
+    n = 2 * MS_BATCH
+    batch = {"obs": np.stack([np.stack([make_env(cfg.env, 5000 + 100 * i + j).reset()
+                                        for j in range(n)]) for i in range(S)]),
+             "actions": rng.integers(0, 4, (S, n)).astype(np.int32),
+             "logprobs": np.full((S, n), np.log(0.25), np.float32),
+             **{key: rng.standard_normal((S, n)).astype(np.float32)
+                for key in ("values", "advantages", "returns")}}
+    idx = np.stack([rng.permutation(n)[:MS_BATCH] for _ in range(S)])
+    noise = torch.randn((S, MS_BATCH, sa.num_slots, sa.slot_size), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(12))
+    reset_launches()
+    got = multi.update_minibatch(multi.upload(batch), idx, noise)
+    torch.cuda.synchronize()
+    launched = dict(LAUNCHES)
+    worst = {"metrics": 0.0, "parameters": 0.0, "parameters below eps": 0.0, "mu": 0.0,
+             "nu": 0.0}
+    literal, unsure, per_leaf, plain_leaf = 0.0, 0, 0.0, 0.0
+    for i, (single, plain) in enumerate(zip(singles, plains)):
+        opt = single.optimizer
+        data = single.upload({k: v[i] for k, v in batch.items()})
+        want = single.update_minibatch(data, torch.as_tensor(idx[i], device="cuda"), noise[i])
+        with plain_sweep():
+            plain.update_minibatch(data, torch.as_tensor(idx[i], device="cuda"), noise[i])
+        for k, w in want.items():
+            worst["metrics"] = max(worst["metrics"], abs(got[k][i].item() - w.item()) / (
+                RL_TOL * max(abs(w.item()), RL_METRIC_FLOOR)))
+        moments = {key: ({n: t[i] for n, t in zip(multi.param_names,
+                                                   getattr(multi.optimizer, key))},
+                         dict(zip(single.param_names, getattr(opt, key))))
+                   for key in ("mu", "nu")}
+        for k, p in single.policy.named_parameters():
+            diff = (multi.params[k][i] - p).abs()
+            tol = RL_TOL * max(p.abs().max().item(), RL_PARAM_FLOOR)
+            literal = max(literal, diff.max().item() / tol)
+            (mu1, mu2), (nu1, nu2) = ((moments[key][0][k], moments[key][1][k])
+                                      for key in ("mu", "nu"))
+            sure = mu2.abs() >= (1 - opt.b1) * ADAM_EPS      # mu = (1 - b1) g after a step
+            unsure += int((~sure).sum())
+            if sure.any():
+                worst["parameters"] = max(worst["parameters"], diff[sure].max().item() / tol)
+            if not sure.all():
+                gap = opt.lr * adam_step_gap(mu1, nu1, mu2, nu2, opt.count, opt.b1, opt.b2,
+                                             opt.eps)
+                worst["parameters below eps"] = max(worst["parameters below eps"], (
+                    diff[~sure] / (tol + gap[~sure])).max().item())
+        for key, (mine, theirs) in moments.items():
+            top = max(t.abs().max().item() for t in theirs.values())
+            on_plain = dict(zip(plain.param_names, getattr(plain.optimizer, key)))
+            for k, w in theirs.items():
+                err = (mine[k] - w).abs().max().item()
+                worst[key] = max(worst[key], err / (RL_TOL * top))
+                leaf = RL_TOL * max(w.abs().max().item(), RL_PARAM_FLOOR * top)
+                per_leaf = max(per_leaf, err / leaf)
+                plain_leaf = max(plain_leaf, (on_plain[k] - w).abs().max().item() / leaf)
+    expected = {slot_routing.KERNEL: sa.num_iterations, slot_routing.BWD_KERNEL: sa.num_iterations}
+    ok = launched == expected and all(v <= 1 for v in worst.values())
+    print(f"  one vmapped end-to-end update of {S} seeds (minibatch {MS_BATCH} each) against "
+          f"{S} single-seed PPO updates: worst of each tolerance ({RL_TOL} of max(|value|, "
+          f"{RL_METRIC_FLOOR}) for metrics; for mu / nu {RL_TOL} of the moment's largest; "
+          f"for parameters {RL_TOL} of max(leaf max, {RL_PARAM_FLOOR}) where the gradient "
+          f"reaches Adam's eps {ADAM_EPS}, plus lr x Adam's step gap of the two moments on "
+          f"the {unsure} entries below it): "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in worst.items())}; launches {launched}, "
+          f"expected {expected} {'ok' if ok else 'MISMATCH'}. Not held: the parameters "
+          f"against {RL_TOL} alone everywhere {literal:.3f} "
+          f"({'met' if literal <= 1 else 'not met'}); mu / nu against {RL_TOL} of max(leaf "
+          f"max, {RL_PARAM_FLOOR} x the moment's largest) {per_leaf:.3f} "
+          f"({'met' if per_leaf <= 1 else 'not met'}), where the single-seed updates on the "
+          f"plain sweep lie {plain_leaf:.3f} from the kernels'", flush=True)
+    if not ok:
+        raise SystemExit("the vmapped update disagrees with the single-seed updates")
+
+
+def multi_seed_phase(card: str, encoder, bw: float, flops: float) -> dict:
+    """train_sb3 with seeds= at full SLATE width on the frozen encoder
+    ``encoder``, resumed for one more iteration, then test_sb3 with seeds=
+    on its latest_model; the vmapped sweeps and the vmapped update checks.
+    Returns the launch counts of the runs and the kernels' numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from ocrl_tpu_torch.rl import MultiSeedPPO
+    from ocrl_tpu_torch.utils.checkpoint import agent_tree
+
+    print(f"  cuts of the README protocol: {', '.join(MS_CUTS)}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sweeps = check_vmapped_sweeps(bw, flops, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        argv = MS_ARGV + MS_CUTS + [f"pooling.ocr_checkpoint.local_file={encoder}",
+                                    f"run_dir={run_dir}"]
+        cfg = compose(TrainSB3Config(), argv)
+        iters = cfg.ocr.slotattr.num_iterations
+        calls, loads = [0], []
+        vmapped, learn, load_algo = MultiSeedPPO._vmapped, MultiSeedPPO.learn, \
+            train_sb3.load_algo
+
+        def counted(self, *args):
+            calls[0] += 1
+            return vmapped(self, *args)
+
+        timing = {}
+
+        def timed_learn(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = learn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            timing.setdefault("learn", []).append(time.perf_counter() - t0)
+            return out
+
+        def checked_load(path, algo, *args, **kwargs):
+            file_tree = ckpt.load_checkpoint(path)[0]
+            out = load_algo(path, algo, *args, **kwargs)
+            loads.append((file_tree, agent_tree(algo)))
+            return out
+
+        MultiSeedPPO._vmapped, MultiSeedPPO.learn, train_sb3.load_algo = \
+            counted, timed_learn, checked_load
+        try:
+            reset_launches()
+            first = train_sb3.train(cfg)
+            torch.cuda.synchronize()
+            first_launches, first_calls = dict(LAUNCHES), calls[0]
+            saved = agent_tree(first["algo"])
+            calls[0] = 0
+            reset_launches()
+            second = train_sb3.train(compose(TrainSB3Config(), argv + [
+                f"max_steps={2 * MS_STEPS}", f"resume={run_dir}/models/latest_model.ckpt"]))
+            torch.cuda.synchronize()
+            second_launches, second_calls = dict(LAUNCHES), calls[0]
+            calls[0] = 0
+            reset_launches()
+            t0 = time.perf_counter()
+            tested = test_sb3.main(MS_TEST_ARGV + [
+                f"pooling.ocr_checkpoint.local_file={encoder}",
+                f"agent_checkpoint.file={run_dir}/models/latest_model"])
+            test_s = time.perf_counter() - t0
+            test_launches, test_calls = dict(LAUNCHES), calls[0]
+        finally:
+            MultiSeedPPO._vmapped, MultiSeedPPO.learn, train_sb3.load_algo = \
+                vmapped, learn, load_algo
+        records = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+        models = sorted(p.name for p in (run_dir / "models").iterdir())
+        gifs = sorted((run_dir / "videos").glob("*.gif"))
+        gif_blocks = [read_gif_blocks(p.read_bytes()) for p in gifs]
+    algo, it = second["algo"], first["algo"].last_iteration
+    S = len(algo.seeds)
+    per_seed_keys = [k for r in records for k in r if "/seed" in k]
+    finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                 if k.startswith(("train/", "eval/", "rollout/")))
+    bitwise = same_tree(loads[0][0], loads[0][1]) and same_tree(loads[0][0], saved)
+
+    def expected(n_calls):
+        return {slot_routing.KERNEL: iters * n_calls}
+
+    print(f"  {card}: train_sb3 seeds={cfg.seeds} (frozen SLATE encoder from train-ocr, "
+          f"pipeline_rollout, cache_frozen_reps), {S} x {cfg.num_envs} envs, one iteration: "
+          f"{timing['learn'][0]:.3f} s (rollout {it['rollout_s']:.3f} s, "
+          f"{it['env_steps'] / it['rollout_s']:.1f} env steps/s; {it['updates']} vmapped "
+          f"updates in {it['update_s']:.3f} s, {1e3 * it['update_s'] / it['updates']:.3f} ms an "
+          f"update, the encode included); resumed to {algo.num_timesteps} timesteps in "
+          f"{timing['learn'][1]:.3f} s", flush=True)
+    print(f"  models {models}; GIFs {[p.name for p in gifs]} (width, height, frames) "
+          f"{gif_blocks}; {len(set(per_seed_keys))} per-seed metric names, all finite: "
+          f"{'yes' if finite else 'NO'}; the resumed state bitwise the file's and the first "
+          f"run's final state: {'yes' if bitwise else 'NO'}", flush=True)
+    print(f"  test_sb3 seeds= on latest_model, {MS_TEST_EPISODES} episodes a seed, in "
+          f"{test_s:.3f} s: {tested['per_seed']}; summary {tested['summary']}", flush=True)
+    print(f"  launches: first run {first_launches}, expected {expected(first_calls)} "
+          f"({first_calls} vmapped policy, value and encode calls, B4 none: frozen); resumed "
+          f"{second_launches}, expected {expected(second_calls)}; test_sb3 {test_launches}, "
+          f"expected {expected(test_calls)}", flush=True)
+    ok = (models == ["best_model.ckpt", "latest_model.ckpt"]      # one GIF a run
+          and gif_blocks == [(64, 64, MS_VIDEO_FRAMES)] * 2
+          and finite and bitwise and len(loads) == 1
+          and {f"eval/seed{s}/success_rate" for s in algo.seeds} <= set(per_seed_keys)
+          and first_launches == expected(first_calls)
+          and second_launches == expected(second_calls)
+          and test_launches == expected(test_calls)
+          and sorted(tested["per_seed"]) == sorted(f"seed{s}" for s in algo.seeds)
+          and all(np.isfinite(v) for m in tested["per_seed"].values() for v in m.values())
+          and algo.num_timesteps == 2 * MS_STEPS * S)
+    if not ok:
+        raise SystemExit("the multi-seed phase failed a check")
+
+    obs = np.stack([make_env(cfg.env, 9000 + i).reset() for i in range(S * cfg.num_envs)])
+    grouped = obs.reshape((S, cfg.num_envs) + obs.shape[1:])
+    act_ms = 1e3 * _timed_calls(lambda: algo.act_device(grouped).cpu(), RL_ACT_CALLS)
+    bucket = np.ascontiguousarray(grouped[:, :bucket_envs(cfg.num_envs)])
+    bucket_ms = 1e3 * _timed_calls(lambda: algo.act_device(bucket).cpu(), RL_ACT_CALLS)
+    singles = [PPO(build_policy(cfg.policy_config(), seed=s), obs.shape[1:], True,
+                   cfg.num_envs, cfg.sb3.algo_kwargs, seed=s) for s in MS_SEEDS]
+    reset_launches()
+    singles_ms = 1e3 * _timed_calls(
+        lambda: [torch.stack([t.float() for t in p.act(grouped[i])]).cpu()
+                 for i, p in enumerate(singles)], RL_ACT_CALLS)
+    single_launches = LAUNCHES.get(slot_routing.KERNEL, 0) // (RL_ACT_CALLS + 3)
+    print(f"  vmapped policy call at S x E = {S * cfg.num_envs} (act, results to the host): "
+          f"{act_ms:.3f} ms; {S} single-seed PPO.act calls at E = {cfg.num_envs}, one after "
+          f"the other: {singles_ms:.3f} ms in all ({single_launches} B3 launches, against "
+          f"{iters} for the vmapped call); each over {RL_ACT_CALLS} calls; the rollout's "
+          f"vmapped call at S x {bucket.shape[1]} = {S * bucket.shape[1]} (a bucket of the "
+          f"deep rollout): {bucket_ms:.3f} ms", flush=True)
+    check_vmapped_update(config_replace(cfg, "pooling.ocr_checkpoint.finetuning", True))
+    return dict(launches=(first_launches, second_launches, test_launches), sweeps=sweeps)
 
 
 def main() -> int:
@@ -1696,8 +2120,14 @@ def main() -> int:
     with phase("pretraining"):
         pretrain = pretraining_phase(card)
 
+    import tempfile
+    workdir = tempfile.TemporaryDirectory()
     with phase("train-ocr"):
-        ocr_train = train_ocr_phase(card)
+        ocr_train = train_ocr_phase(card, workdir.name)
+
+    with phase("multi-seed"):
+        multi = multi_seed_phase(card, ocr_train["encoder"], bw, flops)
+    workdir.cleanup()
 
     if args.profile:
         with phase("profile"):
@@ -1745,7 +2175,8 @@ def main() -> int:
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
         # pretraining phase and train_ocr's two runs
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
-            other["launches"], pretrain["launches"]) + ocr_train["launches"]
+            other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
+            multi["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

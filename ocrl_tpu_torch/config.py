@@ -453,10 +453,21 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class VideoConfig:
+    interval: int = 5000           # timesteps from the end of one GIF to the next
+    length: int = 1000             # frames a GIF (one a vector step)
+
+
+@dataclass(frozen=True)
 class TrainSB3Config:
     """configs/train_sb3.yaml over configs/_base.yaml. ``run_dir`` empty:
     outputs/train_sb3/<ocr>-<pooling>-<algo>-<env>/<time>. ``vec_env``:
-    auto | dummy | subproc."""
+    auto | dummy | subproc. ``seeds`` ("1234,2345,3456", or one int): every
+    seed trained as one vmapped PPO (``rl.multi_seed``); ``resume``: an
+    agent file to continue from; ``pipeline_rollout`` and
+    ``cache_frozen_reps``: the multi-seed rollout and update options.
+    configs/train_sb3.yaml's ``viz_interval``, which JAX's train_sb3 never
+    reads, is not a field: an override of it raises."""
 
     ocr: OCRConfigs = field(default_factory=OCRConfig)
     pooling: PoolingConfigs = field(default_factory=PoolingConfig)
@@ -467,12 +478,25 @@ class TrainSB3Config:
     num_envs: int = 4
     max_steps: float = 2e6
     eval: EvalConfig = field(default_factory=EvalConfig)
+    video: VideoConfig = field(default_factory=VideoConfig)
+    seeds: Optional[str] = None
+    resume: Optional[str] = None
+    pipeline_rollout: bool = False
+    cache_frozen_reps: bool = False
     vec_env: str = "auto"
     tags: str = ""
     run_dir: str = ""
 
     def policy_config(self) -> PolicyConfig:
         return PolicyConfig(self.ocr, self.pooling, self.sb3_acnet, self.env)
+
+
+def seed_list(seeds) -> list[int] | None:
+    """``seeds=`` as JAX reads it: "1234,2345,3456" (or one int) -> the
+    list; None or "" -> None."""
+    if seeds in (None, "", "null"):
+        return None
+    return [int(s) for s in str(seeds).split(",")]
 
 
 @dataclass(frozen=True)
@@ -502,6 +526,7 @@ class TestSB3Config:
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
     env: SyntheticEnvConfig = field(default_factory=SyntheticEnvConfig)
     seed: int = 0
+    seeds: Optional[str] = None
     n_eval_episodes: int = 100
     agent_checkpoint: AgentCheckpointConfig = field(default_factory=AgentCheckpointConfig)
     tags: str = ""
@@ -901,9 +926,7 @@ GROUPS = {
                   "identity_orthoinit": ACNetConfig("IdentityOrthoInit", True, NetConfig(),
                                                     NetConfig(), NetConfig())},
 }
-LATER = {"seeds": "the multi-seed slice", "video": "the slice that records videos",
-         "resume": "the slice that writes train_sb3's run files (ROADMAP.md Queue A item 2)",
-         "sb3=sac": "the slice that ports SAC"}
+LATER = {"sb3=sac": "the slice that ports SAC"}
 # the override groups read from a directory of configs/ at run time
 FILE_GROUPS = {"env": read_env_config, "dataset": read_dataset_config}
 
@@ -915,8 +938,8 @@ def compose(cfg, argv):
     ``env=<file stem>`` and ``dataset=<file stem>``, then every other key,
     dotted or plain, in order (values read as YAML scalars; a leading ``+``
     is dropped). A group or key the config lacks raises ``KeyError``. For
-    the RL entry points, multi-seed runs (``seeds=``), SAC, videos and
-    resuming raise ``NotImplementedError`` naming their slice."""
+    the RL entry points, SAC raises ``NotImplementedError`` naming its
+    slice."""
     fields = {f.name for f in dataclasses.fields(cfg)}
     pairs = []
     for arg in argv:

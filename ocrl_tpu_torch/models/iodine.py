@@ -185,6 +185,9 @@ def layernorm_stat(x: torch.Tensor) -> torch.Tensor:
 
 class Iodine_Module(nn.Module):
     noise_batch_axis = 1
+    # its forward takes gradients of its own (the refinement's), which
+    # torch.func's vmap cannot run: a multi-seed policy calls it seed by seed
+    vmappable = False
 
     def __init__(self, ocr_config: IodineConfig, env_config: EnvConfig):
         super().__init__()
@@ -306,9 +309,12 @@ class Iodine_Module(nn.Module):
             out = tuple(None if t is None else t.detach() for t in out)
         return out
 
+    def noise_shape(self, B: int) -> tuple[int, ...]:
+        """The shape of ``forward``'s ``noise`` for B observations."""
+        return (self.num_iterations, B, self.num_slots, self.slot_size)
+
     def _draw(self, B: int, generator: torch.Generator | None, device) -> torch.Tensor:
-        return torch.randn((self.num_iterations, B, self.num_slots, self.slot_size),
-                           generator=generator, device=device)
+        return torch.randn(self.noise_shape(B), generator=generator, device=device)
 
     def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, with_masks: bool = False):

@@ -103,6 +103,12 @@ class SLATE_Module(nn.Module):
         """obs [B, H, W, C] in [0, 1] -> (slots [B, S, D], attns [B, H*W, S])."""
         return self.slotattn(self._emb(obs), noise=noise, generator=generator)
 
+    def noise_shape(self, B: int) -> tuple[int, ...] | None:
+        """The shape of ``forward``'s ``noise`` for B observations (the
+        initial slots' standard normals), None where it draws nothing."""
+        sa = self._ocr.slotattr
+        return None if self._use_cnn_feat else (B, sa.num_slots, sa.slot_size)
+
     def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if self._use_cnn_feat:

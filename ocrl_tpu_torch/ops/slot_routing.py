@@ -21,6 +21,25 @@ the gradient is the backward kernel of the same source, as
 ``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
 cotangents, with that of ``S_a`` folded into that of ``a`` first, and writes
 gk, gv and gq the same way (ocrl_tpu/ops/slot_routing.py:142-164).
+
+``route_sweep`` also runs under ``torch.func``: ``vmap``, ``grad`` and
+``vmap(grad(...))``, as the multi-seed policy calls it (JAX gets this from
+``jax.vmap`` over its ``pallas_call``). Two ``torch.autograd.Function`` classes
+carry the launches, each in the ``forward(*inputs)`` + ``setup_context``
+form that ``torch.func`` requires: ``_RouteSweep`` (B3, whose backward is
+``_SweepBackward``) and ``_SweepBackward`` (B4; differentiating it again
+raises). Without a graph (no input requires grad, or gradients are off, as
+when serving) ``_RouteSweep`` records no node and keeps nothing it saved,
+so the same Function serves both. Each has a
+``vmap`` rule that writes the vmapped axis out into the kernel's batch:
+inputs [V, B, ...] (an unbatched one expanded to V) become [V*B, ...], one
+launch, and the outputs go back to [V, B, ...] with ``out_dims`` 0. Rows of
+B3 are independent, and so are rows of B4, so this is exact. The launches
+themselves only ever see plain tensors (``torch.func`` unwraps them before
+a Function's ``forward``), so a vmapped policy call launches B3 once per
+slot iteration for all seeds. ``once_differentiable`` is not used: it wraps
+``backward`` in a way ``torch.func`` cannot see through; ``_SweepBackward``
+takes its place, being a Function whose own backward refuses.
 """
 
 from __future__ import annotations
@@ -77,11 +96,6 @@ def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError(
             f"route_sweep: the kernel takes 1 <= S <= {MAX_SLOTS} slots and D a "
             f"multiple of 32 up to {MAX_WIDTH} (got S={q.shape[1]}, D={D})")
-    if k.device.type == "cuda":
-        for name, t in (("k", k), ("v", v), ("q", q)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"route_sweep: {name} must be 16-byte aligned "
-                                 "(the kernel reads it with bulk copies)")
 
 
 def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
@@ -111,7 +125,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"route_sweep: {name} must be 16-byte aligned "
+                             "(the kernel reads it with bulk copies)")
+
+
 def _sweep_fwd(k, v, q):
+    _check_aligned(k=k, v=v, q=q)
     B, N, D = k.shape
     S = q.shape[1]
     sms = _num_sms(k.device.index)
@@ -127,6 +149,7 @@ def _sweep_fwd(k, v, q):
 
 
 def _sweep_bwd(k, v, q, a, g_av, g_a):
+    _check_aligned(k=k, v=v, q=q, a=a)
     B, N, D = k.shape
     S = q.shape[1]
     sms = _num_sms(k.device.index)
@@ -143,19 +166,66 @@ def _sweep_bwd(k, v, q, a, g_av, g_a):
     return gk, gv, gq
 
 
-class _RouteSweep(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, k, v, q):
-        sa, av, a = _sweep_fwd(k, v, q)
-        ctx.save_for_backward(k, v, q, a)
-        return sa, av, a
+def _folded(info, in_dims, args) -> list[torch.Tensor]:
+    """The vmapped axis of each argument moved first and folded into its
+    batch axis, [V, B, ...] -> [V*B, ...]; an unbatched argument (in_dim
+    None) is expanded to V copies first."""
+    V = info.batch_size
+    out = []
+    for x, d in zip(args, in_dims):
+        x = x.expand((V,) + x.shape) if d is None else x.movedim(d, 0)
+        out.append(x.reshape((V * x.shape[1],) + x.shape[2:]).contiguous())
+    return out
+
+
+def _unfolded(V: int, outs) -> tuple:
+    """[V*B, ...] -> [V, B, ...] for each output, with out_dims 0."""
+    outs = tuple(o.reshape((V, o.shape[0] // V) + o.shape[1:]) for o in outs)
+    return outs, (0,) * len(outs)
+
+
+class _SweepBackward(torch.autograd.Function):
+    """B4: (k, v, q, a, g_av, g_a) -> (gk, gv, gq), g_a already holding the
+    cotangent of S_a."""
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
+    def forward(k, v, q, a, g_av, g_a):
+        return _sweep_bwd(k.contiguous(), v.contiguous(), q.contiguous(), a.contiguous(),
+                          g_av, g_a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("route_sweep: the backward kernel is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _unfolded(info.batch_size, _SweepBackward.apply(*_folded(info, in_dims, args)))
+
+
+class _RouteSweep(torch.autograd.Function):
+    """B3 recorded for autograd: its backward is B4."""
+
+    @staticmethod
+    def forward(k, v, q):
+        return _sweep_fwd(k, v, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output[2])
+
+    @staticmethod
     def backward(ctx, g_sa, g_av, g_a):
         k, v, q, a = ctx.saved_tensors
         # S_a = sum_n a is linear: its cotangent joins a's before the sweep
-        return _sweep_bwd(k, v, q, a, g_av, g_a + g_sa[:, None, :])
+        return _SweepBackward.apply(k, v, q, a, g_av, g_a + g_sa[:, None, :])
+
+    @staticmethod
+    def vmap(info, in_dims, k, v, q):
+        return _unfolded(info.batch_size, _RouteSweep.apply(*_folded(info, in_dims, (k, v, q))))
 
 
 def route_sweep(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
@@ -165,7 +235,4 @@ def route_sweep(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
         return route_sweep_reference(k, v, q)
     if k.device.type != "cuda":
         raise ValueError(f"route_sweep: no kernel for device {k.device}")
-    if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad
-                                    or q.requires_grad):
-        return _RouteSweep.apply(k, v, q)
-    return _sweep_fwd(k, v, q)     # serving: no graph, nothing saved
+    return _RouteSweep.apply(k, v, q)

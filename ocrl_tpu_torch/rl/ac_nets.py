@@ -95,6 +95,11 @@ class ActorCriticPolicy(nn.Module):
         return self.action_net(latent_pi), self.value_net_out(latent_vf)[..., 0]
 
     def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
-        """obs [B, H, W, C] in [0, 1] -> (logits [B, A], value [B])."""
+                generator: torch.Generator | None = None, from_rep: bool = False):
+        """obs [B, H, W, C] in [0, 1] -> (logits [B, A], value [B]); with
+        ``from_rep``, ``obs`` is an OCR representation and only the heads
+        run (so that ``torch.func.functional_call``, which calls
+        ``forward``, reaches ``heads_from_rep``)."""
+        if from_rep:
+            return self.heads_from_rep(obs)
         return self.heads_from_rep(self.ocr_rep(obs, noise, generator))

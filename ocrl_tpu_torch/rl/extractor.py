@@ -47,10 +47,21 @@ def build_policy(config: PolicyConfig, seed: int = 0,
     return policy
 
 
-def inject_pretrained_ocr(policy: ActorCriticPolicy, ocr) -> None:
-    """Replace the policy's fresh OCR parameters with those of ``ocr`` (an
-    ``OCR`` from ``get_ocr``), whose module may hold more (a decoder) than
-    the policy's serving module."""
+def inject_pretrained_ocr(target, ocr) -> None:
+    """Replace the fresh OCR parameters of ``target`` with those of ``ocr``
+    (an ``OCR`` from ``get_ocr``), whose module may hold more (a decoder)
+    than the policy's serving module. ``target`` is a policy, or a
+    ``MultiSeedPPO``: then the OCR goes to every seed (S stacked copies, the
+    layout of JAX's stacked tree) and the optimizer state is made anew
+    (ocrl_tpu/rl/extractor.py:61-77)."""
     state = ocr.module.state_dict()
-    own = policy.ocr_module.state_dict()
-    policy.ocr_module.load_state_dict({k: state[k].to(own[k].device) for k in own})
+    if hasattr(target, "seeds"):
+        prefix = "ocr_module."
+        with torch.no_grad():
+            for name, value in target.params.items():
+                if name.startswith(prefix):
+                    value.copy_(state[name[len(prefix):]].to(value.device).expand_as(value))
+        target._new_optimizer()
+        return
+    own = target.ocr_module.state_dict()
+    target.ocr_module.load_state_dict({k: state[k].to(own[k].device) for k in own})

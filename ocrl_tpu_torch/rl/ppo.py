@@ -23,7 +23,10 @@ Random numbers (the slot initialisation, the categorical sample, the seed
 of the minibatch permutations) come from the algorithm's own
 ``torch.Generator``, made from ``seed`` on the policy's device; ``noise=``
 gives the slot initialisation explicitly instead. ``save`` / ``load`` keep
-the state in memory: writing checkpoint files comes with a later slice.
+the state in memory; ``utils.checkpoint.save_algo`` / ``load_algo`` write
+and read it as JAX's agent file (``{"policy_params", "opt_state",
+"num_timesteps"}``), which JAX's ``test_sb3`` and ``+resume=`` read. Several
+seeds trained as one vmapped computation are ``rl.multi_seed.MultiSeedPPO``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,34 @@ from torch import nn
 
 from ..config import A2CConfig, PPOConfig
 from ..device import resolve_device
+
+
+def action_stats(logits: torch.Tensor, actions: torch.Tensor):
+    """(log-probabilities of ``actions`` [B], the mean entropy) of the
+    categorical of ``logits`` [B, A]."""
+    logp_all = torch.log_softmax(logits, dim=-1)
+    logprob = logp_all.gather(1, actions.long()[:, None])[:, 0]
+    entropy = -(logp_all.exp() * logp_all).sum(-1).mean()
+    return logprob, entropy
+
+
+def ppo_loss(cfg: PPOConfig, logprob: torch.Tensor, entropy: torch.Tensor,
+             values: torch.Tensor, minibatch: dict):
+    """PPO's loss and its metrics on one minibatch (ocrl_tpu/rl/ppo.py and
+    ocrl_tpu/rl/multi_seed.py:141-166): the advantages normalised by the
+    population std (not for a minibatch of one, as SB3), the clipped ratio,
+    the value loss and the entropy bonus; approx_kl as SB3 computes it."""
+    adv = minibatch["advantages"]
+    if cfg.normalize_advantage and adv.shape[0] > 1:   # SB3: not for size 1
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    ratio = torch.exp(logprob - minibatch["logprobs"])
+    clipped = adv * torch.clamp(ratio, 1 - cfg.clip_range, 1 + cfg.clip_range)
+    policy_loss = -torch.minimum(adv * ratio, clipped).mean()
+    value_loss = ((minibatch["returns"] - values) ** 2).mean()
+    loss = policy_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
+    approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+    return loss, {"policy_loss": policy_loss, "value_loss": value_loss,
+                  "entropy": entropy, "approx_kl": approx_kl}
 
 
 class OptaxChain:
@@ -234,10 +265,7 @@ class OnPolicyAlgo:
             noise = noise.narrow(axis, 0, minibatch["obs"].shape[0])
         logits, values = self.policy(self.prep(minibatch["obs"]), noise=noise,
                                      generator=self.generator)
-        logp_all = torch.log_softmax(logits, dim=-1)
-        logprob = logp_all.gather(1, minibatch["actions"].long()[:, None])[:, 0]
-        entropy = -(logp_all.exp() * logp_all).sum(-1).mean()
-        return logprob, entropy, values
+        return action_stats(logits, minibatch["actions"]) + (values,)
 
     def _loss(self, minibatch: dict, noise):
         raise NotImplementedError
@@ -304,19 +332,7 @@ class PPO(OnPolicyAlgo):
                          max_grad_norm=config.max_grad_norm, eps=1e-5)
 
     def _loss(self, minibatch: dict, noise):
-        cfg = self.cfg
-        logprob, entropy, values = self._forward(minibatch, noise)
-        adv = minibatch["advantages"]
-        if cfg.normalize_advantage and adv.shape[0] > 1:   # SB3: not for size 1
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        ratio = torch.exp(logprob - minibatch["logprobs"])
-        clipped = adv * torch.clamp(ratio, 1 - cfg.clip_range, 1 + cfg.clip_range)
-        policy_loss = -torch.minimum(adv * ratio, clipped).mean()
-        value_loss = ((minibatch["returns"] - values) ** 2).mean()
-        loss = policy_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
-        approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
-        return loss, {"policy_loss": policy_loss, "value_loss": value_loss,
-                      "entropy": entropy, "approx_kl": approx_kl}
+        return ppo_loss(self.cfg, *self._forward(minibatch, noise), minibatch)
 
     def update_minibatch(self, data: dict, idx: torch.Tensor,
                          noise: torch.Tensor | None = None) -> dict:

@@ -2,8 +2,11 @@
 ``VecEnv`` steps its envs in turn in this process, ``SubprocVecEnv`` runs one
 forked process per env; both auto-reset on done with SB3's semantics (the
 observation returned after a done is the next episode's first, the last one
-goes into ``info["terminal_observation"]``). The multi-seed layout
-(``make_multi_seed_vec_env``) comes with the multi-seed slice.
+goes into ``info["terminal_observation"]``). ``step_indices`` steps only
+some of the envs (the pipelined rollouts step one bucket while another's
+policy call is in flight) and ``render_frame`` returns the first env's RGB
+frame (the video recorder). ``make_multi_seed_vec_env`` lays out S seeds'
+env groups in one vec env (ocrl_tpu/rl/vec_env.py:175-185).
 
 Fork safety: the port forks its workers after CUDA is up (``chip_smoke.py``
 has used the card before it builds an env, and ``train_sb3`` builds its vec
@@ -64,6 +67,15 @@ class VecEnv:
         return _stacked([_step(env, self.action_space, act)
                          for env, act in zip(self.envs, actions)])
 
+    def step_indices(self, indices, actions):
+        """``step`` of the envs at ``indices`` alone, in that order."""
+        return _stacked([_step(self.envs[i], self.action_space, act)
+                         for i, act in zip(indices, actions)])
+
+    def render_frame(self) -> np.ndarray:
+        """The first env's RGB frame."""
+        return self.envs[0].render("rgb_array")
+
     def close(self) -> None:
         for env in self.envs:
             env.close()
@@ -75,12 +87,27 @@ def make_vec_env(env_ctor, env_config, num_envs: int, seed: int = 0,
     process), "subproc" (one forked process per env), or "auto" (subproc
     when there is more than one env and the host has more than two cores,
     ocrl_tpu/rl/vec_env.py:84-86)."""
-    if mode not in ("auto", "dummy", "subproc"):
-        raise ValueError(f"vec env mode must be auto, dummy or subproc, not '{mode}'")
     fns = [(lambda rank: (lambda: env_ctor(env_config, seed + rank)))(i)
            for i in range(num_envs)]
+    return _vec_env(fns, mode)
+
+
+def make_multi_seed_vec_env(env_ctor, env_config, num_envs: int, seeds,
+                            mode: str = "auto") -> "VecEnv | SubprocVecEnv":
+    """One vec env of ``len(seeds)`` env groups of ``num_envs``: envs
+    ``[i*num_envs, (i+1)*num_envs)`` belong to seed i and are seeded
+    ``seeds[i] + rank``, the layout ``MultiSeedPPO`` expects. ``mode`` as
+    ``make_vec_env``, counting all the envs."""
+    fns = [(lambda s: (lambda: env_ctor(env_config, s)))(int(seed) + rank)
+           for seed in seeds for rank in range(num_envs)]
+    return _vec_env(fns, mode)
+
+
+def _vec_env(fns, mode: str) -> "VecEnv | SubprocVecEnv":
+    if mode not in ("auto", "dummy", "subproc"):
+        raise ValueError(f"vec env mode must be auto, dummy or subproc, not '{mode}'")
     if mode == "subproc" or (
-            mode == "auto" and num_envs > 1 and (os.cpu_count() or 1) > 2):
+            mode == "auto" and len(fns) > 1 and (os.cpu_count() or 1) > 2):
         return SubprocVecEnv(fns)
     return VecEnv(fns)
 
@@ -95,6 +122,8 @@ def _subproc_worker(remote, parent_remote, env_fn) -> None:
                 remote.send(_step(env, env.action_space, data))
             elif cmd == "reset":
                 remote.send(env.reset())
+            elif cmd == "render":
+                remote.send(env.render("rgb_array"))
             elif cmd == "spaces":
                 remote.send((env.observation_space, env.action_space))
             elif cmd == "close":
@@ -134,6 +163,16 @@ class SubprocVecEnv:
         for r, act in zip(self.remotes, actions):
             r.send(("step", act))
         return _stacked([r.recv() for r in self.remotes])
+
+    def step_indices(self, indices, actions):
+        """``step`` of the envs at ``indices`` alone; they step at once."""
+        for i, act in zip(indices, actions):
+            self.remotes[i].send(("step", act))
+        return _stacked([self.remotes[i].recv() for i in indices])
+
+    def render_frame(self) -> np.ndarray:
+        self.remotes[0].send(("render", None))
+        return self.remotes[0].recv()
 
     def close(self) -> None:
         for r in self.remotes:

@@ -23,6 +23,16 @@ tree of the OCR (``convert.ocr_to_flax``) and of its optimizer state
 (``convert.optax_state``), so that JAX's ``ocrl_tpu.utils.load`` resumes
 from a file the port wrote and the port from a file JAX wrote.
 
+``save_algo`` / ``load_algo`` are the RL agent files (train_sb3's
+``models/best_model.ckpt`` and ``latest_model.ckpt``): JAX's ``algo.save()``
+tree ``{"policy_params", "opt_state", "num_timesteps"[, "seeds"]}`` of a
+PPO, an A2C or a multi-seed PPO (``agent_tree``; ``convert.to_flax`` and
+``convert.rl_optax_state``), so that JAX's ``test_sb3`` and ``+resume=``
+read a file the port wrote and the port resumes from a file JAX wrote. With
+``allow_partial`` a file that lacks whole parts (the committed params-only
+agents have no ``opt_state``) keeps the algorithm's own values for them
+(ocrl_tpu/utils/checkpoint.py:78-101): a fresh optimizer.
+
 ``get_ocr`` builds the port's OCR from its configs and, when a checkpoint is
 configured, loads the JAX OCR's parameters from it
 (ocrl_tpu/poolings/wrapper.py:49-63): ``ocr_module_state_dict`` through
@@ -39,8 +49,11 @@ from pathlib import Path
 import numpy as np
 
 from ..models import create_ocr
-from .convert import (attention_heads, load_optax_state, ocr_from_flax, ocr_to_flax,
-                      optax_state)
+import torch
+
+from .convert import (attention_heads, from_flax, from_flax_stacked, load_optax_state,
+                      ocr_from_flax, ocr_to_flax, optax_state, rl_optax_moments,
+                      rl_optax_state, to_flax, to_flax_stacked)
 
 _MAGIC = b"OCRLTPU1"
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -141,13 +154,17 @@ def _pack_length(out: bytearray, n: int, small: int | None, codes: tuple) -> Non
     raise ValueError(f"a msgpack value of {n} entries or bytes is too long")
 
 
-def _pack_ext(out: bytearray, kind: int, payload: bytes) -> None:
+def _pack_ext(out: bytearray, kind: int, payload) -> None:
+    """An extension value whose payload is ``payload``'s pieces, in order."""
+    size = sum(len(p) for p in payload)
     fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
-    if len(payload) in fixed:
-        out.append(fixed[len(payload)])
+    if size in fixed:
+        out.append(fixed[size])
     else:
-        _pack_length(out, len(payload), None, (0xc7, 0xc8, 0xc9))
-    out += struct.pack(">b", kind) + payload
+        _pack_length(out, size, None, (0xc7, 0xc8, 0xc9))
+    out += struct.pack(">b", kind)
+    for piece in payload:
+        out += piece
 
 
 def _pack(value, out: bytearray) -> None:
@@ -156,10 +173,18 @@ def _pack(value, out: bytearray) -> None:
     elif value is True or value is False:
         out.append(0xc3 if value else 0xc2)
     elif isinstance(value, (np.ndarray, np.generic)):
+        # the payload is msgpack [shape, dtype name, bin of the C-order
+        # bytes]; the array's buffer is copied once, into ``out``
         array = np.asarray(value)
-        payload = packb([list(array.shape), array.dtype.name, array.tobytes("C")])
+        if not array.flags.c_contiguous:
+            array = array.copy(order="C")
+        data = memoryview(array.reshape(-1)).cast("B")
+        head = bytearray([0x93])
+        _pack(list(array.shape), head)
+        _pack(array.dtype.name, head)
+        _pack_length(head, len(data), None, (0xc4, 0xc5, 0xc6))
         _pack_ext(out, _EXT_NDARRAY if isinstance(value, np.ndarray) else _EXT_NPSCALAR,
-                  payload)
+                  (head, data))
     elif isinstance(value, int):
         if 0 <= value < 0x80:
             out.append(value)
@@ -345,3 +370,85 @@ def load(ocr, run_dir: str | Path | None = None, resume_checkpoint: str | None =
     tree, metadata = load_checkpoint(path)
     load_tree(ocr, tree)
     return metadata["step"], metadata.get("epoch", 0), metadata.get("best_val_loss", 1e10)
+
+
+# -- RL agent files --------------------------------------------------------------
+
+
+def _agent_params(algo) -> tuple[dict, bool]:
+    """(every policy parameter, name -> tensor, whether stacked over seeds)."""
+    if hasattr(algo, "seeds"):
+        return algo.params, True
+    return {n: p.detach() for n, p in algo.policy.named_parameters()}, False
+
+
+def _frozen_ocr(algo, params: dict) -> bool:
+    return bool(getattr(algo.policy, "freeze_ocr", False)) and \
+        any(n.startswith("ocr_module.") for n in params)
+
+
+def agent_tree(algo) -> dict:
+    """JAX's ``algo.save()`` state dict of the port's PPO, A2C or
+    MultiSeedPPO: the policy's tree, the optimizer's, ``num_timesteps`` and,
+    for several seeds, ``seeds`` (every other leaf then [S, ...])."""
+    params, stacked = _agent_params(algo)
+    heads = attention_heads(algo.policy)
+    opt = algo.optimizer
+    names = algo.param_names
+    mu = dict(zip(names, opt.mu)) if opt.kind == "adam" else None
+    count = opt.count.cpu().numpy() if stacked else opt.count
+    tree = {"policy_params": (to_flax_stacked if stacked else to_flax)(params, heads),
+            "opt_state": rl_optax_state(opt.kind, count, mu, dict(zip(names, opt.nu)),
+                                        params, _frozen_ocr(algo, params), heads, stacked),
+            "num_timesteps": int(algo.num_timesteps)}
+    if stacked:
+        tree["seeds"] = {str(i): int(s) for i, s in enumerate(algo.seeds)}
+    return tree
+
+
+def load_agent_tree(algo, tree: dict, allow_partial: bool = False) -> None:
+    """Set the port's algorithm from JAX's ``algo.save()`` state dict
+    (``agent_tree``'s inverse). A stacked tree's ``seeds`` must be the
+    algorithm's, as JAX's ``MultiSeedPPO.load`` demands; a part the tree
+    lacks raises unless ``allow_partial``, which keeps the algorithm's own."""
+    params, stacked = _agent_params(algo)
+    wanted = ["policy_params", "opt_state", "num_timesteps"] + (["seeds"] if stacked else [])
+    missing = [k for k in wanted if k not in tree]
+    if missing and not allow_partial:
+        raise ValueError(f"the agent file lacks {missing} (allow_partial keeps the "
+                         "algorithm's own)")
+    if stacked and "seeds" in tree:
+        saved = [int(tree["seeds"][k]) for k in sorted(tree["seeds"], key=int)]
+        if saved != algo.seeds:
+            raise ValueError(
+                f"checkpoint was trained with seeds={saved} but this run has "
+                f"seeds={algo.seeds}: per-seed params would be misattributed")
+    if "policy_params" in tree:
+        loaded = (from_flax_stacked if stacked else from_flax)(tree["policy_params"])
+        if set(loaded) != set(params):
+            raise KeyError(f"the file's policy differs in {sorted(set(loaded) ^ set(params))[:5]}")
+        with torch.no_grad():
+            for name, value in loaded.items():
+                params[name].copy_(value)
+    if "opt_state" in tree:
+        count, mu, nu = rl_optax_moments(tree["opt_state"], stacked)
+        opt = algo.optimizer
+        state = {"count": opt.count if count is None else
+                 (torch.from_numpy(np.array(count)) if stacked else int(count)),
+                 "mu": [mu[n] for n in algo.param_names] if mu is not None else [],
+                 "nu": [nu[n] for n in algo.param_names]}
+        opt.load_state_dict(state)
+    if "num_timesteps" in tree:
+        algo.num_timesteps = int(tree["num_timesteps"])
+
+
+def save_algo(path: str | Path, algo, metadata: dict) -> None:
+    """An ``OCRLTPU1`` agent file of ``algo`` (``agent_tree``)."""
+    save_checkpoint(path, agent_tree(algo), metadata)
+
+
+def load_algo(path: str | Path, algo, allow_partial: bool = False) -> dict:
+    """Set ``algo`` from an agent file, JAX's or the port's; its metadata."""
+    tree, metadata = load_checkpoint(path)
+    load_agent_tree(algo, tree, allow_partial)
+    return metadata

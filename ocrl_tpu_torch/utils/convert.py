@@ -406,3 +406,138 @@ def load_optax_state(ocr, tree: dict) -> None:
                 "step": torch.tensor(float(count)),
                 **{k: v.to(p.device, p.dtype).clone() for k, v in found[name].items()}}
     opt.count = count
+
+
+# -- the way back for a whole policy, and its PPO / A2C optimizer state -----------
+
+# (port module path, flax module path) of a policy's tree outside its OCR,
+# full matches, the inverse of _MODULES' pooling, acnet and head rules
+_POLICY_TO_FLAX = [
+    (r"pooling_module\.core\.proj", "pooling_module/CoreTransformer_0/Dense_0"),
+    (r"pooling_module\.core\.layers\.(\d+)\.attn\.(query|key|value|out)",
+     r"pooling_module/CoreTransformer_0/TorchEncoderLayer_\1/MultiHeadDotProductAttention_0/\2"),
+    (r"pooling_module\.core\.layers\.(\d+)\.norm([12])",
+     lambda m: f"pooling_module/CoreTransformer_0/TorchEncoderLayer_{m[1]}/"
+               f"LayerNorm_{int(m[2]) - 1}"),
+    (r"pooling_module\.core\.layers\.(\d+)\.linear([12])",
+     lambda m: f"pooling_module/CoreTransformer_0/TorchEncoderLayer_{m[1]}/"
+               f"Dense_{int(m[2]) - 1}"),
+    (r"pooling_module\.core", "pooling_module/CoreTransformer_0"),
+    (r"pooling_module\.dense\.(\d+)", r"pooling_module/Dense_\1"),
+    (r"pooling_module\.embed\.(\d+)", r"pooling_module/Embed_\1"),
+    (r"pooling_module\.mlp\.(\d+)", r"pooling_module/MLP_0/Dense_\1"),
+    (r"pooling_module\.cnn\.convs\.(\d+)", r"pooling_module/PoolNatureCNN_0/Conv_\1"),
+    (r"pooling_module\.cnn\.dense", "pooling_module/PoolNatureCNN_0/Dense_0"),
+    (r"pooling_module\.(arm_emb|obj_emb)", r"pooling_module/\1"),
+    (r"acnet\.(shared|policy|value)\.(\d+)", r"acnet/\1_\2"),
+    (r"(action_net|value_net_out)", r"\1"),
+]
+_OCR = "ocr_module."
+
+
+def _set(tree: dict, path: str, leaf: str, x: np.ndarray) -> None:
+    node = tree
+    for part in [p for p in path.split("/") if p]:
+        node = node.setdefault(part, {})
+    node[leaf] = np.array(x, order="C")
+
+
+def to_flax(state: dict[str, torch.Tensor], heads: dict[str, int] | None = None) -> dict:
+    """The port policy's ``state_dict`` -> JAX's parameter tree of the same
+    ``ActorCriticPolicy`` (``algo.params``), the exact inverse of
+    ``from_flax``: the OCR's leaves through ``ocr_to_flax``, the pooling's,
+    the acnet's and the heads' by the inverse rules. ``heads`` gives the
+    heads of each attention (``attention_heads(policy)``)."""
+    heads = heads or {}
+    ocr = {k[len(_OCR):]: v for k, v in state.items() if k.startswith(_OCR)}
+    ocr_heads = {k[len(_OCR):]: v for k, v in heads.items() if k.startswith(_OCR)}
+    tree: dict = {"ocr_module": ocr_to_flax(ocr, ocr_heads)} if ocr else {}
+    for key, value in state.items():
+        if key.startswith(_OCR):
+            continue
+        module, _, name = key.rpartition(".")
+        for pattern, repl in _POLICY_TO_FLAX:
+            if re.fullmatch(pattern, module):
+                path = re.sub(pattern, repl, module)
+                break
+        else:
+            raise KeyError(f"no flax counterpart for the port parameter '{key}'")
+        x = value.detach().cpu().numpy()
+        if re.fullmatch(r"pooling_module\.embed\.\d+", module) and name == "weight":
+            leaf = "embedding"
+        else:
+            leaf, x = _flax_leaf(module, name, x, heads.get(module.rsplit(".", 1)[0]), None)
+        _set(tree, path, leaf, x)
+    return tree
+
+
+def _stack(trees: list) -> dict:
+    """Trees of one layout -> one tree whose leaves are stacked on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _unstack(tree: dict, i: int) -> dict:
+    return {k: _unstack(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def to_flax_stacked(state: dict[str, torch.Tensor], heads: dict[str, int] | None = None,
+                    ) -> dict:
+    """``to_flax`` of a state whose every leaf carries a leading seed axis:
+    JAX's tree of a multi-seed algorithm (every leaf [S, ...])."""
+    S = next(iter(state.values())).shape[0]
+    return _stack([to_flax({k: v[i] for k, v in state.items()}, heads) for i in range(S)])
+
+
+def from_flax_stacked(params: dict) -> dict[str, torch.Tensor]:
+    """``from_flax`` of a tree whose every leaf carries a leading seed axis."""
+    S = np.asarray(next(v for _, v in _flatten(params))).shape[0]
+    per_seed = [from_flax(_unstack(params, i)) for i in range(S)]
+    return {k: torch.stack([p[k] for p in per_seed]) for k in per_seed[0]}
+
+
+def rl_optax_state(kind: str, count, mu: dict, nu: dict, params: dict,
+                   frozen_ocr: bool, heads: dict[str, int] | None = None,
+                   stacked: bool = False) -> dict:
+    """The optimizer state of JAX's PPO / A2C (ocrl_tpu/rl/ppo.py:95-105) as
+    flax's state dict: ``chain(clip_by_global_norm`` (an empty state), then
+    ``adam`` ({count, mu, nu}, then the learning rate's empty state) or
+    ``rmsprop`` ({nu} and two empty states)``)``; with the OCR frozen (and a
+    policy that has OCR parameters) inside ``multi_transform({"train": ...,
+    "frozen": set_to_zero})``, whose moments hold the frozen leaves as {}
+    (optax's MaskedNode). ``mu`` / ``nu``: port name -> array of the
+    trainable parameters; ``params``: every parameter of the policy, for the
+    masked layout; ``count``: an int, or [S] with ``stacked`` (every leaf
+    then carries the seed axis)."""
+    flax = to_flax_stacked if stacked else to_flax
+    moments = {}
+    for key, values in (("mu", mu), ("nu", nu)):
+        if values is None:
+            continue
+        tree = flax(values, heads)
+        moments[key] = _mask_like(flax(params, heads), tree) if frozen_ocr else tree
+    if kind == "adam":
+        inner = {"0": {"count": np.asarray(count, np.int32), **moments}, "1": {}}
+    elif kind == "rmsprop":
+        inner = {"0": moments, "1": {}, "2": {}}
+    else:
+        raise ValueError(f"optimizer must be adam or rmsprop, not '{kind}'")
+    chain = {"0": {}, "1": inner}
+    if frozen_ocr:
+        return {"inner_states": {"frozen": {"inner_state": {}},
+                                 "train": {"inner_state": chain}}}
+    return chain
+
+
+def rl_optax_moments(tree: dict, stacked: bool = False) -> tuple:
+    """(count or None, mu or None, nu) of ``rl_optax_state``'s tree, the
+    moments as port name -> tensor (masked leaves left out)."""
+    if "inner_states" in tree:
+        tree = tree["inner_states"]["train"]["inner_state"]
+    state = tree["1"]["0"]
+    convert = from_flax_stacked if stacked else from_flax
+    count = np.asarray(state["count"]) if "count" in state else None
+    mu = convert(state["mu"]) if "mu" in state else None
+    return count, mu, convert(state["nu"])

@@ -53,6 +53,32 @@ def test_sweep_kernel_matches_plain_on_the_card(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_input_requires_grad"])
+def test_sweep_without_a_graph_keeps_nothing_on_the_card(cuda, mode):
+    """Where no graph is recorded (serving, acting), route_sweep launches B3
+    once, its outputs have no grad_fn, and with ``a`` dropped the card holds
+    only S_a and A_v beyond its inputs: nothing that the Function saved
+    outlives the call."""
+    B, N, S, D = 16, 4096, 5, 192
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k, v, q = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, N, D), (B, N, D), (B, S, D)))
+    context = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+               "no_input_requires_grad": torch.enable_grad}[mode]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    with context():
+        sa, av, a = tsr.route_sweep(k * D ** -0.5, v, q)
+    assert LAUNCHES == {tsr.KERNEL: 1}
+    assert sa.grad_fn is None and av.grad_fn is None and a.grad_fn is None
+    a_bytes = a.nbytes
+    del a
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before < a_bytes
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (32, 4096, 5, 192), (3, 333, 5, 192),
                                    (2, 100, 16, 64)])
 def test_sweep_gradient_goes_through_the_backward_kernel(cuda, shape):
@@ -74,6 +100,41 @@ def test_sweep_gradient_goes_through_the_backward_kernel(cuda, shape):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 4096, 5, 192), (2, 3, 333, 5, 192)])
+def test_sweep_vmap_rule_launches_once_for_all_seeds(cuda, shape):
+    """Under torch.func.vmap, and vmap of a vjp, over V seeds the sweep
+    launches B3 (and B4) once at V * B rows; the outputs and gradients lie
+    within 1e-5 of the largest entry from V separate launches, the
+    tolerance of the kernels against their plain versions: the folded launch
+    splits the tokens over other blocks, so its sums over 4096 tokens run in
+    another order (gq lay 1.4e-6 of its largest entry apart on an H100)."""
+    from torch.func import vjp, vmap
+
+    V, B, N, S, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k, v, q = (torch.randn(sh, device="cuda", generator=gen)
+               for sh in ((V, B, N, D), (V, B, N, D), (V, B, S, D)))
+    k = k * D ** -0.5
+    cot = [torch.randn(sh, device="cuda", generator=gen)
+           for sh in ((V, B, S), (V, B, S, D), (V, B, N, S))]
+    reset_launches()
+    with torch.no_grad():
+        outs = vmap(tsr.route_sweep)(k, v, q)
+    assert LAUNCHES == {tsr.KERNEL: 1}
+    reset_launches()
+    grads = vmap(lambda k, v, q, *c: vjp(tsr.route_sweep, k, v, q)[1](c))(k, v, q, *cot)
+    assert LAUNCHES == {tsr.KERNEL: 1, tsr.BWD_KERNEL: 1}
+    reset_launches()
+    for i in range(V):
+        leaves = [x[i].clone().requires_grad_() for x in (k, v, q)]
+        want_outs = tsr.route_sweep(*leaves)
+        want = torch.autograd.grad(want_outs, leaves, [c[i] for c in cot])
+        for g, w in zip((*outs, *grads), (*want_outs, *want)):
+            assert (g[i] - w).abs().max() <= 1e-5 * w.abs().max()
+    assert LAUNCHES == {tsr.KERNEL: V, tsr.BWD_KERNEL: V}
 
 
 @pytest.mark.cuda

@@ -307,8 +307,7 @@ def test_collect_config_matches_jax():
         assert _plain(dataclasses.asdict(got.env)[key]) == _plain(value), key
     with pytest.raises(KeyError):
         tcfg.compose(tcfg.CollectConfig(), ["dataset=random-N5C4S4S2"])
-    # resume= names train_sb3's slice there, and is not read for train_ocr
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        tcfg.compose(tcfg.TrainSB3Config(), ["resume=True"])
+    # resume= is train_sb3's agent file, and is not read for train_ocr
+    assert tcfg.compose(tcfg.TrainSB3Config(), ["resume=r.ckpt"]).resume == "r.ckpt"
     with pytest.raises(KeyError):
         tcfg.compose(tcfg.TrainOCRConfig(), ["resume=True"])
