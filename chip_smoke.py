@@ -117,7 +117,23 @@ Phases, each printing its own line with its seconds:
    vmapped call at S x E = 48 and at a bucket timed, and one end-to-end
    vmapped update of the three seeds against three single-seed PPO updates
    (B3 and B4 launched num_iterations times in all; the tolerances in
-   check_vmapped_update).
+   check_vmapped_update);
+13. sac: train_sb3 ocr=slate pooling=transformer sb3=sac sb3_acnet=mlp
+   env=cw-target-N4C4S1S1 env.use_fake_sim=true at full width (seed 0,
+   end to end) with configs/sb3/sac.yaml as it is (4 forked envs, batch
+   256, learning_starts 1000, a 1e6-row buffer), cut to max_steps 1256
+   (250 random vector steps, then 64 policy calls and 65 updates), one
+   evaluation of 20 episodes on 20 envs and a GIF of 32 frames: launches
+   exactly B3 3 x (policy and evaluation calls) + 9 x updates, B4 3 x
+   updates; env steps/s of the random and the learning parts, ms an update,
+   the buffer's resident bytes, the files; the run resumed from its
+   latest_model bitwise; ms a policy call at E = 4; one update at 256
+   against the plain sweep (check_sac_update); a frozen run on the
+   train-ocr phase's SLATE file (1040 steps, seed 1: no B4, the online OCR and
+   the pooling bitwise unchanged, the target OCR bitwise its random init
+   moved by the run's Polyak steps); B3 and B4 at B = 256 against the plain
+   sweep, bitwise repeatable, timed beside their bounds; the CausalWorld
+   collector (--fake-sim, 256 + 64 images) read back bitwise.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -300,6 +316,23 @@ MS_CUTS = [f"num_envs={MS_ENVS}", f"sb3.algo_kwargs.n_steps={MS_STEPS}",
 MS_TEST_ARGV = ["ocr=slate", "pooling=transformer", "sb3=ppo", "sb3_acnet=mlp",
                 "env=target-N4C4S3S1", f"seeds={','.join(map(str, MS_SEEDS))}",
                 f"n_eval_episodes={MS_TEST_EPISODES}"]
+# SAC on the CausalWorld reach task (fake TriFinger backend), SLATE at full
+# width end to end: configs/sb3/sac.yaml as it is (4 envs, batch 256,
+# learning_starts 1000, buffer 1e6, tau, gamma, ent_coef); cut: max_steps to
+# 1256 (250 random vector steps, then 64 policy calls and 65 updates), one
+# evaluation of 20 episodes on 20 envs (at vector step 300), a GIF of 32
+# frames. The frozen run: the train-ocr phase's SLATE file, 1040 steps (10
+# policy calls, 11 updates), no evaluation, seed 1: that file's OCR began at
+# seed 0's init and moved little in 96 steps, so the target's random OCR is
+# drawn from another seed to lie far from the online one.
+SAC_ARGV = ["ocr=slate", "pooling=transformer", "sb3=sac", "sb3_acnet=mlp",
+            "env=cw-target-N4C4S1S1", "env.use_fake_sim=true"]
+SAC_STEPS, SAC_GIF_FRAMES = 1256, 32
+SAC_CUTS = [f"max_steps={SAC_STEPS}", "eval.freq=300", "eval.n_episodes=20",
+            f"video.length={SAC_GIF_FRAMES}"]
+SAC_FROZEN_CUTS = ["max_steps=1040", "eval.freq=100000", "video.length=8", "seed=1"]
+SAC_CALLS, SAC_UPDATES, SAC_FROZEN_UPDATES, SAC_ACT_CALLS = 64, 65, 11, 50
+SAC_COLLECT = ("cw-notarget-N4C11S1S1-hard", 256, 64)     # env, training, validation images
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -397,6 +430,48 @@ def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def kernel_profile(fn, kernel_name: str, counter: str, reps: int = 20):
+    """(device ms per call of all of ``fn``'s kernels, of those whose name
+    holds ``kernel_name``, the records of that kernel in the profile, the
+    launches its wrapper counted under ``counter`` while the profile ran),
+    by torch.profiler. A profile whose records fall short of the launches
+    has lost some (11 of 20 for B3 at B = 256 after the earlier phases);
+    its device times are then too low."""
+    from torch.autograd import DeviceType
+
+    first = LAUNCHES.get(counter, 0) + 1        # profiled() calls fn once before its profile
+    _, averages = profiled(fn, reps)
+    launched = LAUNCHES.get(counter, 0) - first
+    records = sum(e.count for e in averages
+                  if e.device_type == DeviceType.CUDA and kernel_name in e.key)
+    ms, alone_ms = ((device_ms(averages, part) or 0.0) / reps for part in ("", kernel_name))
+    return ms, alone_ms, records, launched
+
+
+def sweep_times(kernel_fn, plain_fn, kernel_name: str, counter: str):
+    """(device ms per call of a sweep wrapper, of its kernel alone, of the
+    plain version; the wrapper's wall ms per call between CUDA events).
+    The device times come from torch.profiler where the wrapper's profile
+    holds a record of every launch its counter saw (a profile is taken twice
+    at most). Else all come from CUDA events, which hold every kernel of a
+    call and the gaps between them, and the kernel alone is not measured."""
+    call_ms = wall_ms(kernel_fn)
+    for _ in range(2):
+        ms, alone_ms, records, launched = kernel_profile(kernel_fn, kernel_name, counter)
+        print(f"    the profile holds {records} kernel records for {launched} launches: "
+              f"{'complete' if records == launched else 'INCOMPLETE'}", flush=True)
+        if records == launched:
+            plain_ms, = per_call_ms(plain_fn)
+            return ms, alone_ms, plain_ms, call_ms
+    print("    (device ms of the wrapper and of the plain version from CUDA events)",
+          flush=True)
+    return call_ms, None, wall_ms(plain_fn), call_ms
+
+
+def alone(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def check_repeatable(name: str, fn, first) -> None:
     """A second launch on the same inputs gives bitwise the same outputs."""
     again = fn()
@@ -425,12 +500,12 @@ def check_sweep(shape, bw, flops, gen):
     if not ok:
         raise SystemExit(f"route_sweep disagrees with its plain version at {shape}")
     check_repeatable("route_sweep", lambda: slot_routing.route_sweep(k, v, q), got)
-    ms, kernel_alone_ms = per_call_ms(     # the sweep with its row sums, and alone
-        lambda: slot_routing.route_sweep(k, v, q), "", "sweep_fwd_kernel")
-    plain_ms, = per_call_ms(lambda: slot_routing.route_sweep_reference(k, v, q))
-    call_ms = wall_ms(lambda: slot_routing.route_sweep(k, v, q))
+    ms, kernel_alone_ms, plain_ms, call_ms = sweep_times(   # with its row sums, and alone
+        lambda: slot_routing.route_sweep(k, v, q),
+        lambda: slot_routing.route_sweep_reference(k, v, q), "sweep_fwd_kernel",
+        slot_routing.KERNEL)
     bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: route_sweep {ms:.4f} (sweep kernel alone {kernel_alone_ms:.4f}), "
+    print(f"    device ms: route_sweep {ms:.4f} (sweep kernel alone {alone(kernel_alone_ms)}), "
           f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
           f"{100 * bound_ms / ms:.1f} % of it, {sweep_bytes(B, N, S, D) / ms / 1e9:.3f} TB/s; "
           f"wall per call {call_ms:.4f} ms", flush=True)
@@ -636,9 +711,10 @@ def check_sweep_bwd(shape, bw, flops, gen):
     if not ok:
         raise SystemExit(f"the sweep's backward disagrees with its plain version at {shape}")
     check_repeatable("route_sweep backward", kernel_fn, got)
-    ms, kernel_alone_ms, plain_ms, call_ms = timed(kernel_fn, plain_fn, "sweep_bwd_kernel")
+    ms, kernel_alone_ms, plain_ms, call_ms = sweep_times(
+        kernel_fn, plain_fn, "sweep_bwd_kernel", slot_routing.BWD_KERNEL)
     bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: backward {ms:.4f} (sweep kernel alone {kernel_alone_ms:.4f}), plain "
+    print(f"    device ms: backward {ms:.4f} (sweep kernel alone {alone(kernel_alone_ms)}), plain "
           f"(autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
           f"{100 * bound_ms / ms:.1f} % of it, {sweep_bwd_bytes(B, N, S, D) / ms / 1e9:.3f} "
           f"TB/s; wall per call {call_ms:.4f} ms", flush=True)
@@ -1991,6 +2067,282 @@ def multi_seed_phase(card: str, encoder, bw: float, flops: float) -> dict:
     return dict(launches=(first_launches, second_launches, test_launches), sweeps=sweeps)
 
 
+
+def mapping_rss(arr: np.ndarray) -> int:
+    """Resident bytes of the memory mapping that holds ``arr``'s data
+    (/proc/self/smaps): what a lazily touched np.empty buffer costs."""
+    address = arr.ctypes.data
+    inside = False
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            head = line.split()[0]
+            if "-" in head and ":" not in head:
+                lo, hi = (int(x, 16) for x in head.split("-"))
+                inside = lo <= address < hi
+            elif inside and head == "Rss:":
+                return 1024 * int(line.split()[1])
+    raise SystemExit("no mapping holds the replay buffer")
+
+
+@contextmanager
+def counted_predict(cls):
+    """``cls.predict`` counting its calls (the evaluation's policy calls)."""
+    calls, original = [0], cls.predict
+
+    def predict(self, *args, **kwargs):
+        calls[0] += 1
+        return original(self, *args, **kwargs)
+
+    cls.predict = predict
+    try:
+        yield calls
+    finally:
+        cls.predict = original
+
+
+def sac_pair(cfg, space):
+    """Two fresh SACs of ``cfg`` (seed 0: the same weights)."""
+    from ocrl_tpu_torch.rl import SAC, build_sac_policy
+
+    algos = []
+    for _ in range(2):
+        policy, _ = build_sac_policy(cfg, space, seed=0)
+        algos.append(SAC(policy, (64, 64, 3), True, cfg.num_envs, cfg.sb3.algo_kwargs, seed=0,
+                         action_low=space.low, action_high=space.high))
+    return algos
+
+
+def check_sac_update(cfg, space, batch: dict) -> None:
+    """One end-to-end SAC update at the batch's size (256) through the
+    kernels against the same update on the plain sweep, fed the same batch
+    and draws: the losses, alpha and the entropy within RL_TOL of
+    max(|value|, RL_METRIC_FLOOR); the target parameters and both Adams'
+    moments within RL_TOL of max(the leaf's largest, RL_PARAM_FLOOR); each
+    parameter so where its gradient reaches Adam's eps, and below it within
+    that plus lr x the gap that Adam's formula makes of the two moments
+    (``adam_step_gap``, check_vmapped_update's rule). Printed, not held: the
+    parameters against RL_TOL alone everywhere."""
+    sa = cfg.ocr.slotattr
+    B = batch["obs"].shape[0]
+    kernels, plain = sac_pair(cfg, space)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    noise = {k: torch.randn((B, sa.num_slots, sa.slot_size), device="cuda", generator=gen)
+             for k in ("slots", "slots_next")}
+    noise.update({k: torch.randn((B, space.shape[0]), device="cuda", generator=gen)
+                  for k in ("eps_next", "eps_pi")})
+    reset_launches()
+    got = kernels.update(kernels.upload(batch), noise)
+    torch.cuda.synchronize()
+    launched = dict(LAUNCHES)
+    with plain_sweep():
+        want = plain.update(plain.upload(batch), noise)
+    worst = {"metrics": max(abs(got[k].item() - w.item()) / (
+        RL_TOL * max(abs(w.item()), RL_METRIC_FLOOR)) for k, w in want.items()),
+        "targets": _close_leaves(kernels.target.state_dict(), plain.target.state_dict(),
+                                 RL_PARAM_FLOOR),
+        "mu": 0.0, "nu": 0.0, "parameters": 0.0, "parameters below eps": 0.0}
+    literal, unsure = 0.0, 0
+    params = dict(kernels.policy.named_parameters())
+    theirs = dict(plain.policy.named_parameters())
+    for group, opt in kernels.optimizers.items():
+        popt = plain.optimizers[group]
+        for i, name in enumerate(kernels.param_names[group]):
+            for key in ("mu", "nu"):
+                w = getattr(popt, key)[i]
+                worst[key] = max(worst[key], (getattr(opt, key)[i] - w).abs().max().item() / (
+                    RL_TOL * max(w.abs().max().item(), RL_PARAM_FLOOR)))
+            diff = (params[name] - theirs[name]).abs()
+            tol = RL_TOL * max(theirs[name].abs().max().item(), RL_PARAM_FLOOR)
+            literal = max(literal, diff.max().item() / tol)
+            sure = popt.mu[i].abs() >= (1 - popt.b1) * ADAM_EPS   # mu = (1 - b1) g
+            unsure += int((~sure).sum())
+            if sure.any():
+                worst["parameters"] = max(worst["parameters"], diff[sure].max().item() / tol)
+            if not sure.all():
+                gap = opt.lr * adam_step_gap(opt.mu[i], opt.nu[i], popt.mu[i], popt.nu[i],
+                                             opt.count, opt.b1, opt.b2, opt.eps)
+                worst["parameters below eps"] = max(worst["parameters below eps"], (
+                    diff[~sure] / (tol + gap[~sure])).max().item())
+    expected = {slot_routing.KERNEL: 3 * sa.num_iterations,
+                slot_routing.BWD_KERNEL: sa.num_iterations}
+    finite = all(torch.isfinite(v).item() for v in got.values())
+    ok = launched == expected and finite and all(v <= 1 for v in worst.values())
+    print(f"  one end-to-end SAC update at batch {B} against the plain sweep (same batch and "
+          f"draws): critic loss {got['critic_loss'].item():.6f} vs "
+          f"{want['critic_loss'].item():.6f}, actor loss {got['actor_loss'].item():.6f} vs "
+          f"{want['actor_loss'].item():.6f}, entropy {got['entropy'].item():.6f} vs "
+          f"{want['entropy'].item():.6f}; worst of each tolerance ({RL_TOL} of max(|value|, "
+          f"{RL_METRIC_FLOOR}) for metrics, of max(leaf max, {RL_PARAM_FLOOR}) for the rest; "
+          f"parameters below Adam's eps {ADAM_EPS} ({unsure} entries) plus lr x Adam's step "
+          f"gap): {', '.join(f'{k} {v:.3f}' for k, v in worst.items())}; launches "
+          f"{launched}, expected {expected} {'ok' if ok else 'MISMATCH'}. Not held: the "
+          f"parameters against {RL_TOL} alone everywhere {literal:.3f} "
+          f"({'met' if literal <= 1 else 'not met'})", flush=True)
+    if not ok:
+        raise SystemExit("the SAC update disagrees with its plain version")
+
+
+def check_cw_collector(card: str, path) -> None:
+    """The CausalWorld collector (fake backend) into ``path``, read back
+    against the workers' arrays made again in this process."""
+    import os
+
+    from ocrl_tpu_torch import collect_dataset_from_cw_envs as cw_collect
+
+    name, num_tr, num_val = SAC_COLLECT
+    env_cfg = config_replace(read_env_config(name), "use_fake_sim", True)
+    workers = min(OCR_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cw_collect.collect(env_cfg, num_tr, num_val, workers, path)
+    seconds = time.perf_counter() - t0
+    layout = read_layout(path)
+    for split, total in (("TrainingSet", num_tr), ("ValidationSet", num_val)):
+        per = [total // workers + (1 if r < total % workers else 0) for r in range(workers)]
+        parts = [cw_collect._worker((env_cfg, 1000 * i, c)) for i, c in enumerate(per) if c]
+        for key in parts[0]:
+            arr = np.concatenate([p[key] for p in parts])
+            offset, shape, dtype = layout[split][key]
+            stored = np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=shape)
+            if dtype != arr.dtype or stored.tobytes() != arr.tobytes():
+                raise SystemExit(f"{split}/{key} does not read back as the workers wrote it")
+    obss = layout["TrainingSet"]["obss"][1]
+    print(f"  {card}: collect_dataset_from_cw_envs --env {name} --fake-sim: {num_tr} + "
+          f"{num_val} images {list(obss[1:])} on {workers} workers in {seconds:.3f} s, "
+          f"{(num_tr + num_val) / seconds:.1f} images/s; read back bitwise equal to the "
+          f"workers' arrays", flush=True)
+
+
+def sac_phase(card: str, encoder, workdir, bw: float, flops: float) -> dict:
+    """SAC on cw-target-N4C4S1S1 through train_sb3 (see the module
+    docstring): the end-to-end run, its resume, one update against the plain
+    sweep, the frozen run on ``encoder``, B3 and B4 at the batch of 256, the
+    collector. Returns the launch counts of the two runs, the kernels'
+    numbers at 256 and what the profile needs."""
+    import tempfile
+    from pathlib import Path
+
+    from ocrl_tpu_torch.envs.spaces import Box
+    from ocrl_tpu_torch.rl import SAC, build_sac_policy
+    from ocrl_tpu_torch.utils.checkpoint import agent_tree
+
+    print(f"  cuts of configs/sb3/sac.yaml's run: {', '.join(SAC_CUTS)}", flush=True)
+    iters = GROUPS["ocr"]["slate"].slotattr.num_iterations
+    space = Box(-1.0, 1.0, (3,), np.float32)
+    tmp = Path(tempfile.mkdtemp(dir=workdir))
+    run = tmp / "run"
+    cfg = compose(TrainSB3Config(), SAC_ARGV + SAC_CUTS + [f"run_dir={run}"])
+    with counted_predict(SAC) as eval_calls:
+        reset_launches()
+        t0 = time.perf_counter()
+        result = train_sb3.train(cfg)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    algo, totals = result["algo"], result["algo"].totals
+    calls, updates = totals["policy_steps"], totals["updates"]
+    expected = {slot_routing.KERNEL: iters * (calls + eval_calls[0]) + 3 * iters * updates,
+                slot_routing.BWD_KERNEL: iters * updates}
+    rss = sum(mapping_rss(getattr(algo.buffer, k)) for k in ("obs", "next_obs"))
+    reserved = algo.buffer.obs.nbytes + algo.buffer.next_obs.nbytes
+    E = cfg.num_envs
+    print(f"  {card}: train_sb3 {' '.join(SAC_ARGV)} (end to end, seed 0) in {run_s:.3f} s: "
+          f"{totals['random_steps']} random vector steps in {totals['random_s']:.3f} s "
+          f"({E * totals['random_steps'] / totals['random_s']:.1f} env steps/s), {calls} "
+          f"policy steps in {totals['policy_s']:.3f} s ({E * calls / totals['policy_s']:.1f} "
+          f"env steps/s, the policy call included), {updates} updates at batch "
+          f"{cfg.sb3.algo_kwargs.batch_size} in {totals['update_s']:.3f} s "
+          f"({1e3 * totals['update_s'] / updates:.3f} ms an update, wall: sample, upload, "
+          f"update, metrics to the host); {eval_calls[0]} evaluation calls at E = "
+          f"{cfg.eval.num_envs}; eval {result['eval']}; metrics {result['metrics']}",
+          flush=True)
+    print(f"  replay buffer: {len(algo.buffer)} of {algo.buffer.capacity} rows, "
+          f"{reserved / 2 ** 30:.2f} GiB of address space for obs and next_obs, "
+          f"{rss / 2 ** 20:.1f} MiB resident", flush=True)
+    print(f"  launches {launches}, expected {expected} (B3 {iters} x ({calls} policy calls + "
+          f"{eval_calls[0]} evaluation calls) + {3 * iters} x {updates} updates, B4 {iters} x "
+          f"{updates})", flush=True)
+    gif = sorted((run / "videos").glob("*.gif"))
+    gif_shape = read_gif_blocks(gif[0].read_bytes()) if gif else None
+    files = sorted(p.name for p in (run / "models").iterdir())
+    records = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                 if k.startswith(("train/", "eval/")))
+    train_records = sum("train/critic_loss" in r for r in records)
+    print(f"  files: models {files}, GIFs {[p.name for p in gif]} ({gif_shape} as (width, "
+          f"height, frames)), {train_records} train records, all metrics finite: "
+          f"{'yes' if finite else 'NO'}", flush=True)
+    if (launches != expected or (calls, updates) != (SAC_CALLS, SAC_UPDATES)
+            or algo.num_timesteps != SAC_STEPS or eval_calls[0] == 0 or not finite
+            or train_records != SAC_UPDATES or gif_shape != (256, 256, SAC_GIF_FRAMES)
+            or files != ["best_model.ckpt", "latest_model.ckpt"] or rss >= 2 ** 30):
+        raise SystemExit("the SAC run failed a check")
+
+    latest = run / "models" / "latest_model.ckpt"
+    resumed = train_sb3.train(compose(TrainSB3Config(), SAC_ARGV + SAC_CUTS + [
+        f"run_dir={tmp / 'resumed'}", f"resume={latest}"]))
+    bitwise = same_tree(agent_tree(resumed["algo"]), ckpt.load_checkpoint(latest)[0])
+    print(f"  resumed from latest_model.ckpt at {resumed['algo'].num_timesteps} timesteps: "
+          f"both networks, both Adams, log_alpha and num_timesteps bitwise the file's: "
+          f"{'yes' if bitwise else 'NO'}", flush=True)
+    if not bitwise:
+        raise SystemExit("the resumed SAC state differs from its file")
+
+    obs = np.stack([make_env(cfg.env, 4000 + i).reset() for i in range(E)])
+    act_ms = 1e3 * _timed_calls(lambda: algo.act(obs).cpu(), SAC_ACT_CALLS)
+    batch = algo.buffer.sample(cfg.sb3.algo_kwargs.batch_size, np.random.default_rng(3))
+    data = algo.upload(batch)
+    update_ms = 1e3 * _timed_calls(lambda: {k: v.item() for k, v in algo.update(data).items()},
+                                   5)
+    print(f"  policy call at E = {E} (act, actions to the host): {act_ms:.3f} ms over "
+          f"{SAC_ACT_CALLS} calls; an update at batch {len(batch['obs'])} on an uploaded batch, "
+          f"metrics to the host: {update_ms:.3f} ms over 5", flush=True)
+    check_sac_update(cfg, space, batch)
+
+    frozen_cfg = compose(TrainSB3Config(), SAC_ARGV + SAC_FROZEN_CUTS + [
+        f"pooling.ocr_checkpoint.local_file={encoder}", f"run_dir={tmp / 'frozen'}"])
+    fresh, pretrained = build_sac_policy(frozen_cfg, space, seed=frozen_cfg.seed)
+    reset_launches()
+    frozen = train_sb3.train(frozen_cfg)["algo"]
+    torch.cuda.synchronize()
+    frozen_launches = dict(LAUNCHES)
+    f_calls, f_updates = frozen.totals["policy_steps"], frozen.totals["updates"]
+    frozen_expected = {slot_routing.KERNEL: iters * f_calls + 3 * iters * f_updates}
+    ocr_state = pretrained.module.state_dict()
+    online = {k: torch.equal(v, ocr_state[k])
+              for k, v in frozen.policy.ocr_module.state_dict().items()}
+    pooling = {k: torch.equal(v, fresh.pooling_module.state_dict()[k])
+               for k, v in frozen.policy.pooling_module.state_dict().items()}
+    replay = [p.detach().clone() for p in fresh.ocr_module.parameters()]
+    source = [p.detach() for p in frozen.policy.ocr_module.parameters()]
+    for _ in range(f_updates):                   # SAC.polyak's arithmetic on the OCR alone
+        torch._foreach_mul_(replay, 1 - frozen.cfg.tau)
+        torch._foreach_add_(replay, torch._foreach_mul(source, frozen.cfg.tau))
+    target = [p.detach() for p in frozen.target.ocr_module.parameters()]
+    target_bitwise = all(torch.equal(t, r) for t, r in zip(target, replay))
+    drift = max((t - p.detach()).abs().max().item()
+                for t, p in zip(target, fresh.ocr_module.parameters()))
+    to_online = max((t - s).abs().max().item() for t, s in zip(target, source))
+    print(f"  frozen run on the train-ocr phase's SLATE file ({', '.join(SAC_FROZEN_CUTS)}): "
+          f"{f_calls} policy calls, {f_updates} updates, launches {frozen_launches}, expected "
+          f"{frozen_expected}; the online OCR bitwise the file's: "
+          f"{'yes' if all(online.values()) else 'NO'}; the pooling bitwise its init (frozen "
+          f"with the OCR, as JAX): {'yes' if all(pooling.values()) else 'NO'}; the target "
+          f"OCR bitwise its random init after {f_updates} Polyak steps toward the online "
+          f"one: {'yes' if target_bitwise else 'NO'} (max |target - init| {drift:.3e}, "
+          f"|target - online| {to_online:.3e})", flush=True)
+    if (frozen_launches != frozen_expected or f_updates != SAC_FROZEN_UPDATES
+            or not all(online.values()) or not all(pooling.values()) or not target_bitwise):
+        raise SystemExit("the frozen SAC run failed a check")
+
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    shape = (cfg.sb3.algo_kwargs.batch_size, 64 * 64, 5, 192)
+    sweep = check_sweep(shape, bw, flops, gen)
+    sweep_bwd = check_sweep_bwd(shape, bw, flops, gen)
+    check_cw_collector(card, tmp / "cw.hdf5")
+    return dict(launches=(launches, frozen_launches), algo=algo, data=data, obs=obs,
+                frozen=frozen, sweep=sweep, sweep_bwd=sweep_bwd)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -2127,6 +2479,9 @@ def main() -> int:
 
     with phase("multi-seed"):
         multi = multi_seed_phase(card, ocr_train["encoder"], bw, flops)
+
+    with phase("sac"):
+        sac = sac_phase(card, ocr_train["encoder"], workdir.name, bw, flops)
     workdir.cleanup()
 
     if args.profile:
@@ -2168,15 +2523,23 @@ def main() -> int:
                 profile(f"pretraining {name}: {TRAIN_K} steps at batch {TRAIN_BATCH}",
                         lambda: kept["ocr"].update_many(kept["superbatch"], None, 0, TRAIN_K),
                         1, 20)
+            sac_obs = sac["obs"]
+            profile(f"sac: 20 policy calls at E = {sac_obs.shape[0]}",
+                    lambda: sac["algo"].act(sac_obs).cpu(), 20, 15)
+            profile("sac: 3 updates at batch 256 (end to end)",
+                    lambda: sac["algo"].update(sac["data"]), 3, 25)
+            profile("sac: 3 updates at batch 256 (OCR and pooling frozen)",
+                    lambda: sac["frozen"].update(sac["data"]), 3, 20)
 
     def row(name, source, replaces, result):
         # launches: summed over the main-path runs: serving, training,
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
-        # pretraining phase and train_ocr's two runs
+        # pretraining phase, train_ocr's two runs, the multi-seed runs and the
+        # two SAC runs
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
-            multi["launches"]
+            multi["launches"] + sac["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

@@ -9,11 +9,13 @@
   (``RNConfig`` ... ``IdentityPoolingConfig``), each with the YAML's keys,
 - configs/sb3_acnet/_base.yaml with mlp.yaml, mlp_orthoinit.yaml,
   identity.yaml and identity_orthoinit.yaml (``ACNetConfig``),
-- configs/sb3/{ppo,a2c}.yaml (``SB3Config`` over ``PPOConfig`` /
-  ``A2CConfig``, whose defaults are ocrl_tpu/rl/ppo.py:24-62),
-- the image size of the synthetic envs (``EnvConfig``), and a whole
-  synthetic env (``SyntheticEnvConfig``, every field of
-  configs/env/_synthetic_env_base.yaml),
+- configs/sb3/{ppo,a2c,sac}.yaml (``SB3Config`` over ``PPOConfig`` /
+  ``A2CConfig`` / ``SACConfig``, whose defaults are
+  ocrl_tpu/rl/ppo.py:24-62 and ocrl_tpu/rl/sac.py:31-49),
+- the image size of the envs (``EnvConfig``), a whole synthetic env
+  (``SyntheticEnvConfig``, every field of
+  configs/env/_synthetic_env_base.yaml) and a whole CausalWorld env
+  (``CwEnvConfig``, configs/env/_cw_env_base.yaml),
 - configs/get_ari_mse.yaml with the seed of configs/_base.yaml
   (``GetAriMseConfig``),
 - configs/{train_sb3,test_sb3}.yaml over configs/_base.yaml
@@ -93,6 +95,27 @@ class SyntheticEnvConfig(EnvConfig):
     env: str = ""
     name: str = ""
     target: tuple = ()
+
+
+@dataclass(frozen=True)
+class CwEnvConfig(EnvConfig):
+    """One CausalWorld reach env: configs/env/_cw_env_base.yaml's fields and
+    their values, plus the ``env`` class and ``name`` that the ``cw-*``
+    files set. Lists are tuples. The wrappers render 64x64 whatever
+    ``obs_size`` says (ocrl_tpu/envs/cw.py:189,264)."""
+
+    COLORS: tuple[str, ...] = ("blue", "green", "yellow", "red")
+    mode: str = "easy"
+    num_objects_range: tuple[int, int] = (4, 4)
+    render_mode: str = "image"
+    rew_type: str = "sparse"
+    state_size: int = 40
+    tags: str = ""
+    target: tuple[str, ...] = ("blue",)
+    task: str = "target"
+    use_fake_sim: bool = False
+    env: str = ""
+    name: str = ""
 
 
 @dataclass(frozen=True)
@@ -440,9 +463,26 @@ class A2CConfig:
 
 
 @dataclass(frozen=True)
+class SACConfig:
+    """ocrl_tpu/rl/sac.py:31-49; configs/sb3/sac.yaml sets these values.
+    ``ent_coef``: a float, or "auto" / "auto_<initial value>" (tuned, from
+    1.0 or the given value)."""
+
+    learning_rate: float = 1e-4
+    buffer_size: int = 1_000_000
+    learning_starts: int = 1000
+    batch_size: int = 256
+    tau: float = 0.001
+    gamma: float = 0.95
+    train_freq: int = 1
+    gradient_steps: int = 1
+    ent_coef: float | str = 1e-3
+
+
+@dataclass(frozen=True)
 class SB3Config:
     name: str = "PPO"
-    algo_kwargs: PPOConfig | A2CConfig = field(default_factory=PPOConfig)
+    algo_kwargs: PPOConfig | A2CConfig | SACConfig = field(default_factory=PPOConfig)
 
 
 @dataclass(frozen=True)
@@ -473,7 +513,7 @@ class TrainSB3Config:
     pooling: PoolingConfigs = field(default_factory=PoolingConfig)
     sb3: SB3Config = field(default_factory=SB3Config)
     sb3_acnet: ACNetConfig = field(default_factory=ACNetConfig)
-    env: SyntheticEnvConfig = field(default_factory=SyntheticEnvConfig)
+    env: SyntheticEnvConfig | CwEnvConfig = field(default_factory=SyntheticEnvConfig)
     seed: int = 0
     num_envs: int = 4
     max_steps: float = 2e6
@@ -887,16 +927,16 @@ def _dataclass_from(cls, values: dict):
     return cls(**kwargs)
 
 
-def read_env_config(name: str) -> SyntheticEnvConfig:
-    """configs/env/<name>.yaml, chained to _synthetic_env_base, as a
+def read_env_config(name: str) -> SyntheticEnvConfig | CwEnvConfig:
+    """configs/env/<name>.yaml, chained to its base: a ``CwEnvConfig`` for
+    the CausalWorld files (``env: CwTargetEnv``), else a
     ``SyntheticEnvConfig``."""
     path = CONFIG_DIR / "env" / f"{name}.yaml"
     if not path.exists():
         raise FileNotFoundError(f"no env config {path}")
     values = compose_file(path)
-    if name.startswith("cw-") or values.get("env", "").startswith("Cw"):
-        raise NotImplementedError("CausalWorld envs come with a later slice")
-    return _dataclass_from(SyntheticEnvConfig, values)
+    cls = CwEnvConfig if values.get("env", "").startswith("Cw") else SyntheticEnvConfig
+    return _dataclass_from(cls, values)
 
 
 def read_dataset_config(name: str) -> DatasetConfig:
@@ -918,7 +958,8 @@ GROUPS = {
     "pooling": {"transformer": PoolingConfig(), "rn": RNConfig(), "mlp": MLPPoolingConfig(),
                 "cnn_linear": CNNLinearConfig(), "cnn_transformer": CNNTransformerConfig(),
                 "identity": IdentityPoolingConfig()},
-    "sb3": {"ppo": SB3Config("PPO", PPOConfig()), "a2c": SB3Config("A2C", A2CConfig())},
+    "sb3": {"ppo": SB3Config("PPO", PPOConfig()), "a2c": SB3Config("A2C", A2CConfig()),
+            "sac": SB3Config("SAC", SACConfig())},
     "sb3_acnet": {"mlp": ACNetConfig(),
                   "mlp_orthoinit": ACNetConfig("MLPOrthoInit", True),
                   "identity": ACNetConfig("Identity", False, NetConfig(), NetConfig(),
@@ -926,7 +967,6 @@ GROUPS = {
                   "identity_orthoinit": ACNetConfig("IdentityOrthoInit", True, NetConfig(),
                                                     NetConfig(), NetConfig())},
 }
-LATER = {"sb3=sac": "the slice that ports SAC"}
 # the override groups read from a directory of configs/ at run time
 FILE_GROUPS = {"env": read_env_config, "dataset": read_dataset_config}
 
@@ -937,9 +977,7 @@ def compose(cfg, argv):
     first the groups ``ocr=``, ``pooling=``, ``sb3=``, ``sb3_acnet=``,
     ``env=<file stem>`` and ``dataset=<file stem>``, then every other key,
     dotted or plain, in order (values read as YAML scalars; a leading ``+``
-    is dropped). A group or key the config lacks raises ``KeyError``. For
-    the RL entry points, SAC raises ``NotImplementedError`` naming its
-    slice."""
+    is dropped). A group or key the config lacks raises ``KeyError``."""
     fields = {f.name for f in dataclasses.fields(cfg)}
     pairs = []
     for arg in argv:
@@ -947,11 +985,6 @@ def compose(cfg, argv):
         if not sep:
             raise ValueError(f"override '{arg}' must look like key=value")
         pairs.append((key.lstrip("+"), raw))
-    if "sb3" in fields:
-        for key, raw in pairs:
-            for name in (f"{key}={raw}", key.split(".")[0]):
-                if name in LATER:
-                    raise NotImplementedError(f"{name} comes with {LATER[name]}")
     groups = [(key, raw) for key, raw in pairs if key in GROUPS or key in FILE_GROUPS]
     for key, raw in groups:
         if key not in fields:

@@ -1,6 +1,7 @@
-"""The two action / observation spaces the sprite envs declare, with the
-attributes the envs, the vec envs and PPO read (stand-ins for gymnasium's
-``spaces.Discrete`` and ``spaces.Box``)."""
+"""The two action / observation spaces the envs declare, with the
+attributes the envs, the vec envs and the algorithms read (stand-ins for
+gymnasium's ``spaces.Discrete`` and ``spaces.Box``); a dict of spaces
+stands in for ``spaces.Dict``."""
 
 from __future__ import annotations
 
@@ -32,6 +33,12 @@ class Box:
         self.dtype = np.dtype(dtype)
         self.low = np.full(self.shape, low, self.dtype)
         self.high = np.full(self.shape, high, self.dtype)
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        """A uniform draw in [low, high] from ``rng``, in ``dtype`` (gymnasium's
+        bounded ``Box.sample``, which draws from the space's own unseeded
+        generator)."""
+        return rng.uniform(self.low, self.high, self.shape).astype(self.dtype)
 
     def __repr__(self) -> str:
         return f"Box({self.shape}, {self.dtype})"

@@ -72,11 +72,12 @@ def ppo_loss(cfg: PPOConfig, logprob: torch.Tensor, entropy: torch.Tensor,
 
 class OptaxChain:
     """optax.chain(clip_by_global_norm(max_norm), adam | rmsprop) over
-    ``params``: ``step(grads)`` takes one gradient per parameter (None counts
-    as zeros, as JAX's gradient of an unused parameter)."""
+    ``params``, or with ``max_norm`` None the optimizer alone (SAC's
+    ``optax.adam``): ``step(grads)`` takes one gradient per parameter (None
+    counts as zeros, as JAX's gradient of an unused parameter)."""
 
     def __init__(self, params: list[torch.Tensor], kind: str, learning_rate: float,
-                 max_norm: float, eps: float, b1: float = 0.9, b2: float = 0.999,
+                 max_norm: float | None, eps: float, b1: float = 0.9, b2: float = 0.999,
                  decay: float = 0.99):
         if kind not in ("adam", "rmsprop"):
             raise ValueError(f"optimizer must be adam or rmsprop, not '{kind}'")
@@ -88,13 +89,16 @@ class OptaxChain:
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def step(self, grads) -> torch.Tensor:
+    def step(self, grads) -> torch.Tensor | None:
         """Apply one update; returns the gradients' global norm before the
-        clip."""
+        clip (None without one)."""
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
-        grads = torch._foreach_mul(grads, scale)
+        norm = None
+        if self.max_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                                self.max_norm / norm)
+            grads = torch._foreach_mul(grads, scale)
         self.count += 1
         if self.kind == "adam":
             torch._foreach_mul_(self.mu, self.b1)

@@ -11,7 +11,8 @@ env groups in one vec env (ocrl_tpu/rl/vec_env.py:175-185).
 Fork safety: the port forks its workers after CUDA is up (``chip_smoke.py``
 has used the card before it builds an env, and ``train_sb3`` builds its vec
 envs before the policy, but a caller may hold a CUDA context already). A
-worker runs only this module's loop, the env (numpy) and the rasterizer
+worker runs only this module's loop, the env (numpy: the sprite envs and
+the CausalWorld envs, each built inside its worker) and the rasterizer
 (ctypes); none of that imports or calls torch, so no worker touches CUDA or
 torch's device state. torch's own fork handler marks CUDA unusable in the
 child, so a worker that did would raise rather than share the parent's

@@ -76,7 +76,8 @@ def load_agent(config: TestSB3Config, obs_shape, device=None):
     """The PPO or A2C of ``config`` with the agent file's policy, for
     observations of ``obs_shape``; (algo, metadata)."""
     if config.sb3.name not in ("PPO", "A2C"):
-        raise NotImplementedError(f"sb3 '{config.sb3.name}' comes with a later slice")
+        raise ValueError(f"test_sb3 scores PPO and A2C agents, as JAX's test_sb3 "
+                         f"(test_sb3.py:86-93); not sb3 '{config.sb3.name}'")
     device = resolve_device(device)
     params, meta = agent_params(config.agent_checkpoint)
     policy = build_policy(config.policy_config(), seed=config.seed, device=device)

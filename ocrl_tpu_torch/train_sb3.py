@@ -1,14 +1,17 @@
 """RL training entry point of the port (counterpart of the repo-root
-train_sb3.py:28-207), PPO and A2C on the synthetic envs:
+train_sb3.py:28-207): PPO and A2C on the synthetic envs, SAC on the
+CausalWorld reach envs (the fake TriFinger backend):
 
     python -m ocrl_tpu_torch.train_sb3 ocr=slate pooling=transformer sb3=ppo \\
         sb3_acnet=mlp env=target-N4C4S3S1 sb3.algo_kwargs.ent_coef=0.01
+    python -m ocrl_tpu_torch.train_sb3 ocr=slate pooling=transformer sb3=sac \\
+        sb3_acnet=mlp env=cw-target-N4C4S1S1 env.use_fake_sim=true
     python -m ocrl_tpu_torch.train_sb3 ... seeds=1234,2345,3456 \\
         pipeline_rollout=True cache_frozen_reps=True
     python -m ocrl_tpu_torch.train_sb3 ... resume=<run_dir>/models/latest_model.ckpt
 
 Overrides as ``config.compose`` reads them: ``ocr=``, ``pooling=``,
-``sb3=ppo|a2c``, ``env=<file stem of configs/env>``, ``seed``, ``seeds``,
+``sb3=ppo|a2c|sac``, ``env=<file stem of configs/env>``, ``seed``, ``seeds``,
 ``num_envs`` (a seed), ``max_steps`` (a seed), ``sb3.algo_kwargs.*``,
 ``eval.*``, ``video.*``, ``resume`` and any other field of
 ``TrainSB3Config``. GT trains on the state observations.
@@ -34,7 +37,12 @@ since the last write, so the first iteration writes, and at the end) and
 ``videos/rollout_step{t}.gif`` (``video.length`` frames of env 0 every
 ``video.interval`` timesteps, ``rl.video``). The agent files are JAX's
 (``utils.checkpoint.save_algo``): JAX's ``test_sb3`` and ``+resume=`` read
-them, and ``resume=`` reads JAX's. SAC raises ``NotImplementedError``.
+them, and ``resume=`` reads JAX's (SAC's with its target parameters and
+``log_alpha``; a resumed run starts a fresh replay buffer and, at or past
+``learning_starts``, acts and updates from its first step, as JAX's). SAC
+needs a Box action space; with a pretrained, frozen OCR it freezes the
+pooling too and keeps the target's OCR at its random init, as JAX
+(``rl.sac``).
 """
 
 from __future__ import annotations
@@ -48,18 +56,30 @@ import numpy as np
 from .config import TrainSB3Config, compose, replace, seed_list
 from .device import resolve_device
 from .envs import make_env
-from .rl import (A2C, PPO, MultiSeedPPO, VideoRecorder, build_policy, evaluate_policy,
-                 inject_pretrained_ocr, make_multi_seed_vec_env, make_vec_env)
+from .rl import (A2C, PPO, SAC, MultiSeedPPO, VideoRecorder, build_policy, build_sac_policy,
+                 evaluate_policy, inject_pretrained_ocr, make_multi_seed_vec_env, make_vec_env)
 from .utils.checkpoint import get_ocr, load_algo, resolve_ocr_checkpoint_path, save_algo
 from .utils.logger import Run, log_prefix
 
-ALGOS = {"PPO": PPO, "A2C": A2C}
+ALGOS = {"PPO": PPO, "A2C": A2C, "SAC": SAC}
 LATEST_EVERY = 120.0               # seconds between latest_model writes
 
 
-def build_algo(config: TrainSB3Config, obs_shape, device, seeds=None):
-    """The PPO, A2C or (``seeds``) MultiSeedPPO of ``config`` on ``device``."""
+def build_algo(config: TrainSB3Config, obs_shape, device, seeds=None, action_space=None):
+    """The PPO, A2C, SAC (for ``action_space``, a Box) or (``seeds``)
+    MultiSeedPPO of ``config`` on ``device``."""
     is_image = config.env.render_mode != "state"
+    if config.sb3.name == "SAC":
+        if hasattr(action_space, "n"):
+            raise ValueError(f"SAC needs a continuous (Box) action space; env "
+                             f"'{config.env.env}' is discrete: use sb3=ppo or sb3=a2c")
+        policy, ocr = build_sac_policy(config, action_space, config.seed, device)
+        algo = SAC(policy, obs_shape, is_image, config.num_envs, config.sb3.algo_kwargs,
+                   seed=config.seed, action_low=action_space.low,
+                   action_high=action_space.high, device=device)
+        if ocr is not None:
+            inject_pretrained_ocr(algo, ocr)
+        return algo
     if not seeds:
         policy = build_policy(config.policy_config(), seed=config.seed, device=device)
         return ALGOS[config.sb3.name](
@@ -88,7 +108,7 @@ def train(config: TrainSB3Config, device=None) -> dict:
     metrics (None before the first evaluation), ``run_dir`` and the GIFs
     written (``videos``)."""
     if config.sb3.name not in ALGOS:
-        raise NotImplementedError(f"sb3 '{config.sb3.name}' comes with a later slice")
+        raise ValueError(f"unknown algo '{config.sb3.name}' (available: {', '.join(ALGOS)})")
     seeds = seed_list(config.seeds)
     if seeds and config.sb3.name != "PPO":
         raise ValueError("seeds= (vmapped multi-seed) is PPO-only")
@@ -124,7 +144,8 @@ def train(config: TrainSB3Config, device=None) -> dict:
              "last_latest": 0.0}
     video = VideoRecorder(run.dir / "videos", config.video.interval, config.video.length)
     try:
-        algo = build_algo(config, vec_env.observation_space.shape, device, seeds)
+        algo = build_algo(config, vec_env.observation_space.shape, device, seeds,
+                          vec_env.action_space)
         if config.resume not in (None, ""):
             meta = load_algo(Path(str(config.resume)), algo)
             print(f"resumed from {config.resume} at {algo.num_timesteps} timesteps "

@@ -27,7 +27,9 @@ from a file the port wrote and the port from a file JAX wrote.
 ``models/best_model.ckpt`` and ``latest_model.ckpt``): JAX's ``algo.save()``
 tree ``{"policy_params", "opt_state", "num_timesteps"[, "seeds"]}`` of a
 PPO, an A2C or a multi-seed PPO (``agent_tree``; ``convert.to_flax`` and
-``convert.rl_optax_state``), so that JAX's ``test_sb3`` and ``+resume=``
+``convert.rl_optax_state``), or SAC's ``{"policy_params", "target_params",
+"opt_state", "log_alpha", "num_timesteps"}`` (``convert.sac_optax_state``),
+so that JAX's ``test_sb3`` and ``+resume=``
 read a file the port wrote and the port resumes from a file JAX wrote. With
 ``allow_partial`` a file that lacks whole parts (the committed params-only
 agents have no ``opt_state``) keeps the algorithm's own values for them
@@ -53,7 +55,8 @@ import torch
 
 from .convert import (attention_heads, from_flax, from_flax_stacked, load_optax_state,
                       ocr_from_flax, ocr_to_flax, optax_state, rl_optax_moments,
-                      rl_optax_state, to_flax, to_flax_stacked)
+                      rl_optax_state, sac_optax_moments, sac_optax_state, to_flax,
+                      to_flax_stacked)
 
 _MAGIC = b"OCRLTPU1"
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -387,10 +390,62 @@ def _frozen_ocr(algo, params: dict) -> bool:
         any(n.startswith("ocr_module.") for n in params)
 
 
+def _sac_tree(algo) -> dict:
+    """JAX's SAC ``save()`` tree (ocrl_tpu/rl/sac.py:388-393): both
+    networks, the two Adams' state, ``log_alpha`` and ``num_timesteps``
+    (the entropy coefficient's own Adam state is not saved, in JAX
+    either)."""
+    params, _ = _agent_params(algo)
+    heads = attention_heads(algo.policy)
+    groups = {}
+    for group, opt in algo.optimizers.items():
+        names = algo.param_names[group]
+        groups[group] = (opt.count, dict(zip(names, opt.mu)), dict(zip(names, opt.nu)))
+    target = {n: p.detach() for n, p in algo.target.named_parameters()}
+    return {"policy_params": to_flax(params, heads), "target_params": to_flax(target, heads),
+            "opt_state": sac_optax_state(groups, params, heads),
+            "log_alpha": algo.log_alpha.detach().cpu().numpy(),
+            "num_timesteps": int(algo.num_timesteps)}
+
+
+def _load_sac_tree(algo, tree: dict, allow_partial: bool) -> None:
+    wanted = ["policy_params", "target_params", "opt_state", "log_alpha", "num_timesteps"]
+    missing = [k for k in wanted if k not in tree]
+    if missing and not allow_partial:
+        raise ValueError(f"the agent file lacks {missing} (allow_partial keeps the "
+                         "algorithm's own)")
+    with torch.no_grad():
+        for key, module in (("policy_params", algo.policy), ("target_params", algo.target)):
+            if key not in tree:
+                continue
+            own = dict(module.named_parameters())
+            loaded = from_flax(tree[key])
+            if set(loaded) != set(own):
+                raise KeyError(f"the file's {key} differ in "
+                               f"{sorted(set(loaded) ^ set(own))[:5]}")
+            for name, value in loaded.items():
+                own[name].copy_(value)
+        if "opt_state" in tree:
+            for group, (count, mu, nu) in sac_optax_moments(tree["opt_state"]).items():
+                names = algo.param_names[group]
+                if set(mu) != set(names):
+                    raise KeyError(f"the file's {group} optimizer holds other parameters: "
+                                   f"{sorted(set(mu) ^ set(names))[:5]}")
+                algo.optimizers[group].load_state_dict(
+                    {"count": count, "mu": [mu[n] for n in names], "nu": [nu[n] for n in names]})
+        if "log_alpha" in tree:
+            algo.log_alpha.copy_(torch.from_numpy(np.array(tree["log_alpha"], np.float32)))
+    if "num_timesteps" in tree:
+        algo.num_timesteps = int(tree["num_timesteps"])
+
+
 def agent_tree(algo) -> dict:
-    """JAX's ``algo.save()`` state dict of the port's PPO, A2C or
-    MultiSeedPPO: the policy's tree, the optimizer's, ``num_timesteps`` and,
-    for several seeds, ``seeds`` (every other leaf then [S, ...])."""
+    """JAX's ``algo.save()`` state dict of the port's PPO, A2C,
+    MultiSeedPPO or SAC: the policy's tree, the optimizer's, ``num_timesteps``
+    and, for several seeds, ``seeds`` (every other leaf then [S, ...]); for
+    SAC also the target's tree and ``log_alpha``."""
+    if hasattr(algo, "target"):
+        return _sac_tree(algo)
     params, stacked = _agent_params(algo)
     heads = attention_heads(algo.policy)
     opt = algo.optimizer
@@ -411,6 +466,9 @@ def load_agent_tree(algo, tree: dict, allow_partial: bool = False) -> None:
     (``agent_tree``'s inverse). A stacked tree's ``seeds`` must be the
     algorithm's, as JAX's ``MultiSeedPPO.load`` demands; a part the tree
     lacks raises unless ``allow_partial``, which keeps the algorithm's own."""
+    if hasattr(algo, "target"):
+        _load_sac_tree(algo, tree, allow_partial)
+        return
     params, stacked = _agent_params(algo)
     wanted = ["policy_params", "opt_state", "num_timesteps"] + (["seeds"] if stacked else [])
     missing = [k for k in wanted if k not in tree]

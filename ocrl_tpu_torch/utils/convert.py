@@ -117,6 +117,7 @@ _MODULES = [
     (_LAYER + r"/Dense_1", r"pooling_module.core.layers.\1.linear2"),
     (r"acnet/(shared|policy|value)_(\d+)", r"acnet.\1.\2"),
     (r"(action_net|value_net_out)", r"\1"),
+    (r"(actor|q1|q2)_(\d+|out)", r"\1_\2"),                            # SAC's heads
 ]
 _KEPT = ("slot_mu", "slot_log_sigma", "cls_token", "bos", "pe", "mask_token",
          "slot_mean_init", "slot_logsig_init")
@@ -431,6 +432,7 @@ _POLICY_TO_FLAX = [
     (r"pooling_module\.(arm_emb|obj_emb)", r"pooling_module/\1"),
     (r"acnet\.(shared|policy|value)\.(\d+)", r"acnet/\1_\2"),
     (r"(action_net|value_net_out)", r"\1"),
+    (r"(actor|q1|q2)_(\d+|out)", r"\1_\2"),
 ]
 _OCR = "ocr_module."
 
@@ -541,3 +543,33 @@ def rl_optax_moments(tree: dict, stacked: bool = False) -> tuple:
     count = np.asarray(state["count"]) if "count" in state else None
     mu = convert(state["mu"]) if "mu" in state else None
     return count, mu, convert(state["nu"])
+
+
+def sac_optax_state(groups: dict, params: dict, heads: dict[str, int] | None = None) -> dict:
+    """The optimizer state of JAX's SAC (ocrl_tpu/rl/sac.py:204-210) as
+    flax's state dict: ``multi_transform({"actor": adam, "critic": adam,
+    "frozen": set_to_zero})``, each Adam's moments over the whole parameter
+    tree with the other groups' leaves as {} (optax's MaskedNode).
+    ``groups``: "actor" and "critic" -> (count, mu, nu), the moments as port
+    name -> array; ``params``: every parameter of the policy."""
+    full = to_flax(params, heads)
+    states = {}
+    for group in ("actor", "critic"):
+        count, mu, nu = groups[group]
+        states[group] = {"inner_state": {"0": {
+            "count": np.asarray(count, np.int32),
+            "mu": _mask_like(full, to_flax(mu, heads)),
+            "nu": _mask_like(full, to_flax(nu, heads))}, "1": {}}}
+    states["frozen"] = {"inner_state": {}}
+    return {"inner_states": states}
+
+
+def sac_optax_moments(tree: dict) -> dict:
+    """``sac_optax_state``'s inverse: "actor" and "critic" -> (count, mu,
+    nu), the moments as port name -> tensor (masked leaves left out)."""
+    out = {}
+    for group in ("actor", "critic"):
+        state = tree["inner_states"][group]["inner_state"]["0"]
+        out[group] = (int(np.asarray(state["count"])), from_flax(state["mu"]),
+                      from_flax(state["nu"]))
+    return out

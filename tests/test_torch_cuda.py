@@ -15,7 +15,8 @@ OCRs and poolings (no kernel of their own), and the pretraining steps of
 VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU.
 The data path's prefetch gives on the card exactly the items it gives on
 the CPU, and train_ocr.main at small SLATE widths trains, evaluates, saves
-and resumes on the card through B1-B4."""
+and resumes on the card through B1-B4. One SAC update is held card against
+CPU, end to end and frozen."""
 
 import math
 
@@ -35,7 +36,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 4096, 5, 192), (4, 4096, 5, 192), (20, 4096, 5, 192),
-                                   (2, 4096, 6, 192), (3, 333, 5, 192), (2, 100, 16, 64)])
+                                   (256, 4096, 5, 192), (2, 4096, 6, 192), (3, 333, 5, 192),
+                                   (2, 100, 16, 64)])
 def test_sweep_kernel_matches_plain_on_the_card(cuda, shape):
     B, N, S, D = shape
     rng = np.random.default_rng(1)
@@ -79,8 +81,8 @@ def test_sweep_without_a_graph_keeps_nothing_on_the_card(cuda, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (32, 4096, 5, 192), (3, 333, 5, 192),
-                                   (2, 100, 16, 64)])
+@pytest.mark.parametrize("shape", [(24, 4096, 5, 192), (32, 4096, 5, 192), (256, 4096, 5, 192),
+                                   (3, 333, 5, 192), (2, 100, 16, 64)])
 def test_sweep_gradient_goes_through_the_backward_kernel(cuda, shape):
     """Autograd through route_sweep on the card launches B4 once and gives
     the gradients of the plain sweep for the same cotangents."""
@@ -346,6 +348,72 @@ def test_ppo_update_goes_through_the_sweep_kernels(cuda, freeze):
     same = all(torch.equal(v, ocr_before[k])
                for k, v in algo.policy.ocr_module.state_dict().items())
     assert same == freeze
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True], ids=["e2e", "frozen"])
+def test_sac_update_matches_the_cpu_on_the_card(cuda, freeze):
+    """One SAC update at small SLATE widths on CausalWorld images (64x64),
+    batch 8, card against CPU on the same weights, batch and draws: B3 nine
+    times, B4 three times end to end and never frozen; losses within 1e-5
+    of max(|value|, 1); targets and moments within 1e-5 of max(|leaf|,
+    1e-2); parameters so where the gradient reaches Adam's eps, and below
+    it within that plus lr x the Adam step gap of the two moments
+    (chip_smoke.check_sac_update's rule)."""
+    from chip_smoke import adam_step_gap
+    from ocrl_tpu_torch.config import TrainSB3Config, compose
+    from ocrl_tpu_torch.envs.spaces import Box
+    from ocrl_tpu_torch.rl import SAC, build_sac_policy
+
+    cfg = compose(TrainSB3Config(), [
+        "ocr=slate", "pooling=transformer", "sb3=sac", "env=cw-target-N4C4S1S1",
+        "env.use_fake_sim=true", "ocr.cnn.hidden_size=16", "ocr.slotattr.num_slots=3",
+        "ocr.slotattr.slot_size=32", "ocr.slotattr.mlp_hidden_size=32", "pooling.d_model=32",
+        "pooling.nhead=4"])
+    space = Box(-1.0, 1.0, (3,), np.float32)
+    algos = []
+    for d in ("cuda", "cpu"):
+        policy = build_sac_policy(cfg, space, seed=0, device=d)[0]
+        policy.freeze_ocr = freeze
+        algos.append(SAC(policy, (64, 64, 3), True, 1, cfg.sb3.algo_kwargs, device=d))
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+             "next_obs": rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+             "actions": rng.uniform(-1, 1, (8, 3)).astype(np.float32),
+             "rewards": (rng.random(8) < 0.5).astype(np.float32),
+             "dones": (rng.random(8) < 0.3).astype(np.float32)}
+    draws = {k: rng.standard_normal((8, 3, 32)).astype(np.float32) for k in ("slots",
+                                                                            "slots_next")}
+    draws.update({k: rng.standard_normal((8, 3)).astype(np.float32)
+                  for k in ("eps_next", "eps_pi")})
+    out = []
+    for algo in algos:
+        noise = {k: torch.from_numpy(v).to(algo.device) for k, v in draws.items()}
+        reset_launches()
+        out.append(algo.update(algo.upload(batch), noise))
+        if algo.device.type == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES == ({tsr.KERNEL: 9} if freeze else {tsr.KERNEL: 9, tsr.BWD_KERNEL: 3})
+    got, want = out
+    for k, w in want.items():
+        assert abs(got[k].item() - w.item()) <= 1e-5 * max(abs(w.item()), 1.0), k
+    card, host = algos
+    for a, b in ((card.target.state_dict(), host.target.state_dict()),):
+        for k, w in b.items():
+            assert (a[k].cpu() - w).abs().max() <= 1e-5 * max(w.abs().max().item(), 1e-2), k
+    params, theirs = dict(card.policy.named_parameters()), dict(host.policy.named_parameters())
+    for group, opt in card.optimizers.items():
+        hopt = host.optimizers[group]
+        for i, name in enumerate(card.param_names[group]):
+            mu, nu = opt.mu[i].cpu(), opt.nu[i].cpu()
+            for m, w in ((mu, hopt.mu[i]), (nu, hopt.nu[i])):
+                assert (m - w).abs().max() <= 1e-5 * max(w.abs().max().item(), 1e-2), name
+            tol = 1e-5 * max(theirs[name].abs().max().item(), 1e-2)
+            gap = opt.lr * adam_step_gap(mu, nu, hopt.mu[i], hopt.nu[i], opt.count, opt.b1,
+                                         opt.b2, opt.eps)
+            below = hopt.mu[i].abs() < (1 - opt.b1) * opt.eps
+            diff = (params[name].detach().cpu() - theirs[name].detach()).abs()
+            assert (diff <= tol + torch.where(below, gap, torch.zeros_like(gap))).all(), name
 
 
 SMALL_POOL = ["pooling=transformer", "pooling.d_model=32", "pooling.nhead=4"]

@@ -157,11 +157,12 @@ def test_spaces_match_jax():
 
 
 def test_later_slices_raise():
+    """Background images are still refused; the CausalWorld envs are ported
+    (tests/test_torch_cw.py), and an env no config names raises."""
     with pytest.raises(NotImplementedError, match="background"):
         make_env(tcfg.replace(tcfg.read_env_config("target-N4C4S3S1"),
                               "background.use_bg", True), 0)
-    with pytest.raises(NotImplementedError, match="CausalWorld"):
-        tcfg.read_env_config("cw-target-N4C4S1S1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_env(tcfg.replace(tcfg.read_env_config("target-N4C4S3S1"), "env", "CwTargetEnv"),
+    assert isinstance(tcfg.read_env_config("cw-target-N4C4S1S1"), tcfg.CwEnvConfig)
+    with pytest.raises(ValueError, match="unknown env 'CwReachEnv'"):
+        make_env(tcfg.replace(tcfg.read_env_config("target-N4C4S3S1"), "env", "CwReachEnv"),
                  0)

@@ -193,14 +193,14 @@ def test_transformer_pooling(pos_emb, stacked):
 
 
 def test_pooling_refuses_later_options():
-    """Every pooling option is ported; what is still refused on the pooling
-    path: the CausalWorld envs whose states cw_embedding reads (a later
-    slice), and a pooling that does not exist."""
+    """Every pooling option is ported, cw_embedding with the CausalWorld
+    envs whose states it reads; what is still refused on the pooling path:
+    a pooling that does not exist."""
     port = small_port_config().pooling
     Transformer_Module(32, 3, dataclasses.replace(port, use_mlp1=True))
-    with pytest.raises(NotImplementedError, match="CausalWorld"):
-        tcfg.compose(tcfg.TrainSB3Config(), ["pooling=transformer", "pooling.cw_embedding=True",
-                                             "env=cw-target-N4C4S1S1"])
+    cfg = tcfg.compose(tcfg.TrainSB3Config(), ["pooling=transformer", "pooling.cw_embedding=True",
+                                               "env=cw-target-N4C4S1S1"])
+    assert cfg.pooling.cw_embedding and isinstance(cfg.env, tcfg.CwEnvConfig)
     with pytest.raises(ValueError, match="Unknown pooling"):
         create_pooling_module("Sum", 32, 3, port)
 

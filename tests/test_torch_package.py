@@ -99,17 +99,17 @@ def test_config_matches_the_yaml(ocr):
         assert cfg.env[key] == value, key
 
 
-@pytest.mark.parametrize("algo", ["ppo", "a2c"])
+@pytest.mark.parametrize("algo", ["ppo", "a2c", "sac"])
 def test_sb3_configs_match_the_yaml(algo):
     """The port's SB3Config holds configs/sb3/<algo>.yaml (the JAX
     from_algo_kwargs drops the YAML's nulls for the dataclass defaults)."""
-    from ocrl_tpu.rl import A2CConfig, PPOConfig
+    from ocrl_tpu.rl import A2CConfig, PPOConfig, SACConfig
 
     cfg = compose("train_sb3", ["ocr=gt", "pooling=transformer", f"sb3={algo}",
                                 "sb3_acnet=mlp", "env=target-N4C4S3S1"])
     port = tcfg.GROUPS["sb3"][algo]
     assert port.name == cfg.sb3.name
-    jax_cls = PPOConfig if algo == "ppo" else A2CConfig
+    jax_cls = {"ppo": PPOConfig, "a2c": A2CConfig, "sac": SACConfig}[algo]
     want = dataclasses.asdict(jax_cls.from_algo_kwargs(cfg.sb3.algo_kwargs.to_dict()))
     assert dataclasses.asdict(port.algo_kwargs) == want
     for key, value in cfg.sb3.algo_kwargs.to_dict().items():

@@ -422,8 +422,9 @@ def test_compose_takes_the_run_file_options():
     assert tcfg.seed_list(tcfg.compose(tcfg.TrainSB3Config(), ["seeds=7"]).seeds) == [7]
     assert tcfg.seed_list(tcfg.TrainSB3Config().seeds) is None
     assert tcfg.seed_list(tcfg.compose(tcfg.TestSB3Config(), ["seeds=1,2"]).seeds) == [1, 2]
-    with pytest.raises(NotImplementedError, match="SAC"):
-        tcfg.compose(tcfg.TrainSB3Config(), ["sb3=sac"])
-    with pytest.raises(ValueError, match="PPO-only"):
-        train_sb3.main(["ocr=gt", "sb3=a2c", "env=target-N4C4S3S1", "seeds=1,2"],
-                       device="cpu")
+    assert tcfg.compose(tcfg.TrainSB3Config(), ["sb3=sac"]).sb3 == \
+        tcfg.SB3Config("SAC", tcfg.SACConfig())
+    for algo in ("a2c", "sac"):                  # seeds= is PPO-only, as JAX's
+        with pytest.raises(ValueError, match="PPO-only"):
+            train_sb3.main(["ocr=gt", f"sb3={algo}", "env=target-N4C4S3S1", "seeds=1,2"],
+                           device="cpu")

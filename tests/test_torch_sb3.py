@@ -96,9 +96,10 @@ def test_compose_overrides():
     assert cfg.env.name == "MazeN4C4S4S2Env" and cfg.env.max_steps == 50
     with pytest.raises(KeyError):            # a field A2C does not have
         tcfg.compose(tcfg.TrainSB3Config(), ["sb3=a2c", "sb3.algo_kwargs.batch_size=4"])
-    for argv, match in [(["sb3=sac"], "SAC"), (["env=cw-target-N4C4S1S1"], "CausalWorld")]:
-        with pytest.raises(NotImplementedError, match=match):
-            tcfg.compose(tcfg.TrainSB3Config(), argv)
+    cfg = tcfg.compose(tcfg.TrainSB3Config(), ["sb3=sac", "env=cw-target-N4C4S1S1"])
+    assert cfg.sb3 == tcfg.SB3Config("SAC", tcfg.SACConfig())
+    assert cfg.env == tcfg.read_env_config("cw-target-N4C4S1S1") and \
+        isinstance(cfg.env, tcfg.CwEnvConfig)
     cfg = tcfg.compose(tcfg.TrainSB3Config(), ["ocr=vae", "seeds=1,2,3", "video.interval=5",
                                                "resume=models/latest_model.ckpt"])
     assert (tcfg.seed_list(cfg.seeds), cfg.video.interval, cfg.resume) == \
