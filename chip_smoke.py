@@ -133,7 +133,23 @@ Phases, each printing its own line with its seconds:
    the pooling bitwise unchanged, the target OCR bitwise its random init
    moved by the run's Polyak steps); B3 and B4 at B = 256 against the plain
    sweep, bitwise repeatable, timed beside their bounds; the CausalWorld
-   collector (--fake-sim, 256 + 64 images) read back bitwise.
+   collector (--fake-sim, 256 + 64 images) read back bitwise;
+14. probes: the port's collector on env=target-N4C4S3S1 with labels and
+   states (1024 + 256 images); train_property_predictor.main ocr=slate
+   (mlp3 head, batch 24, one epoch: 42 steps and 11 validation batches) and
+   train_classifier.main ocr=slate pooling=transformer (batch 128, one
+   epoch: 8 steps and 2 validation batches), both at full SLATE width on
+   the train-ocr phase's checkpoint, with the launch counts reset just
+   before and read just after each (B3 exactly 3 a step and a validation
+   batch, nothing else): ms a step and images/s from step 5 on, the host
+   matching's ms a step, the validation metrics, the property probe's file
+   reloaded bitwise; then card against CPU on the same weights, batch and
+   noise: one property update at 24 (matched columns equal; metrics, head
+   and Adam moments), one classifier step at 128, and one aux-loss Pooling
+   call at 24 (dropout 0; B1's and B2's fields replayed from their seeds by
+   ops.gumbel.replay_field for the CPU); B3 at B = 128 against the plain
+   sweep, bitwise repeatable, timed beside its bound. --profile adds the
+   tables of 5 property updates at 24 and 3 classifier steps at 128.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -152,10 +168,12 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 import torch
 
-from ocrl_tpu_torch import test_sb3, train_ocr, train_sb3
+from ocrl_tpu_torch import (test_sb3, train_classifier, train_ocr, train_property_predictor,
+                            train_sb3)
 from ocrl_tpu_torch.config import (GROUPS, EnvConfig, IodineConfig, OCRCheckpointConfig,
-                                   OCRConfig, PolicyConfig, TestSB3Config, TrainSB3Config,
-                                   compose)
+                                   OCRConfig, PolicyConfig, TestSB3Config,
+                                   TrainClassifierConfig, TrainPropertyPredictorConfig,
+                                   TrainSB3Config, compose)
 from ocrl_tpu_torch.config import read_env_config
 from ocrl_tpu_torch.config import replace as config_replace
 from ocrl_tpu_torch.data import DataLoader, H5Dataset
@@ -333,6 +351,20 @@ SAC_CUTS = [f"max_steps={SAC_STEPS}", "eval.freq=300", "eval.n_episodes=20",
 SAC_FROZEN_CUTS = ["max_steps=1040", "eval.freq=100000", "video.length=8", "seed=1"]
 SAC_CALLS, SAC_UPDATES, SAC_FROZEN_UPDATES, SAC_ACT_CALLS = 64, 65, 11, 50
 SAC_COLLECT = ("cw-notarget-N4C11S1S1-hard", 256, 64)     # env, training, validation images
+# The probes: the port's collector on PROBE_ENV with labels and states
+# (PROBE_TRAIN + PROBE_VAL images: one epoch of 42 property steps at 24 and 8
+# classifier steps at 128), then both entry points at full SLATE width on
+# the train-ocr phase's checkpoint, one epoch each; the loops' ms a step from
+# step PROBE_TIMED on. Card against CPU on the same weights, batch and
+# noise: metrics, head and pooling leaves and Adam moments to PROBE_TOL of
+# max(|x|, 1) (one fp32 forward of the encoder in another summation order,
+# then one Adam step of lr 1e-4), matched columns exactly; the aux-loss
+# Pooling call's pooled output and metrics the same.
+PROBE_ENV, PROBE_TRAIN, PROBE_VAL, PROBE_TIMED, PROBE_TOL = \
+    "target-N4C4S3S1", 1024, 256, 5, 1e-5
+PROBE_PP_ARGV = ["ocr=slate", f"dataset={PROBE_ENV}", "batch_size=24", "max_epochs=1"]
+PROBE_CL_ARGV = ["ocr=slate", "pooling=transformer", f"dataset={PROBE_ENV}",
+                 "batch_size=128", "max_epochs=1"]
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
@@ -1408,6 +1440,37 @@ def pretraining_noise(ocr_cfg, env_cfg, B: int, rng) -> dict:
                                         ocr_cfg.slot_size)).astype(np.float32)}
 
 
+def first_step_gap(grads: dict, start: dict, card: dict, cpu: dict, groups: dict,
+                   floor: float) -> tuple[float, str, int, bool]:
+    """Two sides' parameters after one first optimizer step from the same
+    ``start`` (numpy by name), under the rule stated at PRETRAIN_TOL: an
+    entry is sure where the CPU's gradient exceeds PRETRAIN_SURE of its
+    leaf's largest and STEP_GRAD_FLOOR of the model's. Returns (the worst
+    deviation over max(|leaf|, ``floor``) on sure entries, its leaf, the
+    count of the other entries, whether each of those moved on both sides
+    within Adam's bound lr (1 + weight decay |p|) of ``groups``' name ->
+    (lr, weight decay)). Below those scales a gradient entry is mostly
+    rounding (an attention's key bias has none in exact arithmetic), and
+    Adam's first step g / (|g| + eps) turns it into any move up to lr."""
+    top = max(float(np.abs(g).max(initial=0.0)) for g in grads.values())
+    worst, where, noisy, bound_ok = 0.0, "", 0, True
+    for name, g in grads.items():
+        g = np.abs(g)
+        sure = (g > PRETRAIN_SURE * g.max(initial=0.0)) & (g > STEP_GRAD_FLOOR * top)
+        want = cpu[name]
+        if sure.any():
+            err = (float(np.abs(card[name] - want)[sure].max())
+                   / max(float(np.abs(want).max()), floor))
+            if err > worst:
+                worst, where = err, name
+        lr, decay = groups[name]
+        bound = lr * (1 + decay * np.abs(start[name][~sure])) * (1 + 1e-3)
+        for side in (card, cpu):
+            bound_ok &= bool((np.abs(side[name] - start[name])[~sure] <= bound).all())
+        noisy += int((~sure).sum())
+    return worst, where, noisy, bound_ok
+
+
 def check_pretraining_step(ocr_cfg, env_cfg, obs: np.ndarray, noise: dict,
                            tol: float = PRETRAIN_TOL) -> dict:
     """One update of a fresh OCR (seed 0) on the card against the same
@@ -1432,21 +1495,14 @@ def check_pretraining_step(ocr_cfg, env_cfg, obs: np.ndarray, noise: dict,
     worst_metric = max(errs, key=errs.get)
     metrics_ok = (set(card["metrics"]) == set(cpu["metrics"]) and errs[worst_metric] <= tol
                   and all(np.isfinite(v) for v in card["metrics"].values()))
-    worst_grad, grad_ok, top = compare_grads(card["grads"], cpu["grads"])
-    worst_param, noisy, param_ok = 0.0, 0, True
-    for name, g in cpu["grads"].items():
-        lr, decay = cpu["groups"][name]
-        p0 = cpu["start"][name].cpu()
-        sure = (g.abs() > PRETRAIN_SURE * g.abs().max()) & (g.abs() > STEP_GRAD_FLOOR * top)
-        scale = max(cpu["after"][name].abs().max().item(), 1e-2)
-        if sure.any():
-            err = (card["after"][name] - cpu["after"][name])[sure].abs().max().item() / scale
-            worst_param = max(worst_param, err)
-            param_ok &= err <= tol
-        bound = lr * (1 + decay * p0[~sure].abs()) * (1 + 1e-3)
-        for side in (card, cpu):
-            param_ok &= bool(((side["after"][name] - p0)[~sure].abs() <= bound).all())
-        noisy += int((~sure).sum())
+    worst_grad, grad_ok, _ = compare_grads(card["grads"], cpu["grads"])
+    def host(side: dict, key: str) -> dict:
+        return {n: t.cpu().numpy() for n, t in side[key].items()}
+
+    worst_param, _, noisy, bound_ok = first_step_gap(
+        host(cpu, "grads"), host(cpu, "start"), host(card, "after"), host(cpu, "after"),
+        cpu["groups"], 1e-2)
+    param_ok = worst_param <= tol and bound_ok
     print(f"  {ocr_cfg.name}: one step at batch {obs.shape[0]}, card against CPU: metrics "
           f"worst {worst_metric} {errs[worst_metric]:.3e} of max(|value|, 1) (tolerance {tol}); "
           f"gradients worst {worst_grad:.3f} of their tolerance; parameters worst "
@@ -2343,6 +2399,340 @@ def sac_phase(card: str, encoder, workdir, bw: float, flops: float) -> dict:
                 frozen=frozen, sweep=sweep, sweep_bwd=sweep_bwd)
 
 
+def timed_calls(cls, name: str, log: list):
+    """Replace ``cls.name`` by a wrapper that appends (start, end, B3
+    launches) of each call to ``log``; returns the original. Each wrapped
+    call brings its results to the host, so its end is the card's too."""
+    original = getattr(cls, name)
+
+    def wrapper(self, *args, **kwargs):
+        before = LAUNCHES.get(slot_routing.KERNEL, 0)
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        log.append((t0, time.perf_counter(), LAUNCHES.get(slot_routing.KERNEL, 0) - before))
+        return out
+
+    setattr(cls, name, wrapper)
+    return original
+
+
+def loop_rate(log: list, batch: int) -> tuple[float, float]:
+    """(ms a step, images/s) of the loop from step PROBE_TIMED to its last
+    step: from that step's start to the last one's end."""
+    steps = log[PROBE_TIMED:]
+    seconds = steps[-1][1] - steps[0][0]
+    return 1e3 * seconds / len(steps), batch * len(steps) / seconds
+
+
+def worst_leaf(got: dict, want: dict) -> float:
+    """The worst |got - want| over max(|want|, 1), leaf by leaf, of two
+    nested dicts of arrays (JAX's trees) of the same keys."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return float("inf")
+        return max([worst_leaf(got[k], want[k]) for k in want], default=0.0)
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    if want.size == 0:
+        return 0.0
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def worst_value(got: dict, want: dict) -> float:
+    """The worst |got - want| over max(|want|, 1) of two dicts of numbers."""
+    if got.keys() != want.keys():
+        return float("inf")
+    return max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1.0)
+               for k in want)
+
+
+def probe_configs(encoder) -> dict:
+    """The probes' configs on ``encoder``: the property probe's, the
+    classifier's and, for the aux-loss check, the classifier's pooling with
+    ``learn_aux_loss`` and SLATE's dropout 0 (the card's and the CPU's
+    generators draw different masks)."""
+    pp = compose(TrainPropertyPredictorConfig(), PROBE_PP_ARGV + [
+        f"ocr_checkpoint.local_file={encoder}"])
+    cl = compose(TrainClassifierConfig(), PROBE_CL_ARGV + [
+        f"pooling.ocr_checkpoint.local_file={encoder}"])
+    aux = compose(TrainClassifierConfig(), PROBE_CL_ARGV + [
+        f"pooling.ocr_checkpoint.local_file={encoder}", "pooling.learn_aux_loss=True",
+        "ocr.learning.dropout=0"])
+    return {"property": pp, "classifier": cl, "aux": aux}
+
+
+def slot_noise(cfg, B: int, seed: int) -> np.ndarray:
+    sa = cfg.ocr.slotattr
+    return np.random.default_rng(seed).standard_normal(
+        (B, sa.num_slots, sa.slot_size)).astype(np.float32)
+
+
+def adam_side(named, optimizer) -> dict:
+    """A probe's parameters and first Adam moments after its step, as numpy
+    by name: {"params", "mu", "nu"}."""
+    names = [n for n, _ in named]
+    return {"params": {n: p.detach().cpu().numpy() for n, p in named},
+            **{key: {n: t.cpu().numpy() for n, t in zip(names, values)}
+               for key, values in (("mu", optimizer.mu), ("nu", optimizer.nu))}}
+
+
+def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float,
+                        b1: float = 0.9) -> tuple[float, int, bool, str]:
+    """Two sides' first Adam step (``adam_side``) from the same ``init``:
+    (the worst deviation over max(|x|, 1) of the moments, and of the
+    parameters under ``first_step_gap``'s rule, the CPU's gradient being
+    its mu / (1 - b1); the count of the entries held to Adam's bound lr;
+    whether all are; the worst leaf)."""
+    worst, worst_name = 0.0, ""
+    for key in ("mu", "nu"):
+        for name, want in cpu[key].items():
+            err = worst_leaf(card[key][name], want)
+            if err > worst:
+                worst, worst_name = err, f"{key} of {name}"
+    grads = {n: m / (1 - b1) for n, m in cpu["mu"].items()}
+    param, where, noisy, bound_ok = first_step_gap(grads, init, card["params"], cpu["params"],
+                                                   {n: (lr, 0.0) for n in grads}, 1.0)
+    if param > worst:
+        worst, worst_name = param, where
+    return worst, noisy, bound_ok, worst_name
+
+
+def check_property_step(encoder, batch: dict) -> float:
+    """One property update of a fresh probe (head from seed 0) on
+    ``encoder``, card against CPU, on the same batch and slot noise:
+    matched columns exactly; metrics, the head's Adam moments and its
+    parameters to PROBE_TOL (``first_adam_step_gap``). Returns the worst
+    deviation over its tolerance's scale."""
+    from ocrl_tpu_torch.utils.property_predictor import PropertyPredictor
+
+    cfg = probe_configs(encoder)["property"]
+    noise = slot_noise(cfg, len(batch["obss"]), 16)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        ocr, _ = get_ocr(cfg.ocr, cfg.dataset, cfg.ocr_checkpoint, seed=0, device=device)
+        probe = PropertyPredictor(ocr, cfg.property_predictor, cfg.dataset, seed=0)
+        init = {n: p.detach().cpu().numpy().copy() for n, p in probe.head.named_parameters()}
+        matched = []
+        metrics = probe.update(batch, 0, noise={"rep": torch.from_numpy(noise).to(device)},
+                               matched=matched)
+        sides[device] = (metrics, matched[0],
+                         adam_side(list(probe.head.named_parameters()), probe.optimizer))
+    (card, card_cols, card_adam), (cpu, cpu_cols, cpu_adam) = sides["cuda"], sides["cpu"]
+    gap, noisy, bound_ok, where = first_adam_step_gap(card_adam, cpu_adam, init,
+                                                      cfg.property_predictor.learning.lr)
+    worst = max(worst_value(card, cpu), gap)
+    same_cols = np.array_equal(card_cols, cpu_cols)
+    finite = all(np.isfinite(v) for v in card.values())
+    print(f"  property update at {len(batch['obss'])}, card against CPU: matched columns "
+          f"{'equal' if same_cols else 'DIFFER'}; metrics {worst_value(card, cpu):.3e}, head "
+          f"and Adam moments {gap:.3e} ({where}) of max(|x|, 1) (tolerance {PROBE_TOL}), "
+          f"{noisy} entries under Adam's bound: {'ok' if bound_ok else 'OUT'}; the card's "
+          f"metrics {card}", flush=True)
+    if not (same_cols and finite and worst <= PROBE_TOL and bound_ok):
+        raise SystemExit("the property update disagrees between card and CPU")
+    return worst
+
+
+def check_classifier_step(encoder, batch: dict) -> float:
+    """One classifier step (pooling from seed 1, head from seed 0) on
+    ``encoder``, card against CPU, on the same batch and slot noise: loss,
+    accuracy, the pooling's and the head's Adam moments and parameters to
+    PROBE_TOL (``first_adam_step_gap``). Returns the worst deviation over
+    its tolerance's scale."""
+    from ocrl_tpu_torch.poolings import Pooling
+
+    cfg = probe_configs(encoder)["classifier"]
+    noise = slot_noise(cfg, len(batch["obss"]), 17)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        ocr, _ = get_ocr(cfg.ocr, cfg.dataset, cfg.pooling.ocr_checkpoint, seed=0,
+                         device=device)
+        classifier = train_classifier.Classifier(
+            Pooling(ocr, cfg.pooling, seed=0), ocr, cfg.classifier.d_model,
+            cfg.dataset.num_labels, cfg.classifier.learning.lr, seed=0)
+        named = list(classifier.pooling.named_parameters()) + \
+            [(f"head.{n}", p) for n, p in classifier.head.named_parameters()]
+        init = {n: p.detach().cpu().numpy().copy() for n, p in named}
+        loss = classifier.step(batch, noise={"rep": torch.from_numpy(noise).to(device)})
+        sides[device] = (dict(zip(("loss", "acc"), loss)), adam_side(named, classifier.optimizer))
+    (card, card_adam), (cpu, cpu_adam) = sides["cuda"], sides["cpu"]
+    gap, noisy, bound_ok, where = first_adam_step_gap(card_adam, cpu_adam, init,
+                                                      cfg.classifier.learning.lr)
+    worst = max(worst_value(card, cpu), gap)
+    print(f"  classifier step at {len(batch['obss'])}, card against CPU: loss and accuracy "
+          f"{worst_value(card, cpu):.3e}, pooling, head and Adam moments {gap:.3e} ({where}) "
+          f"of max(|x|, 1) (tolerance {PROBE_TOL}), {noisy} entries under Adam's bound: "
+          f"{'ok' if bound_ok else 'OUT'}; the card's {card}", flush=True)
+    if not (np.isfinite(card["loss"]) and worst <= PROBE_TOL and bound_ok):
+        raise SystemExit("the classifier step disagrees between card and CPU")
+    return worst
+
+
+def check_aux_pooling(encoder, obs: np.ndarray) -> float:
+    """One aux-loss Pooling call (pooling from seed 1) on ``encoder``, card
+    against CPU, without autograd: the card draws B1's and B2's fields, the
+    CPU takes their replay from the seeds the wrappers drew
+    (ops.gumbel.replay_field, which must agree with the drawn fields to
+    FIELD_TOL); slot noise of the loss and of the representation from
+    numpy. The pooled output and every metric to PROBE_TOL; the call's
+    launches B1 1, B2 1, B3 2 x 3. Returns the worst deviation over its
+    tolerance's scale."""
+    from ocrl_tpu_torch.poolings import Pooling
+
+    cfg = probe_configs(encoder)["aux"]
+    given = {"slots": slot_noise(cfg, len(obs), 18), "rep": slot_noise(cfg, len(obs), 19)}
+    sides, fields = {}, {}
+    for device in ("cuda", "cpu"):
+        ocr, _ = get_ocr(cfg.ocr, cfg.dataset, cfg.pooling.ocr_checkpoint, seed=0,
+                         device=device)
+        pooling = Pooling(ocr, cfg.pooling, seed=0)
+        noise = {k: torch.from_numpy(v).to(device) for k, v in {**given, **fields}.items()}
+        if device == "cuda":
+            state = ocr.generator.get_state()
+            reset_launches()          # a check's launches, outside the main path's counts
+        with torch.no_grad():
+            pooled, metrics = pooling(obs, with_loss=True, noise=noise)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            gen = torch.Generator(device="cuda")
+            gen.set_state(state)
+            seeds = [int(gumbel.draw_seed(gen, torch.device("cuda")).item()) for _ in range(2)]
+            R, V = noise["soft"].shape
+            replay = {key: gumbel.replay_field(seed, stream, R, V) for key, seed, stream in
+                      (("soft", seeds[0], gumbel.SOFT_STREAM),
+                       ("ids", seeds[1], gumbel.IDS_STREAM))}
+            field_err = max((noise[k].double().cpu() - torch.from_numpy(v)).abs().max().item()
+                            for k, v in replay.items())
+            fields = {k: v.astype(np.float32) for k, v in replay.items()}
+        sides[device] = (pooled.cpu().numpy(), {k: float(v) for k, v in metrics.items()})
+    (card_pooled, card), (cpu_pooled, cpu) = sides["cuda"], sides["cpu"]
+    worst = max(worst_leaf(card_pooled, cpu_pooled), worst_value(card, cpu))
+    iters = cfg.ocr.slotattr.num_iterations
+    expected = {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, slot_routing.KERNEL: 2 * iters}
+    print(f"  aux-loss Pooling call at {len(obs)} (dropout 0), card against CPU: pooled and "
+          f"metrics worst {worst:.3e} of max(|x|, 1) (tolerance {PROBE_TOL}); the Gumbel "
+          f"fields against their replay {field_err:.3e} (tolerance {FIELD_TOL}); launches "
+          f"{launches}, expected {expected}; the card's metrics {card}", flush=True)
+    if not (worst <= PROBE_TOL and field_err <= FIELD_TOL and launches == expected
+            and "aux_loss" in card and np.isfinite(card["aux_loss"])):
+        raise SystemExit("the aux-loss Pooling call disagrees between card and CPU")
+    return worst
+
+
+def probes_phase(card: str, encoder, workdir, bw: float, flops: float) -> dict:
+    """The collector with labels and states, train_property_predictor.main
+    and train_classifier.main at full SLATE width on ``encoder``, one epoch
+    each, the card against the CPU, and B3 at the classifier's batch (see
+    the module docstring). Returns the launch counts of the two runs and
+    B3's numbers at 128."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from ocrl_tpu_torch.utils import property_predictor as tpp
+
+    iters = GROUPS["ocr"]["slate"].slotattr.num_iterations
+    tmp = Path(tempfile.mkdtemp(dir=workdir))
+    data = tmp / f"{PROBE_ENV}.hdf5"
+    workers = min(OCR_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    collect_dataset(read_env_config(PROBE_ENV), PROBE_TRAIN, PROBE_VAL, num_proc=workers,
+                    with_labels=True, with_states=True, out_file=data)
+    seconds = time.perf_counter() - t0
+    layout = read_layout(data)["TrainingSet"]
+    sizes = {k: f"{np.dtype(d).name} {list(sh)}" for k, (_, sh, d) in layout.items()}
+    print(f"  {card}: collected {PROBE_TRAIN} + {PROBE_VAL} images of env={PROBE_ENV} "
+          f"(labels, states) on {workers} workers in {seconds:.3f} s, "
+          f"{(PROBE_TRAIN + PROBE_VAL) / seconds:.1f} images/s; TrainingSet {sizes}", flush=True)
+    if list(layout["objs"][1]) != [PROBE_TRAIN, 4, 5] or "labels" not in layout:
+        raise SystemExit("the probes' file lacks its objects' states or labels")
+
+    runs = {}
+    for name, entry, argv, cls, method, batch in (
+            ("property", train_property_predictor,
+             PROBE_PP_ARGV + [f"ocr_checkpoint.local_file={encoder}"],
+             tpp.PropertyPredictor, "update", 24),
+            ("classifier", train_classifier,
+             PROBE_CL_ARGV + [f"pooling.ocr_checkpoint.local_file={encoder}"],
+             train_classifier.Classifier, "step", 128)):
+        steps, matching = [], []
+        evals = "get_loss" if name == "property" else "evaluate"
+        val_calls = []
+        saved = [(cls, method, timed_calls(cls, method, steps)),
+                 (cls, evals, timed_calls(cls, evals, val_calls))]
+        if name == "property":
+            align = tpp.PropertyPredictor._align
+
+            def timed_align(cost, align=align):
+                t0 = time.perf_counter()
+                out = align(cost)
+                matching.append(time.perf_counter() - t0)
+                return out
+
+            tpp.PropertyPredictor._align = staticmethod(timed_align)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            result = entry.main(argv + [f"dataset.datadir={data}", f"run_dir={tmp / name}"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        finally:
+            for owner, attr, original in saved:
+                setattr(owner, attr, original)
+            if name == "property":
+                tpp.PropertyPredictor._align = staticmethod(align)
+        records = [json.loads(line) for line in open(tmp / name / "metrics.jsonl")]
+        n_steps, n_val = len(steps), len(val_calls)
+        expected = {slot_routing.KERNEL: iters * (n_steps + n_val)}
+        per_call = {n for _, _, n in steps + val_calls}
+        ms, rate = loop_rate(steps, batch)
+        finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                     if k.startswith(("train/", "val/")))
+        val = {k: round(v, 6) for r in records for k, v in r.items() if k.startswith("val/")}
+        host = f", the host matching {1e3 * np.mean(matching[:n_steps]):.3f} ms a step" \
+            if matching else ""
+        print(f"  {card}: {name} probe ({' '.join(argv[:-1])}, the train-ocr phase's "
+              f"checkpoint) in {run_s:.3f} s: {n_steps} "
+              f"steps at batch {batch} and {n_val} validation batches; from step "
+              f"{PROBE_TIMED}: {ms:.3f} ms a step, {rate:.1f} images/s{host}; B3 launches a "
+              f"step or batch {sorted(per_call)}; launches {launches}, expected {expected}; "
+              f"validation {val}; all records finite: {'yes' if finite else 'NO'}", flush=True)
+        want_steps = PROBE_TRAIN // batch
+        if (launches != expected or per_call != {iters} or n_steps != want_steps
+                or n_val != -(-PROBE_VAL // batch) or not finite
+                or sum("train/loss" in r for r in records) != want_steps):
+            raise SystemExit(f"the {name} probe failed a check")
+        runs[name] = dict(result=result, launches=launches)
+
+    probe = runs["property"]["result"]["probe"]
+    path = tmp / "property" / "checkpoints" / "model_best.ckpt"
+    tree, metadata = ckpt.load_checkpoint(path)
+    cfg = compose(TrainPropertyPredictorConfig(), PROBE_PP_ARGV)
+    reloaded = tpp.PropertyPredictor(create_ocr(cfg.ocr, cfg.dataset, seed=1),
+                                     cfg.property_predictor, cfg.dataset, seed=1)
+    reloaded.load(tree)
+    bitwise = same_tree(reloaded.save(), tree) and same_tree(probe.save(), tree)
+    print(f"  the property probe's model_best.ckpt ({metadata}) reloaded by the port's "
+          f"reader into a fresh probe: head, Adam and OCR bitwise the file's and the run's: "
+          f"{'yes' if bitwise else 'NO'}", flush=True)
+    if not bitwise:
+        raise SystemExit("the property probe's file does not reload bitwise")
+
+    batch = next(iter(DataLoader(H5Dataset(data, "TrainingSet"), 128, shuffle=True, seed=4)))
+    worst = {"property": check_property_step(encoder, {k: v[:24] for k, v in batch.items()}),
+             "classifier": check_classifier_step(encoder, batch),
+             "aux": check_aux_pooling(encoder, batch["obss"][:24])}
+    gen = torch.Generator(device="cuda").manual_seed(128)
+    sweep = check_sweep((128, 64 * 64, 5, 192), bw, flops, gen)
+    keep = dict(probe=probe, classifier=runs["classifier"]["result"]["classifier"],
+                property_batch={k: v[:24] for k, v in batch.items()}, classifier_batch=batch)
+    return dict(launches=(runs["property"]["launches"], runs["classifier"]["launches"]),
+                sweep=sweep, worst=worst, keep=keep)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -2482,6 +2872,9 @@ def main() -> int:
 
     with phase("sac"):
         sac = sac_phase(card, ocr_train["encoder"], workdir.name, bw, flops)
+
+    with phase("probes"):
+        probes = probes_phase(card, ocr_train["encoder"], workdir.name, bw, flops)
     workdir.cleanup()
 
     if args.profile:
@@ -2530,16 +2923,21 @@ def main() -> int:
                     lambda: sac["algo"].update(sac["data"]), 3, 25)
             profile("sac: 3 updates at batch 256 (OCR and pooling frozen)",
                     lambda: sac["frozen"].update(sac["data"]), 3, 20)
+            kept = probes["keep"]
+            profile("probes: 5 property updates at 24",
+                    lambda: kept["probe"].update(kept["property_batch"]), 5, 20)
+            profile("probes: 3 classifier steps at 128",
+                    lambda: kept["classifier"].step(kept["classifier_batch"]), 3, 20)
 
     def row(name, source, replaces, result):
         # launches: summed over the main-path runs: serving, training,
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
-        # pretraining phase, train_ocr's two runs, the multi-seed runs and the
-        # two SAC runs
+        # pretraining phase, train_ocr's two runs, the multi-seed runs, the
+        # two SAC runs and the two probes
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
-            multi["launches"] + sac["launches"]
+            multi["launches"] + sac["launches"] + probes["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

@@ -20,8 +20,10 @@
   (``GetAriMseConfig``),
 - configs/{train_sb3,test_sb3}.yaml over configs/_base.yaml
   (``TrainSB3Config``, ``TestSB3Config``), configs/train_ocr.yaml over it
-  (``TrainOCRConfig``) and configs/collect_dataset_from_synthetic_envs.yaml
-  (``CollectConfig``),
+  (``TrainOCRConfig``), configs/train_property_predictor.yaml and
+  configs/train_classifier.yaml over it (``TrainPropertyPredictorConfig``,
+  ``TrainClassifierConfig``) and
+  configs/collect_dataset_from_synthetic_envs.yaml (``CollectConfig``),
 - a dataset file of configs/dataset (``DatasetConfig``).
 
 Only the env and dataset files are read at run time (``read_env_config``,
@@ -584,12 +586,20 @@ class DatasetCheckpointConfig:
     run_id: str = ""
 
 
+def _synthetic_properties() -> dict:
+    return {"color": {"num_candidates": 7}, "scale": {"num_candidates": 2},
+            "shape": {"num_candidates": 4}, "xy": {"dims": 2}}
+
+
 @dataclass(frozen=True)
 class DatasetConfig(EnvConfig):
     """configs/dataset/<stem>.yaml chained to its _synthetic_env_base and
-    _base: the image size the OCR is built for, and where the file is
-    (``datadir``, else ``<dataset_dir>/<dataset_checkpoint.file>``). Keys
-    that name no field (``properties``, ...) are dropped."""
+    _base: the image size the OCR is built for, where the file is
+    (``datadir``, else ``<dataset_dir>/<dataset_checkpoint.file>``), and
+    what the property probe reads of an object's state row: ``properties``
+    (name -> {"num_candidates": classes} or {"dims": width}, as the YAML
+    has it) in the order ``property_order_in_state``. Keys that name no
+    field (the CausalWorld files' ``num_objs``) are dropped."""
 
     datadir: Optional[str] = None
     dataset_checkpoint: DatasetCheckpointConfig = field(
@@ -598,6 +608,8 @@ class DatasetConfig(EnvConfig):
     num_labels: int = 4
     num_objects_range: tuple[int, int] = (4, 4)
     state_size: int = 5
+    properties: dict = field(default_factory=_synthetic_properties)
+    property_order_in_state: tuple[str, ...] = ("color", "shape", "scale", "xy")
     name: str = ""
     tags: str = ""
 
@@ -632,6 +644,68 @@ class TrainOCRConfig:
     superbatch: int = 16
     max_steps: Optional[float] = None
     profile_dir: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class PropertyPredictorConfig:
+    """configs/train_property_predictor.yaml's ``property_predictor``:
+    the head (``linear`` or ``mlp3``), the VAE's pseudo-slots and Adam's
+    learning rate. ``matching_mode`` is read by neither package."""
+
+    matching_mode: str = "loss"
+    model_type: str = "mlp3"
+    num_slots_for_dist_rep: int = 6
+    learning: LRConfig = field(default_factory=LRConfig)
+
+
+@dataclass(frozen=True)
+class TrainPropertyPredictorConfig:
+    """configs/train_property_predictor.yaml over configs/_base.yaml.
+    ``run_dir`` empty: outputs/train_property_predictor/<ocr>-<dataset>/<time>.
+    ``load`` and ``num_visualization`` are read by neither package."""
+
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    property_predictor: PropertyPredictorConfig = field(
+        default_factory=PropertyPredictorConfig)
+    run_dir: str = ""
+    batch_size: int = 24
+    num_visualization: int = 5
+    tags: str = ""
+    seed: int = 0
+    num_workers: int = 1
+    load: LoadConfig = field(default_factory=LoadConfig)
+    max_epochs: int = 1000
+
+
+@dataclass(frozen=True)
+class ClassifierConfig:
+    """configs/train_classifier.yaml's ``classifier``: the head's width and
+    Adam's learning rate."""
+
+    d_model: int = 64
+    learning: LRConfig = field(default_factory=LRConfig)
+
+
+@dataclass(frozen=True)
+class TrainClassifierConfig:
+    """configs/train_classifier.yaml over configs/_base.yaml. ``run_dir``
+    empty: outputs/train_classifier/<ocr>-<pooling>-<dataset>/<time>.
+    ``load`` and ``num_visualization`` are read by neither package."""
+
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    pooling: PoolingConfigs = field(default_factory=PoolingConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    classifier: ClassifierConfig = field(default_factory=ClassifierConfig)
+    run_dir: str = ""
+    batch_size: int = 128
+    num_visualization: int = 5
+    tags: str = ""
+    seed: int = 0
+    num_workers: int = 1
+    load: LoadConfig = field(default_factory=LoadConfig)
+    max_epochs: int = 1000
 
 
 @dataclass(frozen=True)
@@ -972,8 +1046,9 @@ FILE_GROUPS = {"env": read_env_config, "dataset": read_dataset_config}
 
 
 def compose(cfg, argv):
-    """``cfg`` (a ``TrainSB3Config``, ``TestSB3Config``, ``TrainOCRConfig``
-    or ``CollectConfig``) with the ``key=value`` overrides of ``argv``:
+    """``cfg`` (a ``TrainSB3Config``, ``TestSB3Config``, ``TrainOCRConfig``,
+    ``TrainPropertyPredictorConfig``, ``TrainClassifierConfig`` or
+    ``CollectConfig``) with the ``key=value`` overrides of ``argv``:
     first the groups ``ocr=``, ``pooling=``, ``sb3=``, ``sb3_acnet=``,
     ``env=<file stem>`` and ``dataset=<file stem>``, then every other key,
     dotted or plain, in order (values read as YAML scalars; a leading ``+``

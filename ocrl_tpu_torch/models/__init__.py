@@ -69,11 +69,19 @@ def create_ocr(ocr_config: OCRConfigs, env_config: EnvConfig, seed: int = 0,
     Each OCR gets the optimizer and clip of its JAX ``build_spec``: SLATE
     its three Adam groups and the inf-norm clip, MAE its AdamW, IODINE Adam
     and the 2-norm clip of its config, the VAE, NatureCNN and MultipleCNN
-    Adam, unclipped; GT none (it takes no training step)."""
+    Adam, unclipped; GT none (it takes no training step). The handle also
+    carries JAX's ``name``, ``rep_dim`` and ``num_slots``."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         module = build_module(ocr_config, env_config, decoder=True).to(device)
+    ocr = _handle(module, ocr_config, seed, device)
+    ocr.name = ocr_config.name
+    ocr.rep_dim, ocr.num_slots = dims(ocr_config, env_config)
+    return ocr
+
+
+def _handle(module: nn.Module, ocr_config: OCRConfigs, seed: int, device) -> OCR:
     name = ocr_config.name
     if name == "GT":
         return OCR(module, None, None, seed, device)

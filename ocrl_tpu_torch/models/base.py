@@ -166,6 +166,25 @@ class OCR:
                                       generator=self.generator, noise=noise)
         return metrics
 
+    def rep(self, obs, *, noise: dict | None = None, grad: bool = False) -> torch.Tensor:
+        """The representation of ``obs`` (uint8 or float NHWC), the module
+        in eval mode, with autograd only where ``grad`` is set and autograd
+        is on. ``noise``, a dict, gives the forward's draws under ``rep``
+        (SLATE's initial slots, IODINE's eps) or receives those drawn here
+        from the OCR's generator."""
+        obs = self._obs(obs)
+        draws = None if noise is None else noise.get("rep")
+        if draws is None:
+            shape_fn = getattr(self.module, "noise_shape", None)
+            shape = shape_fn(obs.shape[0]) if shape_fn is not None else None
+            if shape is not None:
+                draws = torch.randn(shape, generator=self.generator, device=self.device)
+                if noise is not None:
+                    noise["rep"] = draws
+        self.module.eval()
+        with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
+            return self.module(obs, noise=draws, generator=self.generator)
+
     @torch.no_grad()
     def get_samples(self, obs, *, noise: dict | None = None) -> dict:
         """The module's sample grid {"samples": uint8 [B, H', W', C]}, from

@@ -39,7 +39,8 @@ agents have no ``opt_state``) keeps the algorithm's own values for them
 configured, loads the JAX OCR's parameters from it
 (ocrl_tpu/poolings/wrapper.py:49-63): ``ocr_module_state_dict`` through
 ``convert.ocr_from_flax``, keeping the fresh module's values for parameters
-the payload lacks. The optimizer state is not carried across.
+the payload lacks, and the optimizer state where the file holds one and the
+OCR has an optimizer, as JAX's partial load of ``OCR.save()`` does.
 """
 
 from __future__ import annotations
@@ -307,17 +308,27 @@ def resolve_ocr_checkpoint_path(cpt_config) -> Path | None:
     return None
 
 
+def load_ocr_file(ocr, path: str | Path) -> None:
+    """Set ``ocr`` from the OCR of a checkpoint file: every parameter the
+    file holds (the others keep their values) and the optimizer state
+    where the file holds one, as JAX's partial load of
+    ``OCR.save()`` does (ocrl_tpu/poolings/wrapper.py:49-63)."""
+    tree = migrate_bcdec_tree(load_checkpoint(path)[0])
+    state = ocr.module.state_dict()     # what the payload lacks keeps its value
+    state.update(ocr_from_flax(tree["ocr_module_state_dict"]))
+    ocr.module.load_state_dict(state)
+    if ocr.optimizer is not None and "ocr_opt_state_dict" in tree:
+        load_optax_state(ocr, tree["ocr_opt_state_dict"])
+
+
 def get_ocr(ocr_config, env_config, cpt_config, seed: int = 0, device=None):
     """(OCR, pretrained): the OCR of the configs, with the weights of the
-    configured checkpoint when there is one."""
+    configured checkpoint when there is one (``load_ocr_file``)."""
     ocr = create_ocr(ocr_config, env_config, seed, device)
     path = resolve_ocr_checkpoint_path(cpt_config)
     if path is None:
         return ocr, False
-    tree, _ = load_checkpoint(path)
-    state = ocr.module.state_dict()     # what the payload lacks keeps its value
-    state.update(ocr_from_flax(migrate_bcdec_tree(tree)["ocr_module_state_dict"]))
-    ocr.module.load_state_dict(state)
+    load_ocr_file(ocr, path)
     return ocr, True
 
 

@@ -118,6 +118,7 @@ _MODULES = [
     (r"acnet/(shared|policy|value)_(\d+)", r"acnet.\1.\2"),
     (r"(action_net|value_net_out)", r"\1"),
     (r"(actor|q1|q2)_(\d+|out)", r"\1_\2"),                            # SAC's heads
+    (r"head/Dense_(\d+)", r"head.dense.\1"),               # the probes' Dense stacks
 ]
 _KEPT = ("slot_mu", "slot_log_sigma", "cls_token", "bos", "pe", "mask_token",
          "slot_mean_init", "slot_logsig_init")
@@ -433,6 +434,7 @@ _POLICY_TO_FLAX = [
     (r"acnet\.(shared|policy|value)\.(\d+)", r"acnet/\1_\2"),
     (r"(action_net|value_net_out)", r"\1"),
     (r"(actor|q1|q2)_(\d+|out)", r"\1_\2"),
+    (r"head\.dense\.(\d+)", r"head/Dense_\1"),
 ]
 _OCR = "ocr_module."
 
@@ -521,7 +523,7 @@ def rl_optax_state(kind: str, count, mu: dict, nu: dict, params: dict,
         tree = flax(values, heads)
         moments[key] = _mask_like(flax(params, heads), tree) if frozen_ocr else tree
     if kind == "adam":
-        inner = {"0": {"count": np.asarray(count, np.int32), **moments}, "1": {}}
+        inner = adam_optax_state(count, moments["mu"], moments["nu"])
     elif kind == "rmsprop":
         inner = {"0": moments, "1": {}, "2": {}}
     else:
@@ -531,6 +533,48 @@ def rl_optax_state(kind: str, count, mu: dict, nu: dict, params: dict,
         return {"inner_states": {"frozen": {"inner_state": {}},
                                  "train": {"inner_state": chain}}}
     return chain
+
+
+def adam_optax_state(count, mu: dict, nu: dict) -> dict:
+    """optax.adam's state as flax's state dict: ``(ScaleByAdamState(count,
+    mu, nu), EmptyState())``, the moments already flax trees."""
+    return {"0": {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}, "1": {}}
+
+
+def part_to_flax(prefix: str, state: dict[str, torch.Tensor],
+                 heads: dict[str, int] | None = None) -> dict:
+    """JAX's tree of one part of a model whose flax tree nests it under
+    ``prefix`` ("pooling_module" for a pooling, "head" for the probes'
+    Dense stacks, whose rules name it so): the part's own ``state_dict`` ->
+    its flax params ({} for a part without parameters). ``heads`` as for
+    ``to_flax``, relative to the part."""
+    tree = to_flax({f"{prefix}.{k}": v for k, v in state.items()},
+                   {f"{prefix}.{k}": v for k, v in (heads or {}).items()})
+    return tree.get(prefix, {})
+
+
+def part_from_flax(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
+    """``part_to_flax``'s inverse: the part's flax params -> its own
+    ``state_dict``."""
+    return {k[len(prefix) + 1:]: v for k, v in from_flax({prefix: tree}).items()}
+
+
+def part_adam_tree(prefix: str, optimizer, names: list[str],
+                   heads: dict[str, int] | None = None) -> dict:
+    """optax.adam's state of one part (``part_to_flax``'s ``prefix`` and
+    ``heads``) from its ``rl.ppo.OptaxChain``, whose moments follow the
+    part's parameter ``names``."""
+    moments = [part_to_flax(prefix, dict(zip(names, m)), heads)
+               for m in (optimizer.mu, optimizer.nu)]
+    return adam_optax_state(optimizer.count, *moments)
+
+
+def load_part_adam(prefix: str, optimizer, names: list[str], tree: dict) -> None:
+    """Set one part's ``OptaxChain`` from ``part_adam_tree``'s tree."""
+    adam = tree["0"]
+    mu, nu = part_from_flax(prefix, adam["mu"]), part_from_flax(prefix, adam["nu"])
+    optimizer.load_state_dict({"count": int(np.asarray(adam["count"])),
+                               "mu": [mu[n] for n in names], "nu": [nu[n] for n in names]})
 
 
 def rl_optax_moments(tree: dict, stacked: bool = False) -> tuple:

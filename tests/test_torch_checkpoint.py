@@ -54,6 +54,16 @@ def assert_same_tree(got, want, path="tree"):
         assert got == want or (got != got and want != want), (path, got, want)
 
 
+def flat(tree, prefix=""):
+    """A nested dict's leaves by path, in sorted order."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for key in sorted(tree):
+        out.update(flat(tree[key], f"{prefix}/{key}"))
+    return out
+
+
 def envelope(path):
     raw = Path(path).read_bytes()
     (n,) = struct.unpack("<Q", raw[8:16])
@@ -164,9 +174,10 @@ def test_old_bcdec_layout_migrates_as_jax_does(tmp_path):
 def test_jax_ocr_checkpoint_loads_into_the_port(tmp_path):
     """A SLATE run directory saved by ocrl_tpu.utils.checkpoint.save (params
     and optimizer state) loads through get_ocr(run_id=...) with every
-    weight exactly; the optimizer starts fresh. A payload that lacks a
-    subtree (a params-only export without ``out``) keeps the fresh module's
-    values there, as allow_partial does."""
+    weight and the optimizer state exactly, as JAX's get_ocr loads both
+    (ocrl_tpu/poolings/wrapper.py:49-63). A payload that lacks a subtree (a
+    params-only export without ``out``) keeps the fresh module's values
+    there, as allow_partial does."""
     jocr = _jax_ocr("slate")
     jocr.update(np.zeros((2, 16, 16, 3), np.uint8), None, 0)   # weights off their init
     params = jax.tree.map(np.asarray, jocr.params)
@@ -174,7 +185,10 @@ def test_jax_ocr_checkpoint_loads_into_the_port(tmp_path):
     port = port_eval_config(**{"ocr_checkpoint.run_id": str(tmp_path / "run")})
     assert tckpt.resolve_ocr_checkpoint_path(port.ocr_checkpoint).name == "model_latest.ckpt"
     ocr, pretrained = tckpt.get_ocr(port.ocr, port.env, port.ocr_checkpoint, device="cpu")
-    assert pretrained and ocr.optimizer.count == 0 and ocr._last_step == 0
+    assert pretrained and ocr.optimizer.count == 1 and ocr._last_step == 0
+    want_opt = jax.tree.map(np.asarray, serialization.to_state_dict(jocr.opt_state))
+    got_opt = tckpt.checkpoint_tree(ocr)["ocr_opt_state_dict"]
+    assert_same_tree(flat(got_opt), flat(want_opt))
     want = ocr_from_flax(params)
     got = ocr.module.state_dict()
     assert set(got) == set(want)

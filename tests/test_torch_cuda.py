@@ -617,3 +617,44 @@ def test_train_ocr_trains_and_resumes_on_the_card(cuda, tmp_path):
     records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
     assert sorted(r["_step"] for r in records if "train/loss" in r) == list(range(12))
     assert (tmp_path / "run" / "checkpoints" / "model_12.ckpt").exists()
+
+
+@pytest.fixture
+def probe_files(tmp_path):
+    """A full-width SLATE checkpoint (seed 0) and a file of 128 + 8 images
+    of target-N4C4S3S1 with labels and the objects' states."""
+    from ocrl_tpu_torch.config import OCRConfig, read_dataset_config, read_env_config
+    from ocrl_tpu_torch.data.collect import collect_dataset
+    from ocrl_tpu_torch.models import create_ocr
+    from ocrl_tpu_torch.utils import checkpoint as ckpt
+
+    ckpt.save(create_ocr(OCRConfig(), read_dataset_config("target-N4C4S3S1"), seed=0),
+              tmp_path, step=0)
+    data = tmp_path / "probes.hdf5"
+    collect_dataset(read_env_config("target-N4C4S3S1"), 128, 8, num_proc=4, with_labels=True,
+                    with_states=True, out_file=data)
+    return tmp_path / "checkpoints" / "model_latest.ckpt", data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["property", "classifier", "aux"])
+def test_probe_steps_match_the_cpu_on_the_card(cuda, probe_files, probe):
+    """A property update at 24, a classifier step at 128 and an aux-loss
+    Pooling call at 24 (B1, B2, B3) at full SLATE width, card against CPU
+    on the same weights, batch and noise, under the rules of chip_smoke.py's
+    probes phase (``check_property_step``, ``check_classifier_step``,
+    ``check_aux_pooling``: PROBE_TOL of max(|x|, 1), matched columns
+    exactly)."""
+    import chip_smoke
+    from ocrl_tpu_torch.data import DataLoader, H5Dataset
+
+    encoder, data = probe_files
+    batch = next(iter(DataLoader(H5Dataset(data, "TrainingSet"), 128, shuffle=True, seed=4)))
+    small = {k: v[:24] for k, v in batch.items()}
+    if probe == "property":
+        worst = chip_smoke.check_property_step(encoder, small)
+    elif probe == "classifier":
+        worst = chip_smoke.check_classifier_step(encoder, batch)
+    else:
+        worst = chip_smoke.check_aux_pooling(encoder, small["obss"])
+    assert worst <= chip_smoke.PROBE_TOL
