@@ -20,7 +20,9 @@ Phases, each printing its own line with its seconds:
    the softmax, and B2 on rows with NaN against its plain version (the
    first NaN's index); B1 and B2 are also timed beside one PyTorch call
    each that computes the same function with its own noise
-   (F.gumbel_softmax, Categorical(logits).sample());
+   (F.gumbel_softmax, Categorical(logits).sample()); B1 and B2 with a row
+   offset (row0, a data-parallel rank's rows): the field drawn equals rows
+   [row0, row0 + R) of the replay at row0 + R rows;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -149,7 +151,32 @@ Phases, each printing its own line with its seconds:
    call at 24 (dropout 0; B1's and B2's fields replayed from their seeds by
    ops.gumbel.replay_field for the CPU); B3 at B = 128 against the plain
    sweep, bitwise repeatable, timed beside its bound. --profile adds the
-   tables of 5 property updates at 24 and 3 classifier steps at 128.
+   tables of 5 property updates at 24 and 3 classifier steps at 128;
+15. ddp: data parallelism (ocrl_tpu_torch.parallel), two ranks on the one
+   card with the gloo backend (NCCL refuses two ranks on one device),
+   spawned with a file:// store in a temporary directory: each makes the
+   full-width SLATE OCR from its own seed, shard_ocr gives both rank 0's
+   state, and each takes 12 rows of a global batch of 24 painted scenes:
+   two updates (the second with masks), update_many of k = 4, get_loss with
+   masks, get_samples, a save on rank 0 loaded by both, one more update,
+   then one Slot-Attention (use_bcdec) update, with the launch counts reset
+   just before and read just after (B1 1, B2 1, B3 3, B4 3 a step); against
+   the same calls in one process at 24 from the same state with no
+   injected noise (each rank draws its rows of one process's draws: the
+   kernels through row0), cuDNN deterministic on both sides for the
+   comparison (not for the times): every metric to STEP_LOSS_RTOL; the
+   first step's gradients by compare_grads and the parameters after it by
+   first_step_gap's rule (the Slot-Attention update's too); then the one
+   process loads the file rank 0 saved (its state, Adam's moments too, must
+   be bitwise the ranks'), and the last update starts from that one state:
+   its gradients by compare_grads, each side's parameters after it against
+   Adam replayed in float64 from that side's state and gradients, to
+   float32's rounding (adam_replay_gap; at a later step Adam is no longer
+   sign-like, so first_step_gap's rule does not hold there); the sample
+   grid within 1 of one process's, over 99 % of it equal; the ranks'
+   parameters bitwise equal after every step; ms an update of two ranks and
+   of one process at 24; then one NCCL rank (world 1) whose update is
+   bitwise one process's.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -654,6 +681,39 @@ def check_gumbel(R, V, bw, flops, gen, time_it=True):
     return results
 
 
+def check_gumbel_row0(R: int, V: int, row0: int, gen) -> float:
+    """B1 and B2 drawing rows row0 .. row0 + R - 1 of a longer field (a
+    data-parallel rank's rows): the field they drew against rows [row0,
+    row0 + R) of its numpy replay at row0 + R rows, within FIELD_TOL, and
+    their outputs against the plain versions fed it. Returns the worst field
+    error."""
+    logits = torch.randn(R, V, device="cuda", generator=gen) * 3
+    worst = 0.0
+    for soft in (True, False):
+        g = torch.empty_like(logits)
+        state = gen.get_state()
+        if soft:
+            got = gumbel.gumbel_softmax_sample(logits, 0.55, generator=gen, g_out=g, row0=row0)
+            ok = (got - gumbel.gumbel_softmax_sample_reference(logits, g, 0.55)).abs().max() \
+                <= SOFT_TOL
+        else:
+            got = gumbel.gumbel_argmax_ids(logits, generator=gen, g_out=g, row0=row0)
+            ok = torch.equal(got, gumbel.gumbel_argmax_ids_reference(logits, g))
+        stream = gumbel.SOFT_STREAM if soft else gumbel.IDS_STREAM
+        exact = gumbel.replay_field(gumbel.replayed_seed(state, "cuda"), stream, row0 + R, V)
+        err = (g.cpu().double() - torch.from_numpy(exact[row0:])).abs().max().item()
+        worst = max(worst, err)
+        name = gumbel.SOFT_KERNEL if soft else gumbel.IDS_KERNEL
+        print(f"  {name} R={R} V={V} row0={row0}: field against rows [{row0}, {row0 + R}) of "
+              f"its replay at {row0 + R} rows max |g - g_exact| {err:.3e} (tolerance "
+              f"{FIELD_TOL}); output against its plain version {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not (ok and err <= FIELD_TOL):
+            raise SystemExit(f"{name} with row0={row0} disagrees with its exact field or its "
+                             f"plain version at {(R, V)}")
+    return worst
+
+
 def check_id_frequencies(gen):
     """One row repeated: B2's id frequencies ~ softmax(row) (as
     tests/test_ops.py holds the JAX version)."""
@@ -821,11 +881,11 @@ def plain_kernels(fields: dict):
     saved = (slot_routing.route_sweep, gumbel.gumbel_softmax_sample,
              gumbel.gumbel_argmax_ids)
 
-    def soft(logits, tau, *, generator=None, noise=None, g_out=None):
+    def soft(logits, tau, *, generator=None, noise=None, g_out=None, row0=0):
         gumbel.draw_seed(generator, logits.device)
         return gumbel.gumbel_softmax_sample_reference(logits, fields["soft"], tau)
 
-    def ids(logits, *, generator=None, noise=None, g_out=None):
+    def ids(logits, *, generator=None, noise=None, g_out=None, row0=0):
         gumbel.draw_seed(generator, logits.device)
         return gumbel.gumbel_argmax_ids_reference(logits.detach(), fields["ids"])
 
@@ -1449,7 +1509,7 @@ def first_step_gap(grads: dict, start: dict, card: dict, cpu: dict, groups: dict
     deviation over max(|leaf|, ``floor``) on sure entries, its leaf, the
     count of the other entries, whether each of those moved on both sides
     within Adam's bound lr (1 + weight decay |p|) of ``groups``' name ->
-    (lr, weight decay)). Below those scales a gradient entry is mostly
+    (lr, weight decay), plus one ulp of the parameter). Below those scales a gradient entry is mostly
     rounding (an attention's key bias has none in exact arithmetic), and
     Adam's first step g / (|g| + eps) turns it into any move up to lr."""
     top = max(float(np.abs(g).max(initial=0.0)) for g in grads.values())
@@ -1464,7 +1524,10 @@ def first_step_gap(grads: dict, start: dict, card: dict, cpu: dict, groups: dict
             if err > worst:
                 worst, where = err, name
         lr, decay = groups[name]
-        bound = lr * (1 + decay * np.abs(start[name][~sure])) * (1 + 1e-3)
+        # plus one ulp of the parameter: a step below it (SLATE's warm-up
+        # starts its lr at 3.3e-9) moves the stored fp32 value by 0 or 1 ulp
+        p0 = np.abs(start[name][~sure])
+        bound = lr * (1 + decay * p0) * (1 + 1e-3) + np.spacing(p0.astype(np.float32))
         for side in (card, cpu):
             bound_ok &= bool((np.abs(side[name] - start[name])[~sure] <= bound).all())
         noisy += int((~sure).sum())
@@ -2733,6 +2796,367 @@ def probes_phase(card: str, encoder, workdir, bw: float, flops: float) -> dict:
                 sweep=sweep, worst=worst, keep=keep)
 
 
+# -- ddp: data parallelism over torch.distributed ranks -----------------------
+
+DDP_WORLD, DDP_BATCH, DDP_K, DDP_TIMED, DDP_WARMUP = 2, 24, 4, 10, 3
+DDP_SECONDS = 300       # the ranks' deadline: a rank that hangs fails the run
+
+
+@contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block: the ddp phase's
+    comparisons then see the split of the batch and the collectives, not
+    run-to-run rounding of cuDNN's atomic sums, which Adam's steps on
+    near-zero gradients would turn into moves of up to lr."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def ddp_data(env_cfg) -> dict:
+    """The global batches of the ddp phase (painted scenes of 4 objects and
+    their masks), numpy, from fixed seeds."""
+    size = env_cfg.obs_size
+    obs, masks = zip(*(painted(DDP_BATCH, size, 4, seed=700 + i) for i in range(4)))
+    many, _ = painted(DDP_K * DDP_BATCH, size, 4, seed=710)
+    return {"obs": obs, "masks": masks, "many": many}
+
+
+def host_metrics(metrics: dict) -> dict:
+    return {k: torch.as_tensor(v).double().cpu().numpy() for k, v in metrics.items()}
+
+
+def host_state(module) -> dict:
+    """The module's state as numpy copies (a CPU tensor's .numpy() is a view)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def ranks_equal(ocr) -> bool:
+    """Whether every rank holds bitwise the same parameters: the
+    elementwise largest and smallest of their bits over the ranks agree."""
+    import torch.distributed as dist
+
+    bits = torch.cat([p.detach().reshape(-1).view(torch.int32)
+                      for p in ocr.module.parameters()])
+    top, low = bits.clone(), bits.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=ocr.group)
+    dist.all_reduce(low, op=dist.ReduceOp.MIN, group=ocr.group)
+    return bool(torch.equal(top, low))
+
+
+def adam_groups(ocr) -> dict:
+    """Each parameter's (lr of the last step, weight decay), by name."""
+    groups = {id(p): (g["lr"], g["weight_decay"]) for g in ocr.optimizer.adam.param_groups
+              for p in g["params"]}
+    return {n: groups[id(p)] for n, p in ocr.module.named_parameters()}
+
+
+def adam_moments(ocr) -> dict:
+    """Adam's moments (m, v) of each parameter that has them, numpy, by name."""
+    state = ocr.optimizer.adam.state
+    return {n: (state[p]["exp_avg"].cpu().numpy().copy(),
+                state[p]["exp_avg_sq"].cpu().numpy().copy())
+            for n, p in ocr.module.named_parameters() if p in state}
+
+
+def first_step(ocr, obs: np.ndarray, step: int = 0) -> dict:
+    """One update at ``step`` from the OCR's state: its metrics, the state
+    (and Adam's moments) before it and the parameters after it, the
+    (clipped) gradients (zero where the loss reaches no parameter:
+    Slot-Attention's dVAE and decoder), each parameter's (lr, weight decay)
+    and Adam's step number t (1 at the first), numpy, for first_step_gap."""
+    start, moments, t = host_state(ocr.module), adam_moments(ocr), ocr.optimizer.count + 1
+    metrics = host_metrics(ocr.update(obs, None, step))
+    return dict(metrics=metrics, start=start, moments=moments, t=t,
+                params=host_state(ocr.module),
+                grads={n: np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                       else p.grad.detach().cpu().numpy().copy()
+                       for n, p in ocr.module.named_parameters()},
+                groups=adam_groups(ocr))
+
+
+def ddp_drive(ocr, data: dict, take, run_dir, load_dir=None) -> dict:
+    """The ddp phase's calls on ``ocr`` (sharded or not): two updates (the
+    second with masks), update_many of DDP_K, get_loss with masks,
+    get_samples, a save to ``run_dir`` and a load from ``load_dir`` (else
+    ``run_dir``), one more update; ``take(x, batches)`` gives the rows this
+    process holds. Returns the metrics of each call, the first and the last
+    update (``first_step``: the last one starts from the loaded file), the
+    sample grid, the launches and, sharded, whether the ranks held bitwise
+    equal parameters after each step's call."""
+    sharded = ocr.shard is not None
+    out = {"equal": []}
+    reset_launches()
+
+    def call(fn) -> dict:
+        result = fn()
+        if sharded:
+            out["equal"].append(ranks_equal(ocr))
+        return result
+
+    out["first"] = call(lambda: first_step(ocr, take(data["obs"][0])))
+    out["metrics"] = [out["first"]["metrics"]]
+    out["metrics"].append(host_metrics(call(lambda: ocr.update(
+        take(data["obs"][1]), take(data["masks"][1]), 1))))
+    out["metrics"].append(host_metrics(call(lambda: ocr.update_many(
+        take(data["many"], DDP_K), None, 2, DDP_K))))
+    out["metrics"].append(host_metrics(ocr.get_loss(take(data["obs"][2]),
+                                                    take(data["masks"][2]))))
+    out["samples"] = ocr.get_samples(take(data["obs"][2]))["samples"]
+    ckpt.save(ocr, run_dir, step=2 + DDP_K)
+    ckpt.load(ocr, run_dir if load_dir is None else load_dir)
+    out["last"] = call(lambda: first_step(ocr, take(data["obs"][3]), 2 + DDP_K))
+    out["metrics"].append(out["last"]["metrics"])
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    out["steps"] = 3 + DDP_K
+    return out
+
+
+def ddp_timed_ms(ocr, obs: np.ndarray) -> float:
+    """ms an update of ``obs`` (this process's rows), DDP_TIMED steps after
+    DDP_WARMUP, the ranks started together (a barrier) where sharded."""
+    import torch.distributed as dist
+
+    for i in range(DDP_WARMUP):
+        ocr.update(obs, None, 100 + i)
+    torch.cuda.synchronize()
+    if ocr.shard is not None:
+        dist.barrier(group=ocr.group)
+    t0 = time.perf_counter()
+    for i in range(DDP_TIMED):
+        ocr.update(obs, None, 200 + i)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / DDP_TIMED
+
+
+def ddp_bcdec(ocr, obs: np.ndarray, take) -> dict:
+    """One Slot-Attention update (``first_step``) and its launches."""
+    reset_launches()
+    out = first_step(ocr, take(obs))
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    return out
+
+
+def _ddp_rank(rank: int, init: str, workdir: str, data: dict) -> None:
+    """One of DDP_WORLD ranks on the card (gloo): the SLATE OCR made from
+    its own seed, then shard_ocr (rank 0's state on every rank), the
+    calls of ddp_drive on its rows, the timed steps, one Slot-Attention
+    update; its results to ``workdir``."""
+    import os
+
+    import torch.distributed as dist
+
+    from ocrl_tpu_torch.parallel import local_rows, make_group, shard_ocr
+
+    torch.cuda.set_device(0)
+    group = make_group("gloo", rank, DDP_WORLD, init)
+    take = lambda x, batches=1: local_rows(x, (rank, DDP_WORLD), batches)  # noqa: E731
+    ocr_cfg, env_cfg = OCRConfig(), EnvConfig()
+    ocr = create_ocr(ocr_cfg, env_cfg, seed=rank)
+    shard_ocr(ocr, group)
+    with deterministic_cudnn():
+        out = ddp_drive(ocr, data, take, os.path.join(workdir, "run"))
+    out["ms"] = ddp_timed_ms(ocr, take(data["obs"][0]))
+    bcdec = create_ocr(config_replace(ocr_cfg, "use_bcdec", True), env_cfg, seed=rank)
+    shard_ocr(bcdec, group)
+    with deterministic_cudnn():
+        out["bcdec"] = ddp_bcdec(bcdec, data["obs"][3], take)
+    out["equal"].append(ranks_equal(bcdec))
+    if rank:   # rank 0's arrays stand for both; every rank's flags and counts
+        out = {k: out[k] for k in ("metrics", "equal", "launches", "ms")} | {
+            "bcdec": {k: out["bcdec"][k] for k in ("metrics", "launches")}}
+    torch.save(out, os.path.join(workdir, f"ddp-{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, seconds: float) -> None:
+    """``fn(rank, *args)`` in ``nprocs`` fresh processes; a rank that raises
+    fails the run, and so do ranks that outlive ``seconds`` (killed)."""
+    context = torch.multiprocessing.start_processes(fn, args, nprocs=nprocs, join=False,
+                                                    start_method="spawn")
+    deadline = time.monotonic() + seconds
+    while not context.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in context.processes:
+                p.kill()
+            raise SystemExit(f"the ranks did not finish in {seconds} s")
+
+
+def adam_replay_gap(side: dict, b1: float = 0.9, b2: float = 0.999,
+                    eps: float = 1e-8) -> tuple[float, str]:
+    """One side's step (``first_step``'s record) against Adam replayed in
+    float64 from its own state, moments and (clipped) gradients: torch's
+    AdamW, p (1 - lr wd) - lr / (1 - b1^t) m / (sqrt(v / (1 - b2^t)) + eps).
+    Each entry to the float32 rounding of that update (8 ulps of m's terms
+    and 32 of the ratio, through lr / (1 - b1^t)) plus one ulp of the
+    parameter, before or after (the step may cross a power of two). Returns
+    (the worst share of that tolerance, its leaf)."""
+    t, unit = side["t"], np.finfo(np.float32).eps
+    worst, where = 0.0, ""
+    for name, (lr, decay) in side["groups"].items():
+        g = side["grads"][name].astype(np.float64)
+        p0 = side["start"][name].astype(np.float64)
+        m0, v0 = (x.astype(np.float64) for x in side["moments"].get(name, (0.0, 0.0)))
+        m = m0 + (1 - b1) * (g - m0)
+        den = np.sqrt((b2 * v0 + (1 - b2) * g * g) / (1 - b2 ** t)) + eps
+        step = lr / (1 - b1 ** t)
+        want = p0 * (1 - lr * decay) - step * m / den
+        tol = (step * (8 * unit * (np.abs(m0) + np.abs(g)) + 32 * unit * np.abs(m)) / den
+               + np.spacing(np.maximum(np.abs(side["start"][name]),
+                                       np.abs(side["params"][name]))))
+        share = float((np.abs(side["params"][name] - want) / tol).max())
+        if share > worst:
+            worst, where = share, name
+    return worst, where
+
+
+def check_nccl_rank(ocr_cfg, env_cfg, obs: np.ndarray, init: str) -> None:
+    """One update of a full OCR (seed 0) as the only rank of an NCCL group
+    against the same update in one process: bitwise equal metrics and
+    parameters (the all-reduce of one rank and the division by 1 are exact).
+    cuDNN runs deterministic algorithms on both sides for the check, so that
+    the comparison sees the collective, not cuDNN's run-to-run rounding."""
+    import torch.distributed as dist
+
+    from ocrl_tpu_torch.parallel import make_group, shard_ocr
+
+    with deterministic_cudnn():
+        single = create_ocr(ocr_cfg, env_cfg, seed=0)
+        want = host_metrics(single.update(obs, None, 0))
+        group = make_group("nccl", 0, 1, init)
+        try:
+            ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+            shard_ocr(ocr, group)
+            got = host_metrics(ocr.update(obs, None, 0))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    same_metrics = set(got) == set(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+    a, b = host_state(ocr.module), host_state(single.module)
+    same_params = all(np.array_equal(a[k], b[k]) for k in b)
+    print(f"  one NCCL rank (world 1) against one process, update at batch "
+          f"{obs.shape[0]}: metrics bitwise {'yes' if same_metrics else 'NO'}, parameters "
+          f"bitwise {'yes' if same_params else 'NO'}", flush=True)
+    if not (same_metrics and same_params):
+        raise SystemExit("the NCCL rank's step differs from one process's")
+
+
+def ddp_phase(card: str, workdir) -> dict:
+    """Two gloo ranks on the one card against one process (see the module
+    docstring). Returns the ranks' launch counts and the step times."""
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(dir=workdir))
+    ocr_cfg, env_cfg = OCRConfig(), EnvConfig()
+    iters = ocr_cfg.slotattr.num_iterations
+    data = ddp_data(env_cfg)
+    t0 = time.perf_counter()
+    spawn_ranks(_ddp_rank, (f"file://{tmp}/init", str(tmp), data), DDP_WORLD, DDP_SECONDS)
+    ranks = [torch.load(tmp / f"ddp-{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    spawn_s = time.perf_counter() - t0
+    single = create_ocr(ocr_cfg, env_cfg, seed=0)
+    take = lambda x, batches=1: x  # noqa: E731
+    with deterministic_cudnn():
+        want = ddp_drive(single, data, take, tmp / "single", tmp / "run")
+    single_ms = ddp_timed_ms(single, data["obs"][0])
+    bcdec = create_ocr(config_replace(ocr_cfg, "use_bcdec", True), env_cfg, seed=0)
+    with deterministic_cudnn():
+        want_bcdec = ddp_bcdec(bcdec, data["obs"][3], take)
+
+    got = ranks[0]
+    per_call = [max(worst_leaf(r["metrics"][i], w) for r in ranks)
+                for i, w in enumerate(want["metrics"])]
+    per_call.append(max(worst_leaf(r["bcdec"]["metrics"], want_bcdec["metrics"])
+                        for r in ranks))
+    worst = max(per_call)
+    ranks_metrics = all(np.array_equal(a[k], b[k]) for a, b in
+                        zip(ranks[0]["metrics"], ranks[1]["metrics"]) for k in a)
+    equal = [all(flags) for flags in zip(*(r["equal"] for r in ranks))]
+
+    def grads_gap(g: dict, w: dict) -> tuple[float, bool]:
+        worst, ok, _ = compare_grads({k: torch.from_numpy(v) for k, v in g["grads"].items()},
+                                     {k: torch.from_numpy(v) for k, v in w["grads"].items()})
+        return worst, ok
+
+    def first_gaps(g: dict, w: dict) -> tuple:
+        """A first step of both sides from one state: the gradients by
+        compare_grads, the parameters after it by first_step_gap."""
+        return grads_gap(g, w) + first_step_gap(w["grads"], w["start"], g["params"],
+                                                w["params"], w["groups"], 1e-2)
+
+    def first_ok(gaps: tuple) -> bool:
+        _, grad_ok, param, _, _, bound_ok = gaps
+        return grad_ok and param <= PRETRAIN_TOL and bound_ok
+
+    def first_line(gaps: tuple) -> str:
+        grad, _, param, where, noisy, bound_ok = gaps
+        return (f"gradients worst {grad:.3f} of their tolerance, parameters worst {param:.3e} "
+                f"of max(|leaf|, 1e-2) ({where}; tolerance {PRETRAIN_TOL}), {noisy} entries "
+                f"within Adam's bound: {'yes' if bound_ok else 'NO'}")
+
+    first, bcdec = first_gaps(got["first"], want["first"]), first_gaps(got["bcdec"], want_bcdec)
+    g_last, w_last = got["last"], want["last"]
+    same_start = (all(np.array_equal(g_last["start"][k], v) for k, v in w_last["start"].items())
+                  and all(np.array_equal(g_last["moments"][k][i], v[i])
+                          for k, v in w_last["moments"].items() for i in (0, 1)))
+    last_grad, last_grad_ok = grads_gap(g_last, w_last)
+    (replay_got, replay_got_where), (replay_want, replay_want_where) = (
+        adam_replay_gap(g_last), adam_replay_gap(w_last))
+
+    sample_diff = np.abs(got["samples"].astype(int) - want["samples"].astype(int))
+    samples_ok = (got["samples"].shape == want["samples"].shape and sample_diff.max() <= 1
+                  and (sample_diff == 0).mean() > 0.99)
+    per_step = {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, slot_routing.KERNEL: iters,
+                slot_routing.BWD_KERNEL: iters}
+    n = want["steps"]
+    expected = {gumbel.SOFT_KERNEL: n + 2, gumbel.IDS_KERNEL: n + 1,
+                slot_routing.KERNEL: iters * (n + 2), slot_routing.BWD_KERNEL: iters * n}
+    expected_bcdec = {slot_routing.KERNEL: iters, slot_routing.BWD_KERNEL: iters}
+    launches_ok = all(r["launches"] == expected and r["bcdec"]["launches"] == expected_bcdec
+                      for r in ranks) and want["launches"] == expected
+    ok = (worst <= STEP_LOSS_RTOL and ranks_metrics and all(equal) and first_ok(first)
+          and same_start and last_grad_ok and max(replay_got, replay_want) <= 1
+          and first_ok(bcdec) and launches_ok and samples_ok)
+    ddp_ms = [r["ms"] for r in ranks]
+    print(f"  {DDP_WORLD} gloo ranks on the card, {DDP_BATCH // DDP_WORLD} rows each of a "
+          f"global batch of {DDP_BATCH} (spawned, ran and joined in {spawn_s:.1f} s): "
+          f"launches a rank {ranks[0]['launches']} and Slot-Attention "
+          f"{ranks[0]['bcdec']['launches']} (per step {per_step}; expected {expected} and "
+          f"{expected_bcdec}): {'ok' if launches_ok else 'MISMATCH'}", flush=True)
+    print(f"  against one process at {DDP_BATCH}, no injected noise: metrics of "
+          f"{len(per_call)} calls worst {worst:.3e} of max(|value|, 1) (tolerance "
+          f"{STEP_LOSS_RTOL}; by call {', '.join(f'{e:.1e}' for e in per_call)}); the first "
+          f"step: {first_line(first)}; one process loaded rank 0's file after {n - 1} steps: "
+          f"its state bitwise the ranks' {'yes' if same_start else 'NO'}; the last step from "
+          f"it: gradients worst {last_grad:.3f} of their tolerance, each side's parameters "
+          f"against Adam replayed from its gradients worst {replay_got:.3f} (ranks, "
+          f"{replay_got_where}) and {replay_want:.3f} (one process, {replay_want_where}) of "
+          f"float32's rounding (tolerance 1); the Slot-Attention update: {first_line(bcdec)}; "
+          f"sample grid {got['samples'].shape}, "
+          f"{100 * (sample_diff == 0).mean():.2f} % of its values equal, largest difference "
+          f"{sample_diff.max()} (tolerance 1, over 99 % equal)", flush=True)
+    print(f"  the ranks bitwise equal after every call: {equal} (metrics "
+          f"{'equal' if ranks_metrics else 'DIFFER'})", flush=True)
+    print(f"  {card}: ms an update at {DDP_BATCH}: {DDP_WORLD} gloo ranks on one card "
+          f"{', '.join(f'{ms:.3f}' for ms in ddp_ms)} (each step all-reduces "
+          f"{4 * sum(p.numel() for p in single.module.parameters()) / 1e6:.1f} MB of "
+          f"gradients through the host: gloo's number on this card, not NCCL's), one "
+          f"process {single_ms:.3f}", flush=True)
+    if not ok:
+        raise SystemExit("the data-parallel ranks disagree with one process or each other")
+    check_nccl_rank(ocr_cfg, env_cfg, data["obs"][0], f"file://{tmp}/nccl")
+    launches = tuple(r["launches"] for r in ranks) + tuple(r["bcdec"]["launches"]
+                                                           for r in ranks)
+    return dict(launches=launches, ms=ddp_ms, single_ms=single_ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -2786,6 +3210,10 @@ def main() -> int:
                      bw, flops, gen)
         check_gumbel(1000, 512, bw, flops, gen)
         check_gumbel(7, 32, bw, flops, gen, time_it=False)
+        # a data-parallel rank's rows: rank 1 of 2 at the ddp phase's batch
+        tokens_rank = (DDP_BATCH // DDP_WORLD) * (env_cfg.obs_size // 4) ** 2
+        check_gumbel_row0(tokens_rank, ocr_cfg.dvae.vocab_size, tokens_rank, gen)
+        check_gumbel_row0(7, 32, 5, gen)
         check_id_frequencies(gen)
         check_ids_nan(tokens, ocr_cfg.dvae.vocab_size, gen)
         check_ids_nan(1000, 512, gen)
@@ -2875,6 +3303,9 @@ def main() -> int:
 
     with phase("probes"):
         probes = probes_phase(card, ocr_train["encoder"], workdir.name, bw, flops)
+
+    with phase("ddp"):
+        ddp = ddp_phase(card, workdir.name)
     workdir.cleanup()
 
     if args.profile:
@@ -2934,10 +3365,10 @@ def main() -> int:
         # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
         # pretraining phase, train_ocr's two runs, the multi-seed runs, the
-        # two SAC runs and the two probes
+        # two SAC runs, the two probes and the ddp phase's ranks
         runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
-            multi["launches"] + sac["launches"] + probes["launches"]
+            multi["launches"] + sac["launches"] + probes["launches"] + ddp["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

@@ -7,8 +7,9 @@ On CUDA a batch is gathered into pinned host memory and copied with
 waits for that copy
 before it gets the batch, and the tensors are recorded on it for the
 caching allocator. On the CPU the batches are torch tensors sharing the
-numpy arrays' memory. The ``sharding`` argument of the JAX function (data
-parallelism) comes with the DDP slice.
+numpy arrays' memory. ``shard`` (rank, world size) is the counterpart of the
+JAX function's ``sharding``: each batch goes to the device as the rank's
+rows only (``parallel.local_rows``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_rows
+
 _POLL_S = 0.1
 
 
@@ -30,7 +33,8 @@ def _stack(group: list[dict]) -> dict[str, np.ndarray]:
 
 
 def prefetch_to_device(iterable: Iterable, device: str | torch.device, size: int = 2,
-                       superbatch: int = 1, yield_whole: bool = False) -> Iterator:
+                       superbatch: int = 1, yield_whole: bool = False,
+                       shard: tuple[int, int] | None = None) -> Iterator:
     """Yield the dicts of numpy arrays of ``iterable`` as dicts of tensors on
     ``device``, ``size`` items ahead.
 
@@ -40,8 +44,13 @@ def prefetch_to_device(iterable: Iterable, device: str | torch.device, size: int
     its batches (slices of the copy) or, with ``yield_whole``, as one dict
     of k x B rows (what ``OCR.update_many`` takes). An exception in the
     producer is raised in the consumer. Closing the generator early (a
-    ``break``) stops the producer.
+    ``break``) stops the producer. With ``shard`` each batch is the rank's
+    rows of the iterable's batch; a batch that the world size does not
+    divide raises ValueError, and so does ``shard`` with ``superbatch > 1``,
+    as in JAX (slicing a superbatch would cut across the ranks' rows).
     """
+    if shard is not None and superbatch > 1:
+        raise ValueError("superbatch and shard are mutually exclusive")
     device = torch.device(device)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -92,7 +101,8 @@ def prefetch_to_device(iterable: Iterable, device: str | torch.device, size: int
                 if stop.is_set():
                     return
                 if superbatch <= 1:
-                    put_group([item])
+                    put_group([item if shard is None else
+                               {k: local_rows(v, shard) for k, v in item.items()}])
                     continue
                 if group and (item.keys() != group[0].keys()
                               or any(item[k].shape != group[0][k].shape for k in group[0])):

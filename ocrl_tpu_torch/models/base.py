@@ -8,6 +8,15 @@ no clip reports no ``norm``. ``update_many`` takes k such steps in a Python
 loop on the device, where JAX scans them in one program. Random state is
 one ``torch.Generator`` on the model's device, seeded from ``seed``.
 ``MultiGroupAdam`` is the optimizer of every OCR that trains.
+
+Under data parallelism (``parallel.shard_ocr``, the counterpart of the five
+step functions that ocrl_tpu/parallel/mesh.py re-jits) each rank passes its
+own rows of every batch; a step averages the gradients and the metrics over
+the ranks in one all-reduce before the clip, ``get_loss`` reports the
+global batch's metrics, ``rep`` returns the rank's rows and
+``get_samples`` the grid of the whole batch. The OCR's generator carries
+the shard (``common.shard_draws``), so every draw of its module is the
+rank's rows of one process's.
 """
 
 from __future__ import annotations
@@ -17,6 +26,9 @@ from typing import Callable
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.mesh import gather_rows, mean_over_ranks
+from .common import randn
 
 
 def normalize_obs(obs: torch.Tensor) -> torch.Tensor:
@@ -96,6 +108,10 @@ class OCR:
         self.device = device
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._last_step = 0
+        # the data-parallel shard (rank, world size) and its process group,
+        # set by parallel.shard_ocr; None in one process
+        self.shard: tuple[int, int] | None = None
+        self.group = None
 
     def _on_device(self, x) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
@@ -116,6 +132,9 @@ class OCR:
         loss, metrics = self.module.loss(obs, masks, step, True,
                                          generator=self.generator, noise=noise)
         loss.backward()
+        if self.shard is not None:
+            grads = [p.grad for p in self.module.parameters() if p.grad is not None]
+            metrics = self._mean_over_ranks(metrics, grads)
         if self.clip is not None:
             metrics["norm"] = clip_by_total_norm(list(self.module.parameters()), self.clip,
                                                  self.clip_ord)
@@ -164,7 +183,21 @@ class OCR:
         step = self._last_step if step is None else step
         _, metrics = self.module.loss(self._obs(obs), self._masks(masks), step, False,
                                       generator=self.generator, noise=noise)
+        if self.shard is not None:
+            metrics = self._mean_over_ranks(metrics)
         return metrics
+
+    def _mean_over_ranks(self, metrics: dict, grads: list[torch.Tensor] = ()) -> dict:
+        """The metrics (their tensors) averaged over the ranks, and
+        ``grads`` in place, in one all-reduce. Every loss term of the OCRs
+        is a mean over the batch's rows whose count does not depend on the
+        data (MAE's masked patches are B x (N - kept) by its config), so
+        the mean of the ranks' equal shares is the global batch's."""
+        keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+        means = mean_over_ranks(list(grads) + [metrics[k].detach() for k in keys], self.group)
+        for g, mean in zip(grads, means):
+            g.copy_(mean)
+        return {**metrics, **dict(zip(keys, means[len(grads):]))}
 
     def rep(self, obs, *, noise: dict | None = None, grad: bool = False) -> torch.Tensor:
         """The representation of ``obs`` (uint8 or float NHWC), the module
@@ -178,7 +211,8 @@ class OCR:
             shape_fn = getattr(self.module, "noise_shape", None)
             shape = shape_fn(obs.shape[0]) if shape_fn is not None else None
             if shape is not None:
-                draws = torch.randn(shape, generator=self.generator, device=self.device)
+                draws = randn(shape, self.generator, self.device,
+                              getattr(self.module, "noise_batch_axis", 0))
                 if noise is not None:
                     noise["rep"] = draws
         self.module.eval()
@@ -188,10 +222,13 @@ class OCR:
     @torch.no_grad()
     def get_samples(self, obs, *, noise: dict | None = None) -> dict:
         """The module's sample grid {"samples": uint8 [B, H', W', C]}, from
-        its ``sample_arrays`` brought to the host (base.py:258-268)."""
+        its ``sample_arrays`` brought to the host (base.py:258-268); under a
+        shard, the whole batch's, every rank's arrays gathered."""
         self.module.eval()
         kwargs = {} if noise is None else {"noise": noise}
         arrays = self.module.sample_arrays(self._obs(obs), generator=self.generator, **kwargs)
+        if self.shard is not None:
+            arrays = gather_rows(arrays, self.group)
         return self.module.samples_grid(*(a.detach().cpu().numpy() for a in arrays))
 
     def save(self) -> dict:

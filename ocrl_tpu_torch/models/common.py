@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import gumbel
+
 # flax.linen.LayerNorm's default epsilon; torch's is 1e-5.
 FLAX_LN_EPS = 1e-6
 
@@ -247,6 +249,80 @@ def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor, tau: float = 1.0,
     return y_hard - y_soft.detach() + y_soft
 
 
+# The data-parallel shard (rank, world size) of each sharded OCR, keyed by
+# the OCR's generator, which every draw of its module takes: parallel.shard_ocr
+# sets it, and from then on every draw with a batch axis from that generator
+# keeps the rank's rows of the draw one process makes for the whole batch, as
+# JAX's sharded step draws at the global shape and each device keeps its
+# rows. It holds wherever the module runs (the OCR's methods, or a caller of
+# ``ocr.module`` that passes ``ocr.generator``, as poolings/wrapper.py does).
+# Keyed by id and holding the generator itself, so that no other object can
+# take its id (some torch versions refuse a weak reference to a Generator).
+_SHARDS: dict[int, tuple[torch.Generator, tuple[int, int]]] = {}
+
+
+def shard_draws(generator: torch.Generator, shard: tuple[int, int]) -> None:
+    """Make ``generator``'s draws those of ``shard`` (rank, world size)."""
+    _SHARDS[id(generator)] = (generator, shard)
+
+
+def _shard_of(generator: torch.Generator | None) -> tuple[int, int] | None:
+    held = None if generator is None else _SHARDS.get(id(generator))
+    return None if held is None else held[1]
+
+
+def drawn(shape, draw, generator: torch.Generator | None, batch_axis: int = 0) -> torch.Tensor:
+    """``draw(shape)`` in one process. Under ``generator``'s shard (rank r of
+    W): ``draw`` at W times the rows on ``batch_axis``, the global batch's
+    shape, and rows [r n, (r + 1) n) of it kept, so the generator advances
+    as in one process and each rank holds its rows of the same draw."""
+    shard = _shard_of(generator)
+    if shard is None:
+        return draw(tuple(shape))
+    rank, world = shard
+    n = shape[batch_axis]
+    full = tuple(n * world if i == batch_axis else d for i, d in enumerate(shape))
+    return draw(full).narrow(batch_axis, rank * n, n).contiguous()
+
+
+def randn(shape, generator: torch.Generator | None, device, batch_axis: int = 0,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normals from ``generator``, the shard's rows (``drawn``)."""
+    return drawn(shape, lambda s: torch.randn(s, generator=generator, device=device,
+                                              dtype=dtype), generator, batch_axis)
+
+
+def rand(shape, generator: torch.Generator | None, device, batch_axis: int = 0) -> torch.Tensor:
+    """Uniforms in [0, 1) from ``generator``, the shard's rows (``drawn``)."""
+    return drawn(shape, lambda s: torch.rand(s, generator=generator, device=device),
+                 generator, batch_axis)
+
+
+def gumbel_draw(logits: torch.Tensor, generator: torch.Generator | None,
+                noise: torch.Tensor | None) -> tuple[torch.Tensor | None, int]:
+    """How a Gumbel call site draws the field of ``logits`` [R, V]: (the
+    field to pass as ``noise``, or None for the wrapper to draw it; the
+    ``row0`` to pass). A given field is used as it is, and one process's
+    wrapper draws its own. Under ``generator``'s shard (rank r) the rows
+    are the rank's rows of the field one process draws for the whole
+    batch: on the card the kernel draws them itself at row0 = r R; on the
+    CPU they are drawn whole (``drawn``), since the plain twin of ``row0``
+    advances the generator by a count that differs per rank."""
+    shard = _shard_of(generator)
+    if noise is not None or shard is None:
+        return noise, 0
+    if logits.device.type != "cpu":
+        return None, shard[0] * logits.shape[0]
+    return gumbel_field_rows(logits, generator), 0
+
+
+def gumbel_field_rows(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """A plain Gumbel field like ``logits`` from ``generator``, the shard's
+    rows (``drawn``)."""
+    return drawn(logits.shape, lambda s: gumbel.gumbel_field(s, generator, logits.device),
+                 generator)
+
+
 def given_or_drawn(noise: dict | None, key: str, draw) -> torch.Tensor:
     """``noise[key]`` where the dict holds it; else ``draw()``, stored into
     ``noise`` when there is one, so that a caller can replay it."""
@@ -260,8 +336,9 @@ def given_or_drawn(noise: dict | None, key: str, draw) -> torch.Tensor:
 
 def keep_mask(shape, keep_prob: float, generator: torch.Generator | None,
               device: torch.device) -> torch.Tensor:
-    """Bernoulli(keep_prob) mask of a dropout, drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+    """Bernoulli(keep_prob) mask of a dropout, drawn from ``generator``
+    (the shard's rows of the batch, axis 0)."""
+    return rand(shape, generator, device) < keep_prob
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,

@@ -7,8 +7,8 @@ import torch
 from torch import nn
 
 from ..ops import gumbel
-from .common import (Conv2dBlock, PositionalEmbedding, conv2d, conv_nhwc, gumbel_softmax,
-                     pixel_shuffle)
+from .common import (Conv2dBlock, PositionalEmbedding, conv2d, conv_nhwc, gumbel_draw,
+                     gumbel_field_rows, gumbel_softmax, pixel_shuffle)
 
 _SHUFFLE_AFTER = (4, 8)   # decoder blocks followed by pixel_shuffle(2)
 
@@ -51,12 +51,15 @@ class dVAE(nn.Module):
         """Gumbel sample of logits [R, vocab]. ``hard=False`` is kernel B1
         (``ops.gumbel``); ``hard=True`` the straight-through one-hot on the
         plain noise path. ``noise`` is the Gumbel field to use instead of a
-        draw from ``generator``; ``g_out`` receives the field used."""
+        draw from ``generator``; ``g_out`` receives the field used. Under a
+        data-parallel shard the rows are the rank's rows of the global
+        batch's field (``models.common.gumbel_draw``)."""
+        noise, row0 = gumbel_draw(flat_logits, generator, noise)
         if not hard:
             return gumbel.gumbel_softmax_sample(flat_logits, tau, generator=generator,
-                                                noise=noise, g_out=g_out)
+                                                noise=noise, g_out=g_out, row0=row0)
         if noise is None:
-            noise = gumbel.gumbel_field(flat_logits.shape, generator, flat_logits.device)
+            noise = gumbel_field_rows(flat_logits, generator)
         if g_out is not None:
             g_out.copy_(noise)
         return gumbel_softmax(flat_logits, noise, tau, True)

@@ -45,7 +45,7 @@ from torch import nn
 from ..config import EnvConfig, IodineConfig
 from ..utils.metrics import calculate_ari
 from ..utils.viz import for_viz, visualize
-from .common import dense, flax_conv, given_or_drawn, lecun_normal_
+from .common import dense, flax_conv, given_or_drawn, lecun_normal_, randn
 
 
 class MultiLayerConv(nn.ModuleList):
@@ -314,7 +314,7 @@ class Iodine_Module(nn.Module):
         return (self.num_iterations, B, self.num_slots, self.slot_size)
 
     def _draw(self, B: int, generator: torch.Generator | None, device) -> torch.Tensor:
-        return torch.randn(self.noise_shape(B), generator=generator, device=device)
+        return randn(self.noise_shape(B), generator, device, self.noise_batch_axis)
 
     def forward(self, obs: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, with_masks: bool = False):

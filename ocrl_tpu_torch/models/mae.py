@@ -31,7 +31,7 @@ from torch import nn
 from ..config import EnvConfig, MAEConfig
 from ..utils.viz import for_viz
 from .base import MultiGroupAdam, constant
-from .common import FLAX_LN_EPS, MultiHeadDotProductAttention, dense, given_or_drawn
+from .common import FLAX_LN_EPS, MultiHeadDotProductAttention, dense, given_or_drawn, rand
 
 VIT_SIZES = {
     "base": dict(dim=768, depth=12, heads=12, dec_dim=512, dec_depth=8, dec_heads=16),
@@ -164,8 +164,7 @@ class MAE_Module(nn.Module):
         patch is kept and the mask is all zeros (mae.py:128-133)."""
         B, N = obs.shape[0], self.grid ** 2
         if self.masking_ratio > 0:
-            order = given_or_drawn(noise, "masking", lambda: torch.rand(
-                (B, N), generator=generator, device=obs.device))
+            order = given_or_drawn(noise, "masking", lambda: rand((B, N), generator, obs.device))
             latent, mask, ids_restore = self._encode(obs, order)
         else:
             latent = self._encode(obs)[0]

@@ -34,7 +34,8 @@ from ..ops import gumbel
 from ..utils.metrics import calculate_ari
 from ..utils.viz import for_viz, visualize
 from .base import MultiGroupAdam, constant
-from .common import PositionalEmbedding, cosine_anneal, linear, linear_warmup
+from .common import (PositionalEmbedding, cosine_anneal, gumbel_draw, linear, linear_warmup,
+                     randn)
 from .dvae import BroadCastDecoder, SlotAttnCNNEncoder, dVAE
 from .slot_attention import SlotAttentionEncoder
 from .transformer import LearnedPositionalEncoding, TransformerDecoder
@@ -220,8 +221,9 @@ class SLATE_Module(nn.Module):
         g, g_out = _field(noise, "soft", flat)
         z = self.dvae.sample(flat, tau, ocr.hard, generator, g, g_out)
         g, g_out = _field(noise, "ids", flat)
-        token_ids = gumbel.gumbel_argmax_ids(flat, generator=generator, noise=g,
-                                             g_out=g_out).reshape(B, H * W)
+        g, row0 = gumbel_draw(flat, generator, g)
+        token_ids = gumbel.gumbel_argmax_ids(flat, generator=generator, noise=g, g_out=g_out,
+                                             row0=row0).reshape(B, H * W)
 
         slots, attns = self.get_slots(obs, self._slot_noise(obs, generator, noise),
                                       generator)
@@ -248,8 +250,8 @@ class SLATE_Module(nn.Module):
             return None
         if "slots" not in noise:
             sa = self._ocr.slotattr
-            noise["slots"] = torch.randn((obs.shape[0], sa.num_slots, sa.slot_size),
-                                         generator=generator, device=obs.device)
+            noise["slots"] = randn((obs.shape[0], sa.num_slots, sa.slot_size), generator,
+                                   obs.device)
         return noise["slots"]
 
     @torch.no_grad()

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ..ops import slot_routing
-from .common import FLAX_LN_EPS, FusedGRUCell, linear
+from .common import FLAX_LN_EPS, FusedGRUCell, linear, randn
 
 FUSED_MODES = ("never", "auto", "always")
 
@@ -157,9 +157,8 @@ class SlotAttentionEncoder(nn.Module):
         B = x.shape[0]
         x = self.mlp(self.layer_norm(x))
         if noise is None:
-            noise = torch.randn((B, self.num_slots, self.slot_size),
-                                generator=generator, device=x.device,
-                                dtype=x.dtype)
+            noise = randn((B, self.num_slots, self.slot_size), generator, x.device,
+                          dtype=x.dtype)
         elif noise.shape != (B, self.num_slots, self.slot_size):
             raise ValueError(f"noise must be {(B, self.num_slots, self.slot_size)}, "
                              f"got {tuple(noise.shape)}")

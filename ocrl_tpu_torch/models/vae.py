@@ -26,7 +26,7 @@ from torch import nn
 from ..config import EnvConfig, VAEConfig
 from ..utils.viz import for_viz
 from .common import (Conv2dBlock, conv2d, conv_nhwc, dense, given_or_drawn, img_to_slot,
-                     pixel_shuffle)
+                     pixel_shuffle, randn)
 
 
 def _stages(compression_rate: int) -> int:
@@ -100,8 +100,7 @@ class VAE_Module(nn.Module):
         """(mu, log_var, the decoded draw [B, H, W, C])."""
         flat = self.enc(obs).reshape(obs.shape[0], -1)
         mu, log_var = self.mu(flat), self.var(flat)
-        eps = given_or_drawn(noise, "eps", lambda: torch.randn(
-            mu.shape, generator=generator, device=mu.device))
+        eps = given_or_drawn(noise, "eps", lambda: randn(mu.shape, generator, mu.device))
         latent = mu + eps * torch.exp(0.5 * log_var)
         s = self.cnn_feat_size
         return mu, log_var, self.dec(self.in_dec(latent).reshape(obs.shape[0], s, s, 64))

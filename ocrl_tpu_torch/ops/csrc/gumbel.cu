@@ -10,9 +10,12 @@
 // the kernel. The TPU draws its bits with the core's own generator seeded by
 // seed + program_id; a GPU has none, so here the bits come from a
 // counter-based Philox4x32-10 keyed by (seed, stream) and counted by
-// (column / 4, row): a value depends on the seed and its position only, not
-// on the launch shape. The soft and the id kernels use two streams, as the
-// TPU kernel offsets the ids' seed by 0x5E3779B9.
+// (column / 4, row0 + row): a value depends on the seed and its position
+// only, not on the launch shape. The soft and the id kernels use two
+// streams, as the TPU kernel offsets the ids' seed by 0x5E3779B9. `row0`
+// places the launch's rows in a larger field: a data-parallel rank passes
+// the index of its first row in the global batch's [rows, V], so that it
+// draws exactly its rows of the field one process would draw.
 //
 // What bounds them: at the SLATE training step (R = 24 * 16 * 16 = 6144
 // rows of V = 4096) gumbel_soft reads and writes 100.7 MB each (0.060 ms
@@ -204,7 +207,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 gumbel_soft_kernel(const float* __restrict__ logits,
                    const float* __restrict__ noise, float* __restrict__ y,
                    float* __restrict__ g_out, const int64_t* __restrict__ seed,
-                   int V, float tau) {
+                   int V, float tau, uint32_t row0) {
   __shared__ float red[kMaxThreads / 32];
   const uint32_t row = blockIdx.x;
   const int v4 = V / 4;
@@ -220,7 +223,7 @@ gumbel_soft_kernel(const float* __restrict__ logits,
     const int c4 = threadIdx.x + j * blockDim.x;
     if (c4 < v4) x[j] = lr[c4];
   }
-  add_field<G>(nr, gr, key, threadIdx.x, blockDim.x, v4, row, x);
+  add_field<G>(nr, gr, key, threadIdx.x, blockDim.x, v4, row0 + row, x);
   float m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < G; ++j) {
@@ -284,7 +287,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 gumbel_ids_kernel(const float* __restrict__ logits,
                   const float* __restrict__ noise, int64_t* __restrict__ ids,
                   float* __restrict__ g_out, const int64_t* __restrict__ seed,
-                  int V) {
+                  int V, uint32_t row0) {
   __shared__ uint32_t red_k[kMaxThreads / 32], red_i[kMaxThreads / 32];
   const uint32_t row = blockIdx.x;
   const int v4 = V / 4;
@@ -302,7 +305,7 @@ gumbel_ids_kernel(const float* __restrict__ logits,
     const int c4 = threadIdx.x + j * blockDim.x;
     if (c4 < v4) x[j] = lr[c4];
   }
-  add_field<G>(nr, gr, key, threadIdx.x, blockDim.x, v4, row, x);
+  add_field<G>(nr, gr, key, threadIdx.x, blockDim.x, v4, row0 + row, x);
   // pos: the thread's own position 4 j + k of its best value, a constant
   // of the unrolled loop; the column is formed once, after it.
   float best = -INFINITY;   // a thread without values keeps (-inf, V)
@@ -366,16 +369,18 @@ void shape_of(int V, int* threads, int* groups) {
   }
 
 // logits, noise, y, g_out: [R, V] fp32, contiguous, 16-byte aligned; noise
-// and g_out may be null. seed: one int64 on the device. The caller checks
-// V % 4 == 0 and V <= 8192. Returns the launch's CUDA error code (0 = none).
+// and g_out may be null. seed: one int64 on the device. row0: the Philox
+// row of the first logits row. The caller checks V % 4 == 0, V <= 8192,
+// row0 >= 0 and row0 + R < 2^31. Returns the launch's CUDA error code (0 = none).
 extern "C" int gumbel_soft(const float* logits, const float* noise, float* y,
                            float* g_out, const int64_t* seed, int R, int V,
-                           float tau, void* stream) {
+                           float tau, int row0, void* stream) {
   int threads, groups;
   shape_of(V, &threads, &groups);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define OCRL_SOFT(n) \
-  gumbel_soft_kernel<n><<<R, threads, 0, st>>>(logits, noise, y, g_out, seed, V, tau)
+  gumbel_soft_kernel<n><<<R, threads, 0, st>>>(logits, noise, y, g_out, seed, V, tau, \
+                                                static_cast<uint32_t>(row0))
   OCRL_GUMBEL_SWITCH(groups, OCRL_SOFT)
 #undef OCRL_SOFT
   return static_cast<int>(cudaGetLastError());
@@ -384,12 +389,13 @@ extern "C" int gumbel_soft(const float* logits, const float* noise, float* y,
 // As gumbel_soft, with ids: [R] int64.
 extern "C" int gumbel_ids(const float* logits, const float* noise,
                           int64_t* ids, float* g_out, const int64_t* seed,
-                          int R, int V, void* stream) {
+                          int R, int V, int row0, void* stream) {
   int threads, groups;
   shape_of(V, &threads, &groups);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define OCRL_IDS(n) \
-  gumbel_ids_kernel<n><<<R, threads, 0, st>>>(logits, noise, ids, g_out, seed, V)
+  gumbel_ids_kernel<n><<<R, threads, 0, st>>>(logits, noise, ids, g_out, seed, V, \
+                                               static_cast<uint32_t>(row0))
   OCRL_GUMBEL_SWITCH(groups, OCRL_IDS)
 #undef OCRL_IDS
   return static_cast<int>(cudaGetLastError());

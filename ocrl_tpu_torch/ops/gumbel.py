@@ -15,6 +15,15 @@ drawing one; ``g_out`` (a tensor like the logits) receives the field that was
 used. The soft sample is differentiable in the logits, with the backward of
 ocrl_tpu/ops/gumbel.py::_soft_bwd in plain torch; the ids take no gradient.
 
+``row0`` places the R rows in a larger field, at rows row0 .. row0 + R - 1:
+a data-parallel rank whose logits are rows row0 .. of the global batch's
+draws its rows of the field that one process would draw for the whole
+batch. The kernels add it to the Philox counter's row word, and draw
+nothing more. The plain version draws ``gumbel_field`` at row0 + R rows and
+keeps the last R: its plain twin, which advances the generator by the
+longer draw, so a sharded OCR on the CPU draws its fields whole instead
+(``models.common.gumbel_draw`` decides how a call site draws).
+
 ``replay_field`` recomputes in numpy, from the seed, the field a kernel drew:
 the plain reference of the kernels' noise, for the tests and chip_smoke.py,
 never on the main path.
@@ -75,16 +84,17 @@ def gumbel_of_bits(bits: np.ndarray) -> np.ndarray:
     return -np.log(-np.log(u) + TINY)
 
 
-def replay_field(seed: int, stream: int, rows: int, V: int) -> np.ndarray:
+def replay_field(seed: int, stream: int, rows: int, V: int, row0: int = 0) -> np.ndarray:
     """The field g [rows, V] that a kernel draws from ``seed`` (the int64 the
-    wrapper drew) on ``stream`` (``SOFT_STREAM`` or ``IDS_STREAM``), replayed
-    exactly in numpy, in float64: Philox4x32-10 keyed by (low word of the
-    seed, high word + stream) and counted by (column / 4, row, 0, 0); word i
-    of a call is column 4 (column / 4) + i. Only V % 4 == 0, as the kernels."""
+    wrapper drew) on ``stream`` (``SOFT_STREAM`` or ``IDS_STREAM``) at
+    ``row0``, replayed exactly in numpy, in float64: Philox4x32-10 keyed by
+    (low word of the seed, high word + stream) and counted by (column / 4,
+    row0 + row, 0, 0); word i of a call is column 4 (column / 4) + i. Only
+    V % 4 == 0, as the kernels."""
     s = int(seed) % 2 ** 64
     key = np.array([s & 0xFFFFFFFF, ((s >> 32) + stream) & 0xFFFFFFFF], np.uint32)
     col4, row = np.meshgrid(np.arange(V // 4, dtype=np.uint32),
-                            np.arange(rows, dtype=np.uint32))
+                            np.arange(row0, row0 + rows, dtype=np.uint32))
     zero = np.zeros_like(col4)
     words = philox4x32_10(np.stack([col4, row, zero, zero], axis=-1), key)
     return gumbel_of_bits(words).reshape(rows, V)
@@ -115,10 +125,12 @@ def replayed_seed(state: torch.Tensor, device: torch.device | str) -> int:
     return int(draw_seed(gen, torch.device(device)).item())
 
 
-def _check(name: str, logits: torch.Tensor, *others: torch.Tensor | None) -> None:
+def _check(name: str, logits: torch.Tensor, row0: int, *others: torch.Tensor | None) -> None:
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError(f"{name}: logits must be 2-D float32, got "
                          f"{logits.dtype} {tuple(logits.shape)}")
+    if not 0 <= row0 <= 2 ** 31 - 1 - logits.shape[0]:
+        raise ValueError(f"{name}: row0 must be in [0, 2^31 - R), got {row0}")
     for t in others:
         if t is not None and (t.shape != logits.shape or t.dtype != torch.float32
                               or t.device != logits.device):
@@ -137,11 +149,11 @@ def _check(name: str, logits: torch.Tensor, *others: torch.Tensor | None) -> Non
                                  "16-byte aligned")
 
 
-_ARGTYPES = {   # pointers: logits, noise, out, g_out, seed; then R, V, ...
+_ARGTYPES = {   # pointers: logits, noise, out, g_out, seed; then R, V, ..., row0, stream
     SOFT_KERNEL: [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_float, ctypes.c_void_p],
+                                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     IDS_KERNEL: [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p],
+                                         ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -154,30 +166,34 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _plain_field(logits, generator, noise, g_out):
-    g = gumbel_field(logits.shape, generator, logits.device) if noise is None else noise
+def _plain_field(logits, generator, noise, g_out, row0):
+    if noise is None:
+        R, V = logits.shape
+        g = gumbel_field((row0 + R, V), generator, logits.device)[row0:]
+    else:
+        g = noise
     if g_out is not None:
         g_out.copy_(g)
     return g
 
 
-def _soft_forward(logits, tau, generator, noise, g_out):
+def _soft_forward(logits, tau, generator, noise, g_out, row0):
     if logits.device.type == "cpu":
-        g = _plain_field(logits, generator, noise, g_out)
+        g = _plain_field(logits, generator, noise, g_out, row0)
         return gumbel_softmax_sample_reference(logits, g, tau)
     R, V = logits.shape
     y = torch.empty_like(logits)
     seed = draw_seed(generator, logits.device)
     _build.launch_on(logits.device, SOFT_KERNEL, _entry(SOFT_KERNEL),
                      logits.data_ptr(), _ptr(noise), y.data_ptr(), _ptr(g_out),
-                     seed.data_ptr(), R, V, float(tau))
+                     seed.data_ptr(), R, V, float(tau), row0)
     return y
 
 
 class _SoftSample(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, tau, generator, noise, g_out):
-        y = _soft_forward(logits, tau, generator, noise, g_out)
+    def forward(ctx, logits, tau, generator, noise, g_out, row0):
+        y = _soft_forward(logits, tau, generator, noise, g_out, row0)
         ctx.save_for_backward(y)
         ctx.tau = tau
         return y
@@ -188,34 +204,37 @@ class _SoftSample(torch.autograd.Function):
         # d softmax / tau, as ocrl_tpu/ops/gumbel.py::_soft_bwd
         (y,) = ctx.saved_tensors
         inner = (dy * y).sum(-1, keepdim=True)
-        return y * (dy - inner) / ctx.tau, None, None, None, None
+        return y * (dy - inner) / ctx.tau, None, None, None, None, None
 
 
 def gumbel_softmax_sample(logits: torch.Tensor, tau: float, *,
                           generator: torch.Generator | None = None,
                           noise: torch.Tensor | None = None,
-                          g_out: torch.Tensor | None = None) -> torch.Tensor:
+                          g_out: torch.Tensor | None = None,
+                          row0: int = 0) -> torch.Tensor:
     """softmax((logits + g) / tau) per row of logits [R, V]; see the module
     docstring."""
-    _check("gumbel_softmax_sample", logits, noise, g_out)
-    return _SoftSample.apply(logits, float(tau), generator, noise, g_out)
+    _check("gumbel_softmax_sample", logits, row0, noise, g_out)
+    return _SoftSample.apply(logits, float(tau), generator, noise, g_out, int(row0))
 
 
 def gumbel_argmax_ids(logits: torch.Tensor, *,
                       generator: torch.Generator | None = None,
                       noise: torch.Tensor | None = None,
-                      g_out: torch.Tensor | None = None) -> torch.Tensor:
+                      g_out: torch.Tensor | None = None,
+                      row0: int = 0) -> torch.Tensor:
     """argmax(logits + g) per row of logits [R, V], as int64 ids [R]; no
-    gradient flows through them (ocrl_tpu/ops/gumbel.py:139-149)."""
-    _check("gumbel_argmax_ids", logits, noise, g_out)
+    gradient flows through them (ocrl_tpu/ops/gumbel.py:139-149); ``row0``
+    as in the module docstring."""
+    _check("gumbel_argmax_ids", logits, row0, noise, g_out)
     logits = logits.detach()
     if logits.device.type == "cpu":
         return gumbel_argmax_ids_reference(
-            logits, _plain_field(logits, generator, noise, g_out))
+            logits, _plain_field(logits, generator, noise, g_out, int(row0)))
     R, V = logits.shape
     ids = torch.empty(R, dtype=torch.int64, device=logits.device)
     seed = draw_seed(generator, logits.device)
     _build.launch_on(logits.device, IDS_KERNEL, _entry(IDS_KERNEL),
                      logits.data_ptr(), _ptr(noise), ids.data_ptr(), _ptr(g_out),
-                     seed.data_ptr(), R, V)
+                     seed.data_ptr(), R, V, int(row0))
     return ids

@@ -58,6 +58,7 @@ from .convert import (attention_heads, from_flax, from_flax_stacked, load_optax_
                       ocr_from_flax, ocr_to_flax, optax_state, rl_optax_moments,
                       rl_optax_state, sac_optax_moments, sac_optax_state, to_flax,
                       to_flax_stacked)
+from .torch_convert import load_reference_checkpoint
 
 _MAGIC = b"OCRLTPU1"
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -323,11 +324,16 @@ def load_ocr_file(ocr, path: str | Path) -> None:
 
 def get_ocr(ocr_config, env_config, cpt_config, seed: int = 0, device=None):
     """(OCR, pretrained): the OCR of the configs, with the weights of the
-    configured checkpoint when there is one (``load_ocr_file``)."""
+    configured checkpoint when there is one: a reference-format ``.pth``
+    file through ``torch_convert.load_reference_checkpoint``, any other
+    through ``load_ocr_file`` (ocrl_tpu/poolings/wrapper.py:49-63)."""
     ocr = create_ocr(ocr_config, env_config, seed, device)
     path = resolve_ocr_checkpoint_path(cpt_config)
     if path is None:
         return ocr, False
+    if path.suffix == ".pth":
+        load_reference_checkpoint(path, ocr)
+        return ocr, True
     load_ocr_file(ocr, path)
     return ocr, True
 
@@ -355,13 +361,18 @@ def save(ocr, run_dir: str | Path, step: int = 0, epoch: int = 0,
          best_val_loss: float = 1e5, best: bool = False) -> None:
     """``<run_dir>/checkpoints/model_{step}.ckpt`` and ``model_latest.ckpt``,
     and ``model_best.ckpt`` when ``best``, with the metadata step, epoch
-    and best_val_loss (ocrl_tpu/utils/checkpoint.py:103-117)."""
-    ckpt_dir = Path(run_dir) / "checkpoints"
-    metadata = {"step": step, "epoch": epoch, "best_val_loss": float(best_val_loss)}
-    payload = packb(checkpoint_tree(ocr))          # encoded once for every file
-    for name in [f"model_{step}.ckpt", "model_latest.ckpt"] + (["model_best.ckpt"] if best
-                                                                else []):
-        _write(ckpt_dir / name, payload, metadata)
+    and best_val_loss (ocrl_tpu/utils/checkpoint.py:103-117). A sharded OCR
+    (``parallel.shard_ocr``) holds the same state on every rank: rank 0
+    writes, and every rank returns once the files are there."""
+    if ocr.shard is None or ocr.shard[0] == 0:
+        ckpt_dir = Path(run_dir) / "checkpoints"
+        metadata = {"step": step, "epoch": epoch, "best_val_loss": float(best_val_loss)}
+        payload = packb(checkpoint_tree(ocr))          # encoded once for every file
+        for name in [f"model_{step}.ckpt", "model_latest.ckpt"] + (
+                ["model_best.ckpt"] if best else []):
+            _write(ckpt_dir / name, payload, metadata)
+    if ocr.shard is not None:
+        torch.distributed.barrier(group=ocr.group)
 
 
 def load(ocr, run_dir: str | Path | None = None, resume_checkpoint: str | None = None,

@@ -94,11 +94,15 @@ def build(sources: dict[str, Path]) -> dict[tuple[str, str], Path]:
 def entries(lib: Path):
     """The two C entries of a built variant, and the type of its ids."""
     dll = ctypes.CDLL(str(lib))
-    wide = re.search(r"gumbel_ids\([^)]*int64_t\* ids", lib.with_suffix(".cu").read_text())
-    fns = {"ids_dtype": torch.int64 if wide else torch.int32}
+    source = lib.with_suffix(".cu").read_text()
+    wide = re.search(r"gumbel_ids\([^)]*int64_t\* ids", source)
+    # sources before the row offset have no row0 before the stream
+    row0 = re.search(r"gumbel_ids\([^)]*int row0", source) is not None
+    fns = {"ids_dtype": torch.int64 if wide else torch.int32, "row0": row0}
     for name in (gumbel.SOFT_KERNEL, gumbel.IDS_KERNEL):
         fn = getattr(dll, name)
-        fn.argtypes, fn.restype = gumbel._ARGTYPES[name], ctypes.c_int
+        types = list(gumbel._ARGTYPES[name])
+        fn.argtypes, fn.restype = types if row0 else types[:-2] + types[-1:], ctypes.c_int
         fns[name] = fn
     return fns
 
@@ -109,7 +113,7 @@ def caller(fns, name, logits, seed, g_out=None):
     fn = fns[name]
     out = torch.empty_like(logits) if name == gumbel.SOFT_KERNEL else \
         torch.empty(R, dtype=fns["ids_dtype"], device=logits.device)
-    extra = (0.55,) if name == gumbel.SOFT_KERNEL else ()
+    extra = ((0.55,) if name == gumbel.SOFT_KERNEL else ()) + ((0,) if fns["row0"] else ())
     g_ptr = None if g_out is None else g_out.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
 

@@ -217,8 +217,15 @@ def test_checkpoint_paths(tmp_path):
         (tmp_path / "checkpoints" / name).write_bytes(b"")
     assert tckpt.resolve_ocr_checkpoint_path(cfg(run_id=str(tmp_path))).name == \
         "model_best.ckpt"
-    (tmp_path / "ref.pth").write_bytes(b"PK\x03\x04" + bytes(12))   # a torch zip file
+    # a truncated torch zip file: named .ckpt it is not an ocrl_tpu file; named
+    # .pth it goes to the reference-format loader, whose torch.load refuses it
+    # as JAX's does (tests/test_torch_reference_checkpoint.py loads real ones)
+    for name in ("ref.ckpt", "ref.pth"):
+        (tmp_path / name).write_bytes(b"PK\x03\x04" + bytes(12))
     port = port_eval_config()
     with pytest.raises(ValueError, match="not an ocrl_tpu checkpoint"):
+        tckpt.get_ocr(port.ocr, port.env, cfg(local_file=str(tmp_path / "ref.ckpt")),
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="zip archive"):
         tckpt.get_ocr(port.ocr, port.env, cfg(local_file=str(tmp_path / "ref.pth")),
                       device="cpu")

@@ -658,3 +658,31 @@ def test_probe_steps_match_the_cpu_on_the_card(cuda, probe_files, probe):
     else:
         worst = chip_smoke.check_aux_pooling(encoder, small["obss"])
     assert worst <= chip_smoke.PROBE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,row0", [((3072, 4096), 3072), ((1000, 512), 24), ((7, 32), 5)])
+def test_gumbel_row0_draws_rows_of_the_longer_field_on_the_card(cuda, shape, row0):
+    """B1 and B2 at row0 (a data-parallel rank's rows): the field drawn is
+    rows [row0, row0 + R) of the replay at row0 + R rows, within 1e-5, and
+    each output its plain version's on that field."""
+    from chip_smoke import FIELD_TOL, check_gumbel_row0
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    assert check_gumbel_row0(*shape, row0, gen) <= FIELD_TOL
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_steps_as_one_process_on_the_card(cuda, tmp_path):
+    """A small SLATE's update as the only rank of an NCCL group is bitwise
+    the update in one process (chip_smoke.check_nccl_rank)."""
+    from chip_smoke import check_nccl_rank, painted
+    from ocrl_tpu_torch import config
+
+    cfg = config.PolicyConfig()
+    for path, value in [("env.obs_size", 16), ("ocr.cnn.hidden_size", 16),
+                        ("ocr.slotattr.num_slots", 3), ("ocr.slotattr.slot_size", 32),
+                        ("ocr.slotattr.mlp_hidden_size", 32), ("ocr.dvae.vocab_size", 32),
+                        ("ocr.dvae.d_model", 32)]:
+        cfg = config.replace(cfg, path, value)
+    check_nccl_rank(cfg.ocr, cfg.env, painted(4, 16, 3, seed=2)[0], f"file://{tmp_path}/init")

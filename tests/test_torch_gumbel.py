@@ -227,3 +227,39 @@ def test_replayed_field_is_gumbel(stream):
     other = gumbel.IDS_STREAM if stream == gumbel.SOFT_STREAM else gumbel.SOFT_STREAM
     assert abs(np.corrcoef(g.ravel(), gumbel.replay_field(123456789, other, 64,
                                                           4096).ravel())[0, 1]) < 0.01
+
+
+@pytest.mark.parametrize("stream", [gumbel.SOFT_STREAM, gumbel.IDS_STREAM])
+def test_replay_at_row0_is_a_row_slice_of_the_longer_replay(stream):
+    """The kernels count the Philox row word from row0, so a rank drawing
+    rows row0 .. row0 + R - 1 draws exactly those rows of the global field."""
+    whole = gumbel.replay_field(987654321, stream, 10, 16)
+    np.testing.assert_array_equal(gumbel.replay_field(987654321, stream, 4, 16, row0=6),
+                                  whole[6:])
+    np.testing.assert_array_equal(gumbel.replay_field(987654321, stream, 3, 16, row0=2),
+                                  whole[2:5])
+
+
+@pytest.mark.parametrize("soft", [True, False], ids=["soft", "ids"])
+def test_plain_row0_keeps_the_last_rows_of_the_longer_draw(soft):
+    """The plain twin of row0: the field drawn at row0 + R rows, its last R
+    kept, on a generator in the same state as one drawing the longer field."""
+    logits = torch.randn(3, 8, generator=torch.Generator().manual_seed(1))
+    g = torch.empty_like(logits)
+    gen = torch.Generator().manual_seed(7)
+    if soft:
+        y = gumbel.gumbel_softmax_sample(logits, 0.5, generator=gen, g_out=g, row0=5)
+        torch.testing.assert_close(y, gumbel.gumbel_softmax_sample_reference(logits, g, 0.5),
+                                   rtol=0, atol=0)
+    else:
+        ids = gumbel.gumbel_argmax_ids(logits, generator=gen, g_out=g, row0=5)
+        assert torch.equal(ids, gumbel.gumbel_argmax_ids_reference(logits, g))
+    whole = gumbel.gumbel_field((8, 8), torch.Generator().manual_seed(7))
+    assert torch.equal(g, whole[5:])
+
+
+def test_row0_outside_the_counter_is_refused():
+    logits = torch.zeros(4, 8)
+    for row0 in (-1, 2 ** 31 - 4):
+        with pytest.raises(ValueError, match="row0"):
+            gumbel.gumbel_argmax_ids(logits, row0=row0)

@@ -16,29 +16,22 @@ the entry points on the CPU.
   parameter by 3e-7, three times the 1e-5 x 1e-2 the floor allows. Its
   parameters are held with a floor of 5e-2 (so 5e-7), its metrics and
   moments by the common rule;
-- ``train_sb3.main`` on each of the seven for_running.json rows this slice
-  adds, with the row's own overrides (the VAE and IODINE rows' checkpoint
-  being the committed artifacts/encoders file, the MAE rows' none, so they
-  run end to end) at full width, for one tiny PPO iteration; A2C on the VAE
-  row; a VAE-row and an IODINE-row agent through ``save`` / ``load`` and
-  ``evaluate_policy``.
+- a VAE-row and an IODINE-row agent of for_running.json through ``save`` /
+  ``load`` and ``evaluate_policy`` (``train_sb3.main`` on each row, and A2C
+  on the VAE row, are in tests/test_torch_rl_ocr_rows.py).
 """
-
-import json
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from ocrl_tpu_torch import config as tcfg
-from ocrl_tpu_torch import train_sb3
 from ocrl_tpu_torch.envs import make_env
-from ocrl_tpu_torch.rl import A2C, PPO, build_policy, evaluate_policy, make_vec_env
+from ocrl_tpu_torch.rl import PPO, build_policy, evaluate_policy, make_vec_env
 
 from test_torch_rl import PARAM_FLOOR, Pair, rollout
+from test_torch_rl_ocr_rows import row_argv
 
-ROOT = Path(__file__).resolve().parents[1]
 ADAM_EDGE_FLOOR = 5e-2       # see the module docstring
 # OCR parameters without gradient on the policy's path: MAE's mask token and
 # the VAE's log-variance head feed only their losses; with 2 iterations
@@ -61,13 +54,6 @@ SETUPS = {   # JAX overrides (the port composes the same), obs shape
                             "ocr.dec_cnn_hidden_size=16", "pooling=transformer",
                             "sb3_acnet=mlp"] + POOL_SMALL, 16),
 }
-ROWS = ["e2e cnn 0.01ent_coef", "e2e cnnfeat-transformer 0.01ent_coef",
-        "multiple cnn-transformer 0.01ent_coef", "vae-mlp-0.01ent_coef",
-        "mae-patch-transformer-0.01ent_coef", "mae-cls-mlp-0.01ent_coef",
-        "iodine-transformer-0.01ent_coef"]
-TINY = ["sb3.algo_kwargs.n_steps=8", "sb3.algo_kwargs.batch_size=4",
-        "sb3.algo_kwargs.n_epochs=1", "num_envs=2", "max_steps=8", "vec_env=dummy",
-        "eval.freq=1000"]
 
 
 def setup_tuple(name):
@@ -98,41 +84,6 @@ def test_ppo_minibatch_updates_match_jax(name, freeze):
         assert not moved & ocr and moved      # the OCR bitwise unchanged
     else:   # every OCR parameter whose gradient is not zero by construction moved
         assert ocr - UNREAD <= moved
-
-
-def row_argv(name):
-    """A for_running.json row's overrides on target-N4C4S3S1, its OCR
-    checkpoint the committed artifacts/encoders file where there is one;
-    MAE has none in the repo, so its rows run end to end."""
-    row = dict(json.loads((ROOT / "for_running.json").read_text())["ocrs"][name])
-    row.pop("tags")
-    checkpoint = Path(row.pop("pooling.ocr_checkpoint.local_file", ""))
-    argv = [f"{k}={v}" for k, v in row.items()] + ["env=target-N4C4S3S1"]
-    committed = ROOT / "artifacts" / "encoders" / checkpoint.name
-    if checkpoint.name and committed.exists():
-        argv.append(f"pooling.ocr_checkpoint.local_file={committed}")
-    return argv
-
-
-@pytest.mark.parametrize("name", ROWS)
-def test_each_row_trains_through_main(name, tmp_path):
-    result = train_sb3.main(row_argv(name) + TINY + [f"run_dir={tmp_path}"], device="cpu")
-    algo = result["algo"]
-    assert isinstance(algo, PPO) and algo.num_timesteps == 8
-    assert algo.last_iteration["updates"] == 2
-    assert all(np.isfinite(v) for v in result["metrics"].values())
-    assert algo.policy.freeze_ocr == name.startswith(("vae", "iodine"))
-    assert (tmp_path / "metrics.jsonl").exists()
-
-
-def test_a2c_on_the_vae_row(tmp_path):
-    argv = [a for a in row_argv("vae-mlp-0.01ent_coef") if a != "sb3=ppo"] + [
-        "sb3=a2c", "num_envs=2", "max_steps=20", "vec_env=dummy", "eval.freq=1000",
-        f"run_dir={tmp_path}"]
-    result = train_sb3.main(argv, device="cpu")
-    algo = result["algo"]
-    assert isinstance(algo, A2C) and algo.num_timesteps == 20 and algo.optimizer.count == 5
-    assert algo.policy.freeze_ocr and all(np.isfinite(v) for v in result["metrics"].values())
 
 
 @pytest.mark.parametrize("name", ["vae-mlp-0.01ent_coef", "iodine-transformer-0.01ent_coef"])
