@@ -33,7 +33,19 @@ Phases, each printing its own line with its seconds:
    against the same model with every kernel replaced by its plain version,
    fed the Gumbel fields the kernels drew; and the loss on one fixed batch
    falls;
-6. evaluation: the full-width SLATE OCR (seed 0, get_ocr without a
+6. amp: train_ocr ocr=slate ocr.amp=bf16 (slate.yaml, the conv stacks in
+   bf16 with fp32 parameters and loss) at the same width and batch: one
+   step of SLATE and one of Slot-Attention at batch 4 against the CPU's bf16
+   and fp32 steps on the same weights and draws (check_amp_step: each
+   metric and gradient no farther from fp32 than twice the CPU bf16 run's,
+   conv blocks bf16 on both bf16 sides, Adam's first step replayed); then 4 warm-up
+   steps, during which every conv block must output bf16, and 20 timed
+   steps of update_many (k = 4), ms a step beside the training phase's fp32
+   reading, the loss on the fixed batch lower; one Slot-Attention update and
+   one get_loss with masks; each with the launch counts reset just before
+   and read just after and held exactly. --profile adds the convolutions'
+   device time a step, fp32 and bf16;
+7. evaluation: the full-width SLATE OCR (seed 0, get_ocr without a
    checkpoint) scores batches of 32 painted scenes with their masks through
    get_ari_mse.evaluate (foreground ARI of the loss, then the greedy KV-cached
    gen_imgs MSE): one warm-up batch, then timed batches with the launch
@@ -42,7 +54,7 @@ Phases, each printing its own line with its seconds:
    (loss metrics, the ARI's label maps, the greedy tokens); then the
    Slot-Attention OCR (use_bcdec) scores one batch, with its launch counts,
    against its plain version;
-7. rl-training: train_sb3.train of the slate-transformer-0.01ent_coef row
+8. rl-training: train_sb3.train of the slate-transformer-0.01ent_coef row
    (ocr=slate pooling=transformer sb3=ppo sb3_acnet=mlp env=target-N4C4S3S1
    sb3.algo_kwargs.ent_coef=0.01, no OCR checkpoint: end to end; full
    widths, random weights from seed 0) for one PPO iteration at the
@@ -55,13 +67,13 @@ Phases, each printing its own line with its seconds:
    minibatch and slot noise; then 10 updates with the OCR frozen (no B4,
    the OCR bitwise unchanged); then evaluate_policy on 20 envs for 20
    episodes (B3 three times a policy call);
-8. agent-evaluation: test_sb3 on the committed GT-Transformer agent
+9. agent-evaluation: test_sb3 on the committed GT-Transformer agent
    artifacts/rl/GT-Transformer-PPO-OddOneOutN4C2S2S1Env-final (the slice of
    seed 1234) for 100 episodes on 20 envs, its success rate beside the
    manifest's value for that seed (a sanity band, not a condition); the
    condition: its logits and values on 64 env states agree between the
    card and the CPU;
-9. other-ocrs: train_sb3.train of each of the seven rows of
+10. other-ocrs: train_sb3.train of each of the seven rows of
    for_running.json with the other OCRs (e2e cnn, e2e cnnfeat-transformer,
    multiple cnn-transformer, vae-mlp, mae-patch-transformer, mae-cls-mlp,
    iodine-transformer; target-N4C4S3S1, full widths, random weights from
@@ -74,7 +86,7 @@ Phases, each printing its own line with its seconds:
    from a float64 run on the CPU; RN, MLP, Identity, CNN_Linear and
    CNN_Transformer (on a 64x64 grid of 8-wide slots) and the Transformer's
    push embedding, card against CPU; one end-to-end IODINE update of 32;
-10. pretraining: VAE (vae.yaml), MAE-base (mae.yaml, its lr x 24 / 256 by
+11. pretraining: VAE (vae.yaml), MAE-base (mae.yaml, its lr x 24 / 256 by
    train_ocr's rule) and IODINE-large (iodine_large.yaml, 2-norm clip 5.0),
    full width, seed 0, through create_ocr and OCR.update_many (k = 4) on
    uint8 batches of 24 painted scenes: one step card against CPU at batch 4
@@ -85,7 +97,7 @@ Phases, each printing its own line with its seconds:
    finite metrics); then get_ari_mse.evaluate of IODINE-large
    on 2 batches of 32 painted scenes with masks (ari, mse, ms a batch), one
    batch card against CPU; no kernel launched in the phase;
-11. train-ocr: the port's collector on env=random-N5C4S4S2 (64x64x3, 5
+12. train-ocr: the port's collector on env=random-N5C4S4S2 (64x64x3, 5
    objects, masks on): 1536 training and 64 validation images on up to 8
    forked workers, images/s, the file read back through the port's HDF5
    reader bitwise equal to what the workers return; then train_ocr.main
@@ -101,7 +113,7 @@ Phases, each printing its own line with its seconds:
    model_latest: it starts at step 64 with parameters and Adam moments
    bitwise those saved, and ends at 96; its model_latest.ckpt is kept for
    the next phase;
-12. multi-seed: the README's benchmark protocol (README.md:39-41) at full
+13. multi-seed: the README's benchmark protocol (README.md:39-41) at full
    SLATE width: train_sb3 ocr=slate pooling=transformer sb3=ppo
    sb3_acnet=mlp env=target-N4C4S3S1 sb3.algo_kwargs.ent_coef=0.01
    seeds=1234,2345,3456 pipeline_rollout=True cache_frozen_reps=True on the
@@ -120,7 +132,7 @@ Phases, each printing its own line with its seconds:
    vmapped update of the three seeds against three single-seed PPO updates
    (B3 and B4 launched num_iterations times in all; the tolerances in
    check_vmapped_update);
-13. sac: train_sb3 ocr=slate pooling=transformer sb3=sac sb3_acnet=mlp
+14. sac: train_sb3 ocr=slate pooling=transformer sb3=sac sb3_acnet=mlp
    env=cw-target-N4C4S1S1 env.use_fake_sim=true at full width (seed 0,
    end to end) with configs/sb3/sac.yaml as it is (4 forked envs, batch
    256, learning_starts 1000, a 1e6-row buffer), cut to max_steps 1256
@@ -136,7 +148,7 @@ Phases, each printing its own line with its seconds:
    moved by the run's Polyak steps); B3 and B4 at B = 256 against the plain
    sweep, bitwise repeatable, timed beside their bounds; the CausalWorld
    collector (--fake-sim, 256 + 64 images) read back bitwise;
-14. probes: the port's collector on env=target-N4C4S3S1 with labels and
+15. probes: the port's collector on env=target-N4C4S3S1 with labels and
    states (1024 + 256 images); train_property_predictor.main ocr=slate
    (mlp3 head, batch 24, one epoch: 42 steps and 11 validation batches) and
    train_classifier.main ocr=slate pooling=transformer (batch 128, one
@@ -152,7 +164,7 @@ Phases, each printing its own line with its seconds:
    ops.gumbel.replay_field for the CPU); B3 at B = 128 against the plain
    sweep, bitwise repeatable, timed beside its bound. --profile adds the
    tables of 5 property updates at 24 and 3 classifier steps at 128;
-15. ddp: data parallelism (ocrl_tpu_torch.parallel), two ranks on the one
+16. ddp: data parallelism (ocrl_tpu_torch.parallel), two ranks on the one
    card with the gloo backend (NCCL refuses two ranks on one device),
    spawned with a file:// store in a temporary directory: each makes the
    full-width SLATE OCR from its own seed, shard_ocr gives both rank 0's
@@ -199,8 +211,8 @@ from ocrl_tpu_torch import (test_sb3, train_classifier, train_ocr, train_propert
                             train_sb3)
 from ocrl_tpu_torch.config import (GROUPS, EnvConfig, IodineConfig, OCRCheckpointConfig,
                                    OCRConfig, PolicyConfig, TestSB3Config,
-                                   TrainClassifierConfig, TrainPropertyPredictorConfig,
-                                   TrainSB3Config, compose)
+                                   TrainClassifierConfig, TrainOCRConfig,
+                                   TrainPropertyPredictorConfig, TrainSB3Config, compose)
 from ocrl_tpu_torch.config import read_env_config
 from ocrl_tpu_torch.config import replace as config_replace
 from ocrl_tpu_torch.data import DataLoader, H5Dataset
@@ -210,6 +222,7 @@ from ocrl_tpu_torch.envs import make_env
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.base import OCR, normalize_obs
+from ocrl_tpu_torch.models.common import Conv2dBlock
 from ocrl_tpu_torch.models.slate import GROUP_OF
 from ocrl_tpu_torch.ops import LAUNCHES, build, gumbel, reset_launches, slot_routing
 from ocrl_tpu_torch.ops._build import build_log, ptxas_usage, sources
@@ -395,6 +408,35 @@ PROBE_CL_ARGV = ["ocr=slate", "pooling=transformer", f"dataset={PROBE_ENV}",
 REQUESTS = 20
 BATCHES = (16, 64)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_K = 24, 4, 20, 4
+# The amp phase: slate.yaml with ocr.amp=bf16 (the conv stacks in bf16, fp32
+# parameters, optimizer state and loss), timed as the training phase. One
+# step of SLATE and one of Slot-Attention card against CPU at batch AMP_CHECK
+# on the same weights and draws, dropout 0 (the card's and the CPU's
+# generators draw other masks), by tests/test_torch_amp.py's gradient rule
+# with the CPU's bf16 run where that file has JAX's, and the CPU's fp32 run
+# of the same weights and draws as the reference r: each gradient leaf,
+# unclipped, their inf-norm and each loss metric no farther from r than
+# AMP_GRAD_C times the CPU bf16 run's distance, plus half a bf16 ulp of a
+# gradient leaf's largest (a bf16 gradient is rounded once more) and 1e-7 of
+# the model's largest, or 1e-5 of a metric's max(|r|, 1). That file holds
+# JAX's and the port's loss metrics far tighter (within 0.05 of the bf16
+# effect), since on the CPU both round the same sums alike; cuDNN's bf16
+# convolutions round a share of their outputs the other way, and at full
+# width that moves the loss as far as bf16 itself does (Slot-Attention at 4:
+# card 45026.87, CPU bf16 45004.39, fp32 45044.91). That the card's step is
+# bf16 at all is held by its conv blocks' output dtype, the CPU's bf16 and
+# fp32 runs' too. The card may lie nearer r than the CPU: its index backward
+# sums the broadcast decoder's (64 - 4)^2 duplicates of one tile entry in
+# fp32, the CPU's in bf16. The card's parameters after the step are Adam's
+# first step of its own clipped gradients (adam_replay_gap).
+AMP_ARGV = ["ocr=slate", "ocr.amp=bf16"]
+AMP_CHECK, AMP_GRAD_C, HALF_BF16_ULP = 4, 2.0, 2.0 ** -8
+# The convolutions' device time: what runs under cuDNN's forward and
+# backward ops, whatever algorithm cuDNN picks (implicit GEMM, Winograd, FFT,
+# layout transforms); of it, the kernels that name bf16, among those whose
+# names mark a convolution (forward, data and weight gradients)
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit")
 EVAL_BATCH, EVAL_BATCHES, EVAL_OBJECTS = 32, 4, 4   # configs/get_ari_mse.yaml: batch 32
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
@@ -968,6 +1010,165 @@ def train_steps(ocr, batches: list[np.ndarray], step0: int) -> tuple[float, dict
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return seconds, {k: torch.cat([m[k].cpu() for m in metrics]) for k in metrics[0]}
+
+
+def conv_block_dtypes(fn) -> set:
+    """The dtypes that every Conv2dBlock outputs while ``fn`` runs (a
+    forward hook on all modules, taken off after)."""
+    dtypes = set()
+
+    def hook(module, args, out):
+        if isinstance(module, Conv2dBlock):
+            dtypes.add(out.dtype)
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        fn()
+    finally:
+        handle.remove()
+    return dtypes
+
+
+def amp_side(ocr_cfg, env_cfg, obs: np.ndarray, device: str, noise: dict) -> dict:
+    """One update of a fresh OCR (seed 0) on ``device``: its metrics, raw
+    (unclipped) and clipped gradients, lrs, its parameters before and
+    after, on the host, and the dtypes its conv blocks output; ``noise``
+    gives or receives the draws."""
+    ocr = create_ocr(ocr_cfg, env_cfg, seed=0, device=device)
+    start = {k: v.cpu().numpy().copy() for k, v in ocr.module.state_dict().items()}
+    metrics = {}
+    dtypes = conv_block_dtypes(lambda: metrics.update(
+        {k: float(v) for k, v in ocr.update(obs, None, 0, noise=noise).items()}))
+    scale = min(1.0, ocr.clip / (metrics["norm"] + 1e-6))
+    named = dict(ocr.module.named_parameters())
+    clipped = {n: p.grad.cpu().numpy() for n, p in named.items() if p.grad is not None}
+    lrs = {n: g["lr"] for g in ocr.optimizer.adam.param_groups for n, p in named.items()
+           if any(p is q for q in g["params"])}
+    return dict(metrics=metrics, clipped=clipped, dtypes=dtypes,
+                grads={n: g / scale for n, g in clipped.items()}, start=start,
+                params={k: v.cpu().numpy() for k, v in ocr.module.state_dict().items()},
+                groups={n: (lrs[n], 0.0) for n in clipped},
+                moments={n: (np.zeros_like(g), np.zeros_like(g)) for n, g in clipped.items()},
+                t=1)
+
+
+def check_amp_step(ocr_cfg, env_cfg, obs: np.ndarray) -> dict:
+    """One bf16 update on the card against the same update on the CPU in
+    bf16 and in fp32 (the reference), from seed 0's weights on the draws the
+    card's kernels made, under the rule stated at AMP_CHECK. Returns the
+    worst shares of each tolerance."""
+    ocr_cfg = config_replace(ocr_cfg, "learning.dropout", 0.0)
+    drawn = {}
+    card = amp_side(ocr_cfg, env_cfg, obs, "cuda", drawn)
+    noise = {k: v.cpu() for k, v in drawn.items()}
+    cpu = amp_side(ocr_cfg, env_cfg, obs, "cpu", dict(noise))
+    ref = amp_side(config_replace(ocr_cfg, "amp", None), env_cfg, obs, "cpu", dict(noise))
+    got, amp, r = card["metrics"], cpu["metrics"], ref["metrics"]
+    metric = max(abs(got[k] - r[k]) / (AMP_GRAD_C * abs(amp[k] - r[k])
+                                       + PRETRAIN_TOL * max(abs(r[k]), 1.0))
+                 for k in r if k != "norm")
+    top = max(float(np.abs(g).max()) for g in ref["grads"].values())
+    grad, where = 0.0, ""
+    for name, g in ref["grads"].items():
+        limit = (AMP_GRAD_C * float(np.abs(cpu["grads"][name] - g).max())
+                 + HALF_BF16_ULP * float(np.abs(g).max()) + 1e-7 * top)
+        share = float(np.abs(card["grads"][name] - g).max()) / limit
+        if share > grad:
+            grad, where = share, name
+    norm = abs(got["norm"] - r["norm"]) / (AMP_GRAD_C * abs(amp["norm"] - r["norm"])
+                                           + HALF_BF16_ULP * r["norm"])
+    adam, adam_where = adam_replay_gap({**card, "grads": card["clipped"]})
+    amp_gap = abs(amp["loss"] - r["loss"]) / max(abs(r["loss"]), 1.0)
+    bf16 = card["dtypes"] == cpu["dtypes"] == {torch.bfloat16} and \
+        ref["dtypes"] == {torch.float32}
+    ok = (set(got) == set(r) and metric <= 1 and grad <= 1 and norm <= 1 and adam <= 1
+          and all(np.isfinite(v) for v in got.values()) and bf16)
+    print(f"  {'Slot-Attention' if ocr_cfg.use_bcdec else 'SLATE'} bf16 step at batch "
+          f"{obs.shape[0]}, card against CPU (r: the CPU's fp32 step): loss {got['loss']!r} "
+          f"card, {amp['loss']!r} CPU bf16, {r['loss']!r} r (bf16 moves it {amp_gap:.3e} "
+          f"relative); metrics worst {metric:.3f} of their tolerance; gradients worst "
+          f"{grad:.3f} ({where}); norm {got['norm']} card, {amp['norm']} CPU, "
+          f"{r['norm']:.4f} r: {norm:.3f}; parameters {adam:.3f} of Adam's replay "
+          f"({adam_where}); conv blocks {'bf16' if bf16 else 'NOT bf16'}: "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit("the bf16 step disagrees between card and CPU")
+    return dict(metric=metric, grad=grad, norm=norm, adam=adam)
+
+
+def conv_device_ms(averages) -> tuple[float, float, list[str]]:
+    """(device ms under CONV_OPS, of the convolution kernels that name bf16,
+    the names of the three longest convolution kernels) in torch.profiler's
+    averages."""
+    from torch.autograd import DeviceType
+
+    total = sum(e.device_time_total for e in averages if e.key in CONV_OPS) / 1e3
+    convs = sorted(((e.self_device_time_total, e.key) for e in averages
+                    if e.device_type == DeviceType.CUDA and "convert" not in e.key.lower()
+                    and any(part in e.key.lower() for part in CONV_KERNELS)), reverse=True)
+    bf16 = sum(us for us, key in convs if "bf16" in key.lower()) / 1e3
+    return total, bf16, [key[:90] for _, key in convs[:3]]
+
+
+def amp_phase(card: str, fp32_ms: float, batch: np.ndarray, sa) -> dict:
+    """``train_ocr ocr=slate ocr.amp=bf16``'s step at full width (see
+    AMP_ARGV): the conv blocks' outputs bf16 (forward hooks over the warm-up),
+    steps card against CPU (check_amp_step), then TRAIN_WARMUP and
+    TRAIN_STEPS timed steps of update_many beside the training phase's fp32
+    ``fp32_ms`` of this process, one Slot-Attention update and one get_loss
+    with masks, each with the launch counts reset just before and read just
+    after. Returns the launch counts and the OCR, for the profile."""
+    ocr_cfg, env_cfg = compose(TrainOCRConfig(), AMP_ARGV).ocr, EnvConfig()
+    sa_cfg = compose(TrainOCRConfig(), ["ocr=slotattention", "ocr.amp=bf16"]).ocr
+    for cfg in (ocr_cfg, sa_cfg):
+        check_amp_step(cfg, env_cfg, batch[:AMP_CHECK])
+    ocr = create_ocr(ocr_cfg, env_cfg, seed=0)
+    warm = {}
+    dtypes = conv_block_dtypes(
+        lambda: warm.update(train_steps(ocr, [batch] * TRAIN_WARMUP, 0)[1]))
+    reset_launches()
+    seconds, timed = train_steps(ocr, [batch] * TRAIN_STEPS, TRAIN_WARMUP)
+    launches = dict(LAUNCHES)
+    per_step = {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1,
+                slot_routing.KERNEL: sa.num_iterations, slot_routing.BWD_KERNEL: sa.num_iterations}
+    expected = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    ms = 1e3 * seconds / TRAIN_STEPS
+    losses = torch.cat([warm["loss"], timed["loss"]])
+    print(f"  {card}: {TRAIN_STEPS} bf16 steps at batch {TRAIN_BATCH} (update_many "
+          f"k={TRAIN_K}), {ms:.3f} ms/step, {TRAIN_BATCH / ms * 1e3:.1f} images/s, beside "
+          f"fp32 {fp32_ms:.3f} ms/step in this process ({fp32_ms / ms:.3f} x); conv blocks "
+          f"output {sorted(map(str, dtypes))}; loss on one fixed batch {losses[0].item():.4f} "
+          f"-> {losses[-1].item():.4f}; launches {launches}, expected {expected}", flush=True)
+    if dtypes != {torch.bfloat16}:
+        raise SystemExit(f"ocr.amp=bf16 ran its conv blocks in {dtypes}, not bf16 alone")
+    if launches != expected:
+        raise SystemExit("the bf16 training path did not launch each kernel as expected")
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit("bf16 training did not lower the loss")
+    runs = [launches]
+
+    sa_ocr = create_ocr(sa_cfg, env_cfg, seed=0)
+    obs, masks = painted(TRAIN_BATCH, env_cfg.obs_size, EVAL_OBJECTS, seed=12)
+    sa_ocr.update(obs, None, 0)                                      # warm-up
+    ocr_eval = create_ocr(ocr_cfg, env_cfg, seed=0)
+    ocr_eval.get_loss(obs, masks)                                    # warm-up
+    for label, fn, want in (
+            ("Slot-Attention update", lambda: sa_ocr.update(obs, None, 1),
+             {slot_routing.KERNEL: sa.num_iterations, slot_routing.BWD_KERNEL: sa.num_iterations}),
+            ("SLATE get_loss with masks", lambda: ocr_eval.get_loss(obs, masks),
+             {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, slot_routing.KERNEL: sa.num_iterations})):
+        reset_launches()
+        metrics = {}
+        found = conv_block_dtypes(lambda: metrics.update(fn()))
+        torch.cuda.synchronize()
+        runs.append(dict(LAUNCHES))
+        finite = all(np.isfinite(float(v)) for v in metrics.values())
+        print(f"  bf16 {label} at {TRAIN_BATCH}: "
+              f"{ {k: round(float(v), 6) for k, v in metrics.items()} }; conv blocks output "
+              f"{sorted(map(str, found))}; launches {runs[-1]}, expected {want}", flush=True)
+        if runs[-1] != want or found != {torch.bfloat16} or not finite:
+            raise SystemExit(f"the bf16 {label} did not run as expected")
+    return dict(launches=runs, ocr=ocr, superbatch=np.concatenate([batch] * TRAIN_K))
 
 
 def painted(B: int, size: int, objects: int, seed: int):
@@ -3275,6 +3476,9 @@ def main() -> int:
                 and moved == set(GROUP_OF.values())):
             raise SystemExit("training did not lower the loss or move every group")
 
+    with phase("amp"):
+        amp = amp_phase(card, ms_step, batch, sa)
+
     with phase("evaluation"):
         eval_launches, sa_launches, profiled_eval = evaluation_phase(ocr_cfg, env_cfg, card, sa)
 
@@ -3316,6 +3520,17 @@ def main() -> int:
             superbatch = np.concatenate([batch] * TRAIN_K)
             profile(f"training: {2 * TRAIN_K} steps",
                     lambda: ocr.update_many(superbatch, None, 0, TRAIN_K), 2, 25)
+            profile(f"amp training: {2 * TRAIN_K} bf16 steps",
+                    lambda: amp["ocr"].update_many(amp["superbatch"], None, 0, TRAIN_K), 2, 25)
+            for label, model, sb in (("fp32", ocr, superbatch),
+                                     ("bf16", amp["ocr"], amp["superbatch"])):
+                steps = 2 * TRAIN_K
+                _, averages = profiled(lambda: model.update_many(sb, None, 0, TRAIN_K), 2)
+                conv, bf16, top = conv_device_ms(averages)
+                busy = device_ms(averages)
+                print(f"  {label} steps at {TRAIN_BATCH}: convolutions {conv / steps:.3f} ms of "
+                      f"device time a step ({bf16 / steps:.3f} ms in kernels that name bf16) of "
+                      f"{(busy or 0.0) / steps:.3f} ms; the longest: {top}", flush=True)
             eval_batch = [profiled_eval["batch"]]
             profile(f"evaluation: 1 batch of {EVAL_BATCH}",
                     lambda: evaluate(profiled_eval["ocr"], eval_batch, seed=1), 1, 30)
@@ -3361,12 +3576,13 @@ def main() -> int:
                     lambda: kept["classifier"].step(kept["classifier_batch"]), 3, 20)
 
     def row(name, source, replaces, result):
-        # launches: summed over the main-path runs: serving, training,
-        # evaluation of SLATE and of Slot-Attention, the PPO iteration, the
+        # launches: summed over the main-path runs: serving, training, the
+        # bf16 steps, update and get_loss, evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
         # pretraining phase, train_ocr's two runs, the multi-seed runs, the
         # two SAC runs, the two probes and the ddp phase's ranks
-        runs = (launches, train_launches, eval_launches, sa_launches) + rl["launches"] + (
+        runs = (launches, train_launches, *amp["launches"], eval_launches,
+                sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
             multi["launches"] + sac["launches"] + probes["launches"] + ddp["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,

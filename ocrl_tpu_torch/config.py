@@ -168,6 +168,9 @@ class OCRConfig:
     hard: bool = False
     use_cnn_feat: bool = False
     use_bcdec: bool = False
+    # the conv stacks' compute dtype: "bf16", or fp32 for anything else
+    # (JAX reads ``ocr.amp`` the same way, ocrl_tpu/models/slate.py:56-57)
+    amp: Optional[str] = None
     dvae: DVAEConfig = field(default_factory=DVAEConfig)
     cnn: CNNConfig = field(default_factory=CNNConfig)
     slotattr: SlotAttrConfig = field(default_factory=SlotAttrConfig)

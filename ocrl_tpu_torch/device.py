@@ -15,10 +15,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
-        # The JAX model computes in fp32 (``amp`` off). cuDNN runs fp32
-        # convolutions in TF32 by default, which keeps about three decimal
-        # digits and would move the CNN features away from the reference;
-        # matmuls are pinned too, whatever the process set before.
+        # The JAX model computes in fp32, and with ``ocr.amp=bf16`` SLATE's
+        # conv stacks in bf16 (ocrl_tpu/models/slate.py:51-57) and all else
+        # in fp32. cuDNN runs fp32 convolutions in TF32 by default, which
+        # keeps about three decimal digits and would move the CNN features
+        # away from the reference; matmuls are pinned too, whatever the
+        # process set before. Neither setting touches a bf16 convolution.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device

@@ -77,22 +77,38 @@ def flax_conv(in_channels: int, out_channels: int, kernel_size: int, stride: int
     return m
 
 
-def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW convolution to an NHWC tensor, returning NHWC."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Apply an NCHW convolution to an NHWC tensor, returning NHWC.
+
+    ``dtype`` is flax's compute dtype (``promote_dtype``): the input, kernel
+    and bias are cast to it, the convolution's output is rounded to it, and
+    the bias is added in it, a second rounding, as XLA computes flax's
+    ``nn.Conv(dtype=...)``. The parameters stay fp32: the casts' backward
+    brings their gradients back to fp32. None computes in the parameters'
+    dtype, the bias inside the convolution."""
+    if dtype is None:
+        return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), None,
+                 conv.stride, conv.padding, conv.dilation, conv.groups)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype)[:, None, None]
+    return y.permute(0, 2, 3, 1)
 
 
 class Conv2dBlock(nn.Module):
-    """conv (kaiming init) + ReLU (ocrl_tpu/models/common.py:52-65), NHWC."""
+    """conv (kaiming init) + ReLU (ocrl_tpu/models/common.py:52-65), NHWC,
+    computed in ``dtype`` (``conv_nhwc``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, dtype: torch.dtype | None = None):
         super().__init__()
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
                            padding, weight_init="kaiming")
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(conv_nhwc(self.conv, x))
+        return F.relu(conv_nhwc(self.conv, x, self.dtype))
 
 
 class PositionalEmbedding(nn.Module):

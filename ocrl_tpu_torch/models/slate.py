@@ -41,6 +41,12 @@ from .slot_attention import SlotAttentionEncoder
 from .transformer import LearnedPositionalEncoding, TransformerDecoder
 
 
+def compute_dtype(ocr_config: OCRConfig) -> torch.dtype | None:
+    """The conv stacks' compute dtype: bf16 for ``amp`` "bf16", else None
+    (fp32), whatever else ``amp`` holds, as JAX reads it."""
+    return torch.bfloat16 if ocr_config.amp == "bf16" else None
+
+
 def _field(noise: dict | None, key: str, like: torch.Tensor):
     """(the given field or None, a buffer to record the drawn one or None)."""
     if noise is None:
@@ -59,7 +65,12 @@ class SLATE_Module(nn.Module):
         self._ocr = ocr
         self._obs_size = env.obs_size
         self._use_cnn_feat = ocr.use_cnn_feat
-        self.enc = SlotAttnCNNEncoder(ocr.cnn.hidden_size, env.obs_channels)
+        # ``ocr.amp=bf16``: the conv stacks (the CNN encoder, the dVAE's
+        # encoder and decoder, the broadcast decoder) compute in bf16 with
+        # fp32 parameters; slot attention, the embeddings, ``slotproj`` and
+        # the transformer decoder stay fp32 (ocrl_tpu/models/slate.py:51-73)
+        cdt = compute_dtype(ocr)
+        self.enc = SlotAttnCNNEncoder(ocr.cnn.hidden_size, env.obs_channels, cdt)
         self.enc_pos = PositionalEmbedding(env.obs_size, ocr.cnn.hidden_size)
         sa = ocr.slotattr
         self.slotattn = SlotAttentionEncoder(
@@ -78,10 +89,10 @@ class SLATE_Module(nn.Module):
             return
         if ocr.use_bcdec:
             self.bcdec = BroadCastDecoder(env.obs_size, env.obs_channels,
-                                          ocr.cnn.hidden_size, sa.slot_size)
+                                          ocr.cnn.hidden_size, sa.slot_size, cdt)
         self._enc_size = enc_size = env.obs_size // 4
         rate = ocr.learning.dropout
-        self.dvae = dVAE(V, env.obs_channels)
+        self.dvae = dVAE(V, env.obs_channels, dtype=cdt)
         self.slotproj = linear(sa.slot_size, d, bias=False)
         self.dictionary = nn.Embedding(V, d)
         nn.init.normal_(self.dictionary.weight, std=d ** -0.5)   # flax nn.Embed

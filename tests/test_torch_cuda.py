@@ -16,7 +16,9 @@ VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU.
 The data path's prefetch gives on the card exactly the items it gives on
 the CPU, and train_ocr.main at small SLATE widths trains, evaluates, saves
 and resumes on the card through B1-B4. One SAC update is held card against
-CPU, end to end and frozen."""
+CPU, end to end and frozen. With ``ocr.amp=bf16`` the conv blocks output
+bf16 on the card and one step is held against the CPU's bf16 and fp32
+steps (chip_smoke.check_amp_step)."""
 
 import math
 
@@ -686,3 +688,37 @@ def test_one_nccl_rank_steps_as_one_process_on_the_card(cuda, tmp_path):
                         ("ocr.dvae.d_model", 32)]:
         cfg = config.replace(cfg, path, value)
     check_nccl_rank(cfg.ocr, cfg.env, painted(4, 16, 3, seed=2)[0], f"file://{tmp_path}/init")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["slate", "slotattention"])
+def test_amp_convs_run_in_bf16_and_match_the_cpu_on_the_card(cuda, name):
+    """``ocr.amp=bf16`` at small widths (obs 16) on the card: every conv
+    block outputs bf16 while parameters, gradients and Adam's moments stay
+    fp32; the broadcast decoder at obs 64 too. One step is held against the
+    CPU's bf16 and fp32 steps on the same weights and draws by
+    chip_smoke.check_amp_step's rule."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import check_amp_step, conv_block_dtypes, painted
+    from ocrl_tpu_torch import config as tcfg
+    from ocrl_tpu_torch.models import create_ocr
+
+    for obs_size in (16, 64):
+        small = ["ocr.cnn.hidden_size=16", "ocr.slotattr.num_slots=3",
+                 "ocr.slotattr.slot_size=32", "ocr.slotattr.mlp_hidden_size=32",
+                 "ocr.dvae.vocab_size=32", "ocr.dvae.d_model=32", "ocr.tfdec.num_dec_blocks=2",
+                 "ocr.tfdec.num_dec_heads=2"]
+        cfg = tcfg.compose(tcfg.TrainOCRConfig(), [f"ocr={name}", "ocr.amp=bf16"] + small).ocr
+        env = tcfg.replace(tcfg.EnvConfig(), "obs_size", obs_size)
+        obs, _ = painted(4, obs_size, 3, seed=3)
+        ocr = create_ocr(cfg, env, seed=0)
+        assert conv_block_dtypes(lambda: ocr.update(obs, None, 0)) == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in ocr.module.parameters() if p.grad is not None)
+        assert all(v.dtype == torch.float32 for s in ocr.optimizer.adam.state.values()
+                   for k, v in s.items() if k != "step")
+        found = check_amp_step(cfg, env, obs)
+        assert max(found.values()) <= 1.0

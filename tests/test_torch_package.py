@@ -83,7 +83,8 @@ def _plain(x):
 def test_config_matches_the_yaml(ocr):
     """The port's dataclasses hold what compose() gives, except
     slotattr.fused: auto in the port (the YAML's `never` was decided by a
-    TPU measurement)."""
+    TPU measurement), and ``amp``, the field of the ``ocr.amp`` override,
+    which no YAML sets: None on both sides (JAX reads ``ocr.get("amp")``)."""
     cfg = compose("train_sb3", [f"ocr={ocr}", "pooling=transformer", "sb3=ppo",
                                 "sb3_acnet=mlp", "env=target-N4C4S3S1"])
     port = tcfg.PolicyConfig()
@@ -92,7 +93,9 @@ def test_config_matches_the_yaml(ocr):
     want_ocr = _plain(cfg.ocr.to_dict())
     assert want_ocr["slotattr"]["fused"] == "never"
     want_ocr["slotattr"]["fused"] = "auto"
-    assert _plain(dataclasses.asdict(port.ocr)) == want_ocr
+    port_ocr = _plain(dataclasses.asdict(port.ocr))
+    assert port_ocr.pop("amp") is None and cfg.ocr.get("amp") is None
+    assert port_ocr == want_ocr
     assert _plain(dataclasses.asdict(port.pooling)) == _plain(cfg.pooling.to_dict())
     assert _plain(dataclasses.asdict(port.sb3_acnet)) == _plain(cfg.sb3_acnet.to_dict())
     for key, value in dataclasses.asdict(port.env).items():
