@@ -188,7 +188,27 @@ Phases, each printing its own line with its seconds:
    grid within 1 of one process's, over 99 % of it equal; the ranks'
    parameters bitwise equal after every step; ms an update of two ranks and
    of one process at 24; then one NCCL rank (world 1) whose update is
-   bitwise one process's.
+   bitwise one process's;
+17. hdf5-eval: HDF5 files that h5py wrote (tests/data/hdf5, committed with
+   their manifest; the card's machine has no h5py): every dataset of every
+   fixture read by the port, its SHA-256 the manifest's; eval-gzip.h5
+   (random-N5C4S4S2 rendered by the collector with masks, 240 + 256
+   images, gzip and shuffle at h5py's chunks) and its contiguous twin,
+   written here by the port's writer from the decoded arrays; read_slice
+   images/s in batches of 32 from a fresh reader (gzip, the twin's memmap,
+   LZF with fletcher32), and the chunked decode alone; then
+   python -m ocrl_tpu_torch.get_ari_mse's main (ocr=slate and
+   ocr=slotattention at full width, weights from seed 0 saved as the
+   checkpoint it loads, batch 32: 8 batches) on the gzip file and on the
+   twin, after one warm-up run on lzf-fletcher32.h5: launches exactly B1 8,
+   B2 8, B3 48 (Slot-Attention B3 24), eval/ari and eval/mse logged at step
+   0, ms a batch, images/s, the loader's read_slice seconds and the loop's
+   waits for a batch against the wall; gzip against the twin to
+   EVAL_RTOL, and every batch the CLI's loader read (obss with its masks)
+   bitwise the twin's; then the chunked TrainingSet's shuffled batches bitwise the
+   twin's, and train_ocr.main ocr=slate on eval-gzip.h5 for 8 steps at 24
+   with its final evaluation, launches exactly as the train-ocr phase counts
+   them.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -203,21 +223,23 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager, nullcontext
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ocrl_tpu_torch import (test_sb3, train_classifier, train_ocr, train_property_predictor,
-                            train_sb3)
+from ocrl_tpu_torch import (get_ari_mse, test_sb3, train_classifier, train_ocr,
+                            train_property_predictor, train_sb3)
 from ocrl_tpu_torch.config import (GROUPS, EnvConfig, IodineConfig, OCRCheckpointConfig,
                                    OCRConfig, PolicyConfig, TestSB3Config,
                                    TrainClassifierConfig, TrainOCRConfig,
                                    TrainPropertyPredictorConfig, TrainSB3Config, compose)
-from ocrl_tpu_torch.config import read_env_config
+from ocrl_tpu_torch.config import read_dataset_config, read_env_config
 from ocrl_tpu_torch.config import replace as config_replace
 from ocrl_tpu_torch.data import DataLoader, H5Dataset
 from ocrl_tpu_torch.data.collect import collect_chunks, collect_dataset
-from ocrl_tpu_torch.data.hdf5_format import read_layout
+from ocrl_tpu_torch.data.hdf5 import ChunkRows, read_array
+from ocrl_tpu_torch.data.hdf5_format import create, read_layout
 from ocrl_tpu_torch.envs import make_env
 from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate
 from ocrl_tpu_torch.models import create_ocr
@@ -438,6 +460,13 @@ AMP_CHECK, AMP_GRAD_C, HALF_BF16_ULP = 4, 2.0, 2.0 ** -8
 CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
 CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit")
 EVAL_BATCH, EVAL_BATCHES, EVAL_OBJECTS = 32, 4, 4   # configs/get_ari_mse.yaml: batch 32
+# The hdf5-eval phase: the committed fixtures (tests/data/hdf5, written by
+# h5py; make_fixtures.py), eval-gzip.h5's ValidationSet of HDF5_VAL images
+# (8 batches of EVAL_BATCH) and TrainingSet of 240, the small files'
+# ValidationSet of HDF5_SMALL_VAL; decode rates the median of
+# HDF5_RATE_REPS passes; HDF5_TRAIN_STEPS train_ocr steps at 24.
+HDF5_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "hdf5"
+HDF5_VAL, HDF5_SMALL_VAL, HDF5_RATE_REPS, HDF5_TRAIN_STEPS = 256, 32, 5, 8
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -2022,6 +2051,259 @@ def train_ocr_phase(card: str, workdir) -> dict:
     return dict(launches=(first_launches, second_launches), encoder=encoder)
 
 
+def fixture_arrays(path) -> dict:
+    """{group: {dataset: array}} of an HDF5 file, read by the port."""
+    return {group: {key: read_array(path, spec) for key, spec in datasets.items()}
+            for group, datasets in read_layout(path).items()}
+
+
+def contiguous_twin(path, arrays: dict) -> None:
+    """The arrays written by the port's own writer: contiguous, no filter."""
+    offsets = create(path, {g: {k: (a.shape, a.dtype) for k, a in ds.items()}
+                            for g, ds in arrays.items()})
+    with open(path, "r+b") as f:
+        for group, datasets in arrays.items():
+            for key, array in datasets.items():
+                f.seek(offsets[group][key])
+                f.write(np.ascontiguousarray(array).tobytes())
+
+
+def read_rate(path, split: str, reps: int = HDF5_RATE_REPS) -> tuple[float, float]:
+    """(images/s, ms a batch) of read_slice over a split in batches of
+    EVAL_BATCH, as the validation loader reads it, each pass from a fresh
+    H5Dataset (no decoded chunk kept; the file in the page cache): the
+    median of ``reps`` passes."""
+    seconds = []
+    for _ in range(reps):
+        dataset = H5Dataset(path, split)
+        n = len(dataset)
+        t0 = time.perf_counter()
+        for start in range(0, n, EVAL_BATCH):
+            dataset.read_slice(start, min(start + EVAL_BATCH, n))
+        seconds.append(time.perf_counter() - t0)
+    s = float(np.median(seconds))
+    return n / s, 1e3 * s / -(-n // EVAL_BATCH)
+
+
+def key_rate(path, split: str, key: str, reps: int = HDF5_RATE_REPS) -> float:
+    """images/s of one chunked dataset's decode and assembly alone
+    (ChunkRows.read in reads of EVAL_BATCH rows, a fresh reader a pass)."""
+    import os
+
+    spec = read_layout(path)[split][key]
+    seconds = []
+    for _ in range(reps):
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            rows = ChunkRows(fd, spec)
+            t0 = time.perf_counter()
+            for start in range(0, spec.shape[0], EVAL_BATCH):
+                rows.read(start, start + EVAL_BATCH)
+            seconds.append(time.perf_counter() - t0)
+        finally:
+            os.close(fd)
+    return spec.shape[0] / float(np.median(seconds))
+
+
+@contextmanager
+def loader_clock(module):
+    """Times every H5Dataset.read_slice (the loader's host work, on the
+    prefetch thread) and every wait of ``module``'s consumer for its next
+    prefetched batch, while the block runs; keeps what each read returned
+    (``batches``)."""
+    read_slice, prefetch = H5Dataset.read_slice, module.prefetch_to_device
+    clock = {"read_s": 0.0, "wait_s": 0.0, "reads": 0, "batches": []}
+
+    def timed_read(self, start, stop):
+        t0 = time.perf_counter()
+        out = read_slice(self, start, stop)
+        clock["read_s"] += time.perf_counter() - t0
+        clock["reads"] += 1
+        clock["batches"].append(out)
+        return out
+
+    def timed_prefetch(*args, **kwargs):
+        items = prefetch(*args, **kwargs)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    return
+                clock["wait_s"] += time.perf_counter() - t0
+                yield item
+        finally:
+            items.close()
+
+    H5Dataset.read_slice, module.prefetch_to_device = timed_read, timed_prefetch
+    try:
+        yield clock
+    finally:
+        H5Dataset.read_slice, module.prefetch_to_device = read_slice, prefetch
+
+
+def hdf5_eval_cli(card: str, label: str, argv: list[str], expected: dict, images: int) -> dict:
+    """One counted run of get_ari_mse.main over ``images`` images: its
+    results, launches (held to ``expected``), wall seconds and loader clock,
+    printed."""
+    reset_launches()
+    with loader_clock(get_ari_mse) as clock:
+        t0 = time.perf_counter()
+        results = get_ari_mse.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    per_batch = 1e3 * np.array([b["loss_s"] + b["gen_s"] for b in results["batches"]])
+    records = [json.loads(line) for line in open(Path(results["run_dir"]) / "metrics.jsonl")]
+    logged = records[-1]
+    print(f"  {card}: get_ari_mse {label}: {len(per_batch)} batches, {per_batch.mean():.3f} "
+          f"ms/batch ({' '.join(f'{x:.1f}' for x in per_batch)}), {images / wall:.1f} "
+          f"images/s over the run's {wall:.3f} s wall; loader: read_slice {clock['read_s']:.3f} "
+          f"s in {clock['reads']} reads on the prefetch thread "
+          f"({100 * clock['read_s'] / wall:.2f} % of the wall), the loop's waits for a batch "
+          f"{clock['wait_s']:.3f} s ({100 * clock['wait_s'] / wall:.2f} %); ari "
+          f"{results['ari']:.6f}, mse {results['mse']:.4f}; logged at step "
+          f"{logged['_step']}: {sorted(k for k in logged if k.startswith('eval/'))}; launches "
+          f"{launches}, expected {expected}", flush=True)
+    if launches != expected:
+        raise SystemExit(f"get_ari_mse {label} did not launch each kernel as expected")
+    if not (logged["_step"] == 0 and logged["eval/ari"] == results["ari"]
+            and logged["eval/mse"] == results["mse"]
+            and np.isfinite([results["ari"], results["mse"]]).all()):
+        raise SystemExit(f"get_ari_mse {label} logged {logged}, returned {results}")
+    return dict(results=results, launches=launches, wall=wall, clock=clock)
+
+
+def hdf5_eval_phase(card: str, workdir) -> dict:
+    """The hdf5-eval phase (see the module docstring): the committed
+    fixtures' hashes, the decode rates, get_ari_mse's command line on the
+    gzip file and its contiguous twin, and train_ocr on the chunked
+    TrainingSet. Returns the launch counts of its main-path runs."""
+    import hashlib
+    import tempfile
+
+    manifest = json.loads((HDF5_FIXTURES / "manifest.json").read_text())
+    indexes, checked = set(), 0
+    for name, groups in manifest["files"].items():
+        path = HDF5_FIXTURES / name
+        for group, datasets in read_layout(path).items():
+            for key, spec in datasets.items():
+                want = groups[group][key]
+                got = read_array(path, spec)
+                indexes.add(getattr(spec, "index", "contiguous"))
+                if ([list(got.shape), got.dtype.str] != [want["shape"], want["dtype"]]
+                        or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]):
+                    raise SystemExit(f"{name}: {group}/{key} does not read as h5py read it")
+                checked += 1
+    print(f"  {card}: {checked} datasets of {len(manifest['files'])} fixture files read "
+          f"bitwise as h5py read them (SHA-256 of the manifest); chunk indexes "
+          f"{sorted(indexes)}", flush=True)
+
+    gzip_file, lzf_file = HDF5_FIXTURES / "eval-gzip.h5", HDF5_FIXTURES / "lzf-fletcher32.h5"
+    dataset_cfg = read_dataset_config(OCR_ENV)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        tmp = Path(tmp)
+        twin = tmp / "eval-twin.h5"
+        arrays = fixture_arrays(gzip_file)
+        contiguous_twin(twin, arrays)
+        if not same_tree(fixture_arrays(twin), arrays):
+            raise SystemExit("the contiguous twin does not read back as the gzip file")
+        rates = {f"{label} {split}": read_rate(path, split)
+                 for label, path in (("gzip", gzip_file), ("twin", twin), ("lzf", lzf_file))
+                 for split in ("TrainingSet", "ValidationSet")}
+        keys = {f"gzip {key}": key_rate(gzip_file, "ValidationSet", key)
+                for key in ("obss", "masks")}
+        keys["lzf+fletcher32 masks"] = key_rate(lzf_file, "ValidationSet", "masks")
+        print(f"  {card}: read_slice in batches of {EVAL_BATCH}, a fresh reader a pass, "
+              f"median of {HDF5_RATE_REPS} (page cache warm): " + "; ".join(
+                  f"{k} {v[0]:.1f} images/s ({v[1]:.3f} ms a batch)" for k, v in rates.items())
+              + "; chunked decode and assembly alone: " + "; ".join(
+                  f"{k} {v:.1f} images/s" for k, v in keys.items()), flush=True)
+
+        # the command line, on weights from seed 0 saved as the files it loads
+        iters = GROUPS["ocr"]["slate"].slotattr.num_iterations
+        slate_dir, sa_dir = tmp / "slate", tmp / "slotattention"
+        ckpt.save(create_ocr(OCRConfig(), dataset_cfg, seed=0), slate_dir, step=0)
+        ckpt.save(create_ocr(OCRConfig(use_bcdec=True), dataset_cfg, seed=0), sa_dir, step=0)
+        batches = -(-HDF5_VAL // EVAL_BATCH)
+
+        def argv(ocr: str, path, run: str) -> list[str]:
+            weights = (slate_dir if ocr == "slate" else sa_dir) / "checkpoints"
+            return [f"ocr={ocr}", f"dataset={OCR_ENV}", f"dataset.datadir={path}",
+                    f"ocr_checkpoint.local_file={weights / 'model_latest.ckpt'}",
+                    f"batch_size={EVAL_BATCH}", f"run_dir={tmp / run}"]
+
+        def slate_launches(n: int) -> dict:
+            return {gumbel.SOFT_KERNEL: n, gumbel.IDS_KERNEL: n, slot_routing.KERNEL: 2 * iters * n}
+
+        runs = [hdf5_eval_cli(card, "slate on lzf-fletcher32 (warm-up)",
+                              argv("slate", lzf_file, "warm"), slate_launches(1), HDF5_SMALL_VAL)]
+        runs += [hdf5_eval_cli(card, f"slate on {label}", argv("slate", path, label),
+                               slate_launches(batches), HDF5_VAL)
+                 for label, path in (("eval-gzip", gzip_file), ("the twin", twin))]
+        runs += [hdf5_eval_cli(card, f"slotattention on {label}",
+                               argv("slotattention", path, f"sa-{label}"),
+                               {slot_routing.KERNEL: iters * batches}, HDF5_VAL)
+                 for label, path in (("eval-gzip", gzip_file), ("the twin", twin))]
+        for a, b in ((runs[1], runs[2]), (runs[3], runs[4])):
+            ra, rb = a["results"], b["results"]
+            errs = {k: rel_err(ra[k], rb[k]) for k in ("ari", "mse")}
+            # the CLI's own loader: every batch (obss with its masks) bitwise
+            # the twin's, since the ARI of random weights need not see masks
+            fed = [r["clock"]["batches"] for r in (a, b)]
+            same = len(fed[0]) == len(fed[1]) == batches and all(
+                same_tree(x, y) for x, y in zip(*fed))
+            print(f"  {card}: gzip against the twin: ari {ra['ari']:.6f} vs {rb['ari']:.6f}, "
+                  f"mse {ra['mse']:.6f} vs {rb['mse']:.6f}; relative {errs} (tolerance "
+                  f"{EVAL_RTOL}); the CLI loader's {len(fed[0])} batches of "
+                  f"{sorted(fed[0][0]) if fed[0] else []} bitwise the twin's: "
+                  f"{'yes' if same else 'NO'}", flush=True)
+            if max(errs.values()) > EVAL_RTOL or not same:
+                raise SystemExit("get_ari_mse on the gzip file disagrees with its twin")
+
+        # train_ocr on the chunked TrainingSet: the loader's batches first
+        loaders = [DataLoader(H5Dataset(path, "TrainingSet"), 24, shuffle=True, seed=0)
+                   for path in (gzip_file, twin)]
+        for epoch in range(2):
+            chunked, contiguous = (list(loader) for loader in loaders)
+            if len(chunked) != len(contiguous) or not all(
+                    same_tree(a, b) for a, b in zip(chunked, contiguous)):
+                raise SystemExit("the chunked TrainingSet's batches differ from the twin's")
+        run_dir = tmp / "train"
+        reset_launches()
+        with loader_clock(train_ocr) as clock:
+            t0 = time.perf_counter()
+            trained = train_ocr.main(["ocr=slate", f"dataset={OCR_ENV}",
+                                      f"dataset.datadir={gzip_file}", "batch_size=24",
+                                      "superbatch=4", "log_interval=8", "eval_interval=1000",
+                                      f"max_steps={HDF5_TRAIN_STEPS}", f"run_dir={run_dir}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        train_launches = dict(LAUNCHES)
+        records = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+        samples = sum("samples" in r for r in records)
+        val_batches = -(-HDF5_VAL // 24)
+        want = {gumbel.SOFT_KERNEL: HDF5_TRAIN_STEPS + val_batches + samples,
+                gumbel.IDS_KERNEL: HDF5_TRAIN_STEPS + val_batches,
+                slot_routing.KERNEL: iters * (HDF5_TRAIN_STEPS + val_batches + samples),
+                slot_routing.BWD_KERNEL: iters * HDF5_TRAIN_STEPS}
+        steps = sorted(r["_step"] for r in records if "train/loss" in r)
+        finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                     if k.startswith(("train/", "val/")))
+    print(f"  {card}: the chunked TrainingSet's batches at 24, two shuffled epochs, bitwise "
+          f"the twin's; train_ocr.main ocr=slate on eval-gzip.h5 to step {trained['step']}: "
+          f"train records {steps}, one evaluation of {val_batches} batches, {samples} sample "
+          f"pass(es), finite: {'yes' if finite else 'NO'}; {wall:.3f} s wall with the "
+          f"evaluation and the save; loader: read_slice {clock['read_s']:.3f} s in "
+          f"{clock['reads']} reads ({100 * clock['read_s'] / wall:.2f} % of the wall); "
+          f"launches {train_launches}, expected {want}", flush=True)
+    if not (train_launches == want and steps == list(range(HDF5_TRAIN_STEPS)) and finite
+            and trained["step"] == HDF5_TRAIN_STEPS):
+        raise SystemExit("train_ocr on the chunked file failed a check")
+    return dict(launches=tuple(r["launches"] for r in runs) + (train_launches,))
+
+
 def read_gif_blocks(data: bytes) -> tuple[int, int, int]:
     """(width, height, frames) of a GIF89a file, found by walking its blocks
     (header, screen, global palette, extensions, images, trailer)."""
@@ -3510,6 +3792,9 @@ def main() -> int:
 
     with phase("ddp"):
         ddp = ddp_phase(card, workdir.name)
+
+    with phase("hdf5-eval"):
+        hdf5_eval = hdf5_eval_phase(card, workdir.name)
     workdir.cleanup()
 
     if args.profile:
@@ -3580,11 +3865,13 @@ def main() -> int:
         # bf16 steps, update and get_loss, evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
         # pretraining phase, train_ocr's two runs, the multi-seed runs, the
-        # two SAC runs, the two probes and the ddp phase's ranks
+        # two SAC runs, the two probes, the ddp phase's ranks and the
+        # hdf5-eval phase's command lines and train_ocr run
         runs = (launches, train_launches, *amp["launches"], eval_launches,
                 sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
-            multi["launches"] + sac["launches"] + probes["launches"] + ddp["launches"]
+            multi["launches"] + sac["launches"] + probes["launches"] + ddp["launches"] + \
+            hdf5_eval["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],

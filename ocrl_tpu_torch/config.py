@@ -16,8 +16,7 @@
   (``SyntheticEnvConfig``, every field of
   configs/env/_synthetic_env_base.yaml) and a whole CausalWorld env
   (``CwEnvConfig``, configs/env/_cw_env_base.yaml),
-- configs/get_ari_mse.yaml with the seed of configs/_base.yaml
-  (``GetAriMseConfig``),
+- configs/get_ari_mse.yaml over configs/_base.yaml (``GetAriMseConfig``),
 - configs/{train_sb3,test_sb3}.yaml over configs/_base.yaml
   (``TrainSB3Config``, ``TestSB3Config``), configs/train_ocr.yaml over it
   (``TrainOCRConfig``), configs/train_property_predictor.yaml and
@@ -419,22 +418,6 @@ class PolicyConfig:
 
 
 @dataclass(frozen=True)
-class GetAriMseConfig:
-    """``get_ari_mse ocr=slate`` (``slotattention``: ``ocr.use_bcdec``;
-    ``ocr=iodine_large``: an ``IodineConfig``). ``bg_mask_idx`` names the
-    masks' background channel, which the foreground ARI takes as the last
-    one."""
-
-    ocr: OCRConfig | IodineConfig = field(default_factory=OCRConfig)
-    env: EnvConfig = field(default_factory=EnvConfig)
-    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
-    batch_size: int = 32
-    bg_mask_idx: int = -1
-    with_gen_mse: bool = True
-    seed: int = 0
-
-
-@dataclass(frozen=True)
 class PPOConfig:
     """ocrl_tpu/rl/ppo.py:24-42; configs/sb3/ppo.yaml sets these values."""
 
@@ -615,6 +598,28 @@ class DatasetConfig(EnvConfig):
     property_order_in_state: tuple[str, ...] = ("color", "shape", "scale", "xy")
     name: str = ""
     tags: str = ""
+
+
+@dataclass(frozen=True)
+class GetAriMseConfig:
+    """configs/get_ari_mse.yaml over configs/_base.yaml: ``get_ari_mse
+    ocr=slate dataset=<stem>`` (``slotattention``: ``ocr.use_bcdec``;
+    ``ocr=iodine_large``: an ``IodineConfig``), with ``with_gen_mse``, the
+    key JAX's entry reads beyond them (get_ari_mse.py:44). ``bg_mask_idx``
+    names the masks' background channel, which the foreground ARI takes as
+    the last one. ``run_dir`` empty:
+    outputs/get_ari/<ocr>-<dataset>/<time>. ``num_workers`` is read and
+    unused, as in JAX."""
+
+    ocr: OCRConfigs = field(default_factory=OCRConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    ocr_checkpoint: OCRCheckpointConfig = field(default_factory=OCRCheckpointConfig)
+    batch_size: int = 32
+    bg_mask_idx: int = -1
+    with_gen_mse: bool = True
+    seed: int = 0
+    num_workers: int = 1
+    run_dir: str = ""
 
 
 @dataclass(frozen=True)

@@ -1,22 +1,103 @@
 """The dataset loader of the port (counterpart of ocrl_tpu/data/hdf5.py):
-a split of an OCRL HDF5 file served from ``np.memmap``, and a batch
-iterator with JAX's chunk shuffle, draw for draw.
+a split of an OCRL HDF5 file, and a batch iterator with JAX's chunk
+shuffle, draw for draw.
 
-The port reads only the contiguous, uncompressed files the collectors
-write (``hdf5_format``); any other file raises, as there is no h5py to fall
-back on. Batches are numpy on the host: ``obss`` uint8 NHWC as stored,
+``read_slice`` returns, byte for byte, what JAX's returns (h5py's
+``group[key][start:stop]``, then ``_postprocess``) for every layout
+``hdf5_format.read_layout`` reads: contiguous datasets as ``np.memmap``
+views (as JAX serves them), compact ones from the bytes in their header,
+chunked ones assembled from their decoded chunks (``ChunkRows``). A file
+outside what ``read_layout`` reads raises, as there is no h5py to fall
+back on. Batches are numpy on the host: ``obss`` as stored (uint8 NHWC),
 ``labels`` int32 [n, -1], every other key (masks, objs) float32; the
 ``num_objs`` dataset is not served.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
+import threading
 from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
 
-from .hdf5_format import read_layout
+from .hdf5_format import Chunked, Compact, decode_chunk, read_layout
+
+
+class ChunkRows:
+    """Rows of a chunked dataset, assembled from its chunks.
+
+    A read of rows [start, stop) decodes every chunk of the chunk rows it
+    touches (a chunk row: the ``chunks[0]`` dataset rows that one chunk
+    coordinate along dimension 0 covers, across every other dimension),
+    each chunk once; chunks never written read as the fill value. The
+    decoded last chunk row of a read is kept for the next one, so that
+    consecutive reads inside one chunk row (batches of 32 in chunk rows of
+    75) decode it once: the cache holds at most one chunk row,
+    ``chunks[0]`` x the bytes of one dataset row. Callers serialise reads
+    (``H5Dataset`` holds a lock); the file is read with ``os.pread``."""
+
+    def __init__(self, fd: int, spec: Chunked):
+        self.fd, self.spec = fd, spec
+        self.slot = np.full(spec.grid, -1, np.int64)
+        if len(spec.coords):
+            self.slot[tuple(spec.coords.T)] = np.arange(len(spec.coords))
+        self.fill = np.frombuffer(spec.fill, spec.dtype)[0]
+        self.cached: tuple[int, np.ndarray] | None = None
+
+    def chunk_row(self, c0: int) -> np.ndarray:
+        spec, ch0 = self.spec, self.spec.chunks[0]
+        rows = min(ch0, spec.shape[0] - c0 * ch0)
+        out = np.empty((rows,) + spec.shape[1:], spec.dtype)
+        for rest in itertools.product(*(range(g) for g in spec.grid[1:])):
+            where = (slice(None),) + tuple(slice(c * n, min((c + 1) * n, dim)) for c, n, dim in
+                                           zip(rest, spec.chunks[1:], spec.shape[1:]))
+            i = self.slot[(c0,) + rest]
+            if i < 0:
+                out[where] = self.fill
+                continue
+            raw = os.pread(self.fd, int(spec.sizes[i]), int(spec.offsets[i]))
+            chunk = np.frombuffer(decode_chunk(spec, raw, int(spec.masks[i])),
+                                  spec.dtype).reshape(spec.chunks)
+            out[where] = chunk[(slice(0, rows),) + tuple(slice(0, w.stop - w.start)
+                                                          for w in where[1:])]
+        return out
+
+    def read(self, start: int, stop: int) -> np.ndarray:
+        spec, ch0 = self.spec, self.spec.chunks[0]
+        start, stop = min(start, spec.shape[0]), min(stop, spec.shape[0])
+        out = np.empty((max(stop - start, 0),) + spec.shape[1:], spec.dtype)
+        if stop <= start:
+            return out
+        for c0 in range(start // ch0, (stop - 1) // ch0 + 1):
+            if self.cached is not None and self.cached[0] == c0:
+                rows = self.cached[1]
+            else:
+                rows = self.chunk_row(c0)
+                self.cached = (c0, rows)
+            lo, hi = max(start, c0 * ch0), min(stop, (c0 + 1) * ch0)
+            out[lo - start:hi - start] = rows[lo - c0 * ch0:hi - c0 * ch0]
+        return out
+
+    def __getitem__(self, rows: slice) -> np.ndarray:
+        start, stop, _ = rows.indices(self.spec.shape[0])
+        return self.read(start, stop)
+
+
+def open_rows(path: str, spec, fd: Optional[int]):
+    """What serves ``[start:stop]`` rows of a dataset of ``read_layout``'s
+    ``spec``: an ``np.memmap`` (contiguous), the bytes of its header
+    (compact) or a ``ChunkRows`` reading ``fd`` (chunked)."""
+    if isinstance(spec, Chunked):
+        return ChunkRows(fd, spec)
+    if isinstance(spec, Compact):
+        return spec.array()
+    offset, shape, dtype = spec
+    if offset is None:
+        raise ValueError(f"{path}: a contiguous dataset with no data written")
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=shape)
 
 
 class H5Dataset:
@@ -30,25 +111,49 @@ class H5Dataset:
         spec = layout[split]
         self.keys = [k for k in spec if k != "num_objs"]
         for key in self.keys:
-            if spec[key][0] is None:
+            if isinstance(spec[key], tuple) and spec[key][0] is None:
                 raise ValueError(f"{self.path}: '{split}/{key}' has no data written")
-        self.num_samples = spec["obss"][1][0]
+        obss = spec["obss"]
+        self.num_samples = (obss[1] if isinstance(obss, tuple) else obss.shape)[0]
         self._spec = {k: spec[k] for k in self.keys}
-        self._mmaps: Optional[dict[str, np.memmap]] = None
+        self._rows: Optional[dict] = None
+        self._fd: Optional[int] = None
+        self._lock = threading.Lock()
 
-    def _mm(self) -> dict[str, np.memmap]:
-        if self._mmaps is None:
-            self._mmaps = {k: np.memmap(self.path, dtype=dt, mode="r", offset=off, shape=shape)
-                           for k, (off, shape, dt) in self._spec.items()}
-        return self._mmaps
+    def _open(self) -> dict:
+        if self._rows is None:
+            if any(isinstance(spec, Chunked) for spec in self._spec.values()):
+                self._fd = os.open(self.path, os.O_RDONLY)
+            self._rows = {key: open_rows(self.path, spec, self._fd)
+                          for key, spec in self._spec.items()}
+        return self._rows
 
     def __len__(self) -> int:
         return self.num_samples
 
+    def __del__(self):
+        if getattr(self, "_fd", None) is not None:
+            os.close(self._fd)
+
     def read_slice(self, start: int, stop: int) -> dict[str, np.ndarray]:
         # memmap slices are views: the shuffle gathers from them, so the bytes
-        # are copied once
-        return _postprocess({k: m[start:stop] for k, m in self._mm().items()})
+        # are copied once; chunked rows are decoded under the lock (zlib and
+        # the LZF decoder release the GIL, so the prefetch thread's decode
+        # overlaps the step)
+        with self._lock:
+            rows = self._open()
+            raw = {k: rows[k][start:stop] for k in self.keys}
+        return _postprocess(raw)
+
+
+def read_array(path: str | Path, spec) -> np.ndarray:
+    """A whole dataset of ``read_layout``'s ``spec``, as h5py's ``dataset[()]``
+    gives it."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        return np.array(open_rows(str(path), spec, fd)[:])
+    finally:
+        os.close(fd)
 
 
 def _postprocess(raw: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -1,8 +1,9 @@
-"""The sprite envs' rasterizer: host C++ (``rasterizer.cpp``), bound with
-ctypes.
+"""The port's host C++, bound with ctypes: the sprite envs' rasterizer
+(``rasterizer.cpp``) and the HDF5 reader's checksums and LZF decoder
+(``hdf5_filters.cpp``).
 
-At first use the source is compiled by ``g++`` (``$CXX`` when set) into
-``build/ocrl_tpu_torch/librasterizer-<hash>.so`` at the root of the checkout,
+At first use a source is compiled by ``g++`` (``$CXX`` when set) into
+``build/ocrl_tpu_torch/lib<name>-<hash>.so`` at the root of the checkout,
 keyed by a hash of the source and the flags, as ``ops/_build.py`` builds the
 CUDA sources. The library is written under a temporary name and moved into
 place, so processes that build at once (forked env workers) see all of it or
@@ -21,33 +22,35 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "rasterizer.cpp"
+FILTERS_SOURCE = SOURCE.with_name("hdf5_filters.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ocrl_tpu_torch"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib: ctypes.CDLL | None = None
+_filters: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"librasterizer-{h.hexdigest()[:16]}.so"
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the rasterizer unless it is built; its path."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (the rasterizer by default) unless it is built;
+    its library's path."""
+    out = library_path(source)
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        raise RuntimeError("no C++ compiler: the sprite envs' rasterizer needs g++ "
-                           "(or $CXX)")
+        raise RuntimeError(f"no C++ compiler: {source.name} needs g++ (or $CXX)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"building the rasterizer failed:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"building {source.name} failed:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -69,6 +72,45 @@ def load() -> ctypes.CDLL:
         lib.render_polygons.restype = None
         _lib = lib
     return _lib
+
+
+def filters() -> ctypes.CDLL:
+    """The loaded HDF5 filter library, built at first use."""
+    global _filters
+    if _filters is None:
+        lib = ctypes.CDLL(str(build(FILTERS_SOURCE)))
+        lib.hdf5_lookup3.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]
+        lib.hdf5_lookup3.restype = ctypes.c_uint32
+        lib.hdf5_fletcher32.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+        lib.hdf5_fletcher32.restype = ctypes.c_uint32
+        lib.hdf5_lzf_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                            ctypes.c_size_t]
+        lib.hdf5_lzf_decompress.restype = ctypes.c_int64
+        _filters = lib
+    return _filters
+
+
+def lookup3(data: bytes) -> int:
+    """Jenkins' lookup3 ``hashlittle`` of ``data`` from 0: HDF5's metadata
+    checksum."""
+    return filters().hdf5_lookup3(data, len(data), 0)
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's fletcher32 checksum of ``data``."""
+    return filters().hdf5_fletcher32(data, len(data))
+
+
+def lzf_decompress(data: bytes, size: int) -> bytes:
+    """``data`` decoded by LZF into exactly ``size`` bytes; a stream that is
+    corrupt or decodes to another size raises ValueError."""
+    out = bytearray(size)
+    n = filters().hdf5_lzf_decompress(data, len(data), (ctypes.c_char * size).from_buffer(out),
+                                      size)
+    if n != size:
+        raise ValueError(f"an LZF stream of {len(data)} bytes decoded to "
+                         f"{'an error' if n < 0 else f'{n} bytes'}, not {size}")
+    return bytes(out)
 
 
 def render_polygons(W: int, H: int, aa: int, polys: list[np.ndarray],

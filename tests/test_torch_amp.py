@@ -657,12 +657,13 @@ def run_entry(entry: str, tmp_path):
                                "max_steps=2", "eval_interval=100", *amp], device="cpu")
     if entry == "get_ari_mse":
         from ocrl_tpu_torch.data import H5Dataset
-        cfg = tcfg.compose(tcfg.GetAriMseConfig(), ["ocr=slate", *SMALL_OCR, "env.obs_size=16",
-                                                    "batch_size=4", "ocr.amp=bf16"])
+        cfg = tcfg.compose(tcfg.GetAriMseConfig(), ["ocr=slate", *SMALL_OCR,
+                                                    "dataset.obs_size=16", "batch_size=4",
+                                                    "ocr.amp=bf16"])
         val = H5Dataset(data, "ValidationSet")
         batch = val.read_slice(0, 4)
-        return get_ari_mse.main(cfg, {"obss": batch["obss"], "masks": batch["masks"]},
-                                device="cpu")
+        return get_ari_mse.evaluate_arrays(cfg, {"obss": batch["obss"], "masks": batch["masks"]},
+                                           device="cpu")
     if entry == "train_property_predictor":
         return train_property_predictor.main(["ocr=slate", *SMALL_OCR, *dataset,
                                               "max_epochs=1", *amp], device="cpu")

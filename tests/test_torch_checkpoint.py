@@ -162,7 +162,7 @@ def test_old_bcdec_layout_migrates_as_jax_does(tmp_path):
     path = tmp_path / "old.ckpt"
     jckpt.save_checkpoint(path, {"ocr_module_state_dict": old}, {"step": 3})
     port = port_eval_config(True, **{"ocr_checkpoint.local_file": str(path)})
-    ocr, pretrained = tckpt.get_ocr(port.ocr, port.env, port.ocr_checkpoint, device="cpu")
+    ocr, pretrained = tckpt.get_ocr(port.ocr, port.dataset, port.ocr_checkpoint, device="cpu")
     assert pretrained
     want_state = ocr_from_flax(params)
     got_state = ocr.module.state_dict()
@@ -184,7 +184,7 @@ def test_jax_ocr_checkpoint_loads_into_the_port(tmp_path):
     jckpt.save(jocr, tmp_path / "run", step=1)
     port = port_eval_config(**{"ocr_checkpoint.run_id": str(tmp_path / "run")})
     assert tckpt.resolve_ocr_checkpoint_path(port.ocr_checkpoint).name == "model_latest.ckpt"
-    ocr, pretrained = tckpt.get_ocr(port.ocr, port.env, port.ocr_checkpoint, device="cpu")
+    ocr, pretrained = tckpt.get_ocr(port.ocr, port.dataset, port.ocr_checkpoint, device="cpu")
     assert pretrained and ocr.optimizer.count == 1 and ocr._last_step == 0
     want_opt = jax.tree.map(np.asarray, serialization.to_state_dict(jocr.opt_state))
     got_opt = tckpt.checkpoint_tree(ocr)["ocr_opt_state_dict"]
@@ -197,9 +197,9 @@ def test_jax_ocr_checkpoint_loads_into_the_port(tmp_path):
 
     partial = {k: v for k, v in params.items() if k != "out"}
     jckpt.save_checkpoint(tmp_path / "partial.ckpt", {"ocr_module_state_dict": partial}, {})
-    fresh, _ = tckpt.get_ocr(port.ocr, port.env, tcfg.OCRCheckpointConfig(), seed=9,
+    fresh, _ = tckpt.get_ocr(port.ocr, port.dataset, tcfg.OCRCheckpointConfig(), seed=9,
                              device="cpu")
-    loaded, _ = tckpt.get_ocr(port.ocr, port.env, tcfg.OCRCheckpointConfig(
+    loaded, _ = tckpt.get_ocr(port.ocr, port.dataset, tcfg.OCRCheckpointConfig(
         local_file=str(tmp_path / "partial.ckpt")), seed=9, device="cpu")
     assert torch.equal(loaded.module.out.weight, fresh.module.out.weight)
     assert torch.equal(loaded.module.dictionary.weight, want["dictionary.weight"])
@@ -224,8 +224,8 @@ def test_checkpoint_paths(tmp_path):
         (tmp_path / name).write_bytes(b"PK\x03\x04" + bytes(12))
     port = port_eval_config()
     with pytest.raises(ValueError, match="not an ocrl_tpu checkpoint"):
-        tckpt.get_ocr(port.ocr, port.env, cfg(local_file=str(tmp_path / "ref.ckpt")),
+        tckpt.get_ocr(port.ocr, port.dataset, cfg(local_file=str(tmp_path / "ref.ckpt")),
                       device="cpu")
     with pytest.raises(RuntimeError, match="zip archive"):
-        tckpt.get_ocr(port.ocr, port.env, cfg(local_file=str(tmp_path / "ref.pth")),
+        tckpt.get_ocr(port.ocr, port.dataset, cfg(local_file=str(tmp_path / "ref.pth")),
                       device="cpu")

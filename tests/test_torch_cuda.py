@@ -14,8 +14,9 @@ two launches on the same inputs are held to bitwise equality. The other
 OCRs and poolings (no kernel of their own), and the pretraining steps of
 VAE, MAE and IODINE and IODINE's evaluation, are held card against CPU.
 The data path's prefetch gives on the card exactly the items it gives on
-the CPU, and train_ocr.main at small SLATE widths trains, evaluates, saves
-and resumes on the card through B1-B4. One SAC update is held card against
+the CPU, train_ocr.main at small SLATE widths trains, evaluates, saves
+and resumes on the card through B1-B4, and get_ari_mse's command line
+scores a chunked, LZF-compressed file through B1-B3. One SAC update is held card against
 CPU, end to end and frozen. With ``ocr.amp=bf16`` the conv blocks output
 bf16 on the card and one step is held against the CPU's bf16 and fp32
 steps (chip_smoke.check_amp_step)."""
@@ -314,6 +315,30 @@ def test_evaluation_batch_matches_plain_on_the_card(cuda, bcdec):
         assert LAUNCHES == {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1, tsr.KERNEL: 6}
     assert np.isfinite([results["ari"], results["mse"]]).all()
     assert all(check_eval(ocr, batch).values())
+
+
+@pytest.mark.cuda
+def test_get_ari_mse_cli_launches_the_kernels_on_a_chunked_file(cuda, tmp_path):
+    """python -m ocrl_tpu_torch.get_ari_mse's main at full SLATE width on the
+    committed lzf-fletcher32.h5 (chunked, LZF and fletcher32; 32 validation
+    images): 4 batches of 8 launch B1 4, B2 4 and B3 24, and eval/ari and
+    eval/mse are logged at step 0."""
+    import json
+    from pathlib import Path
+
+    from ocrl_tpu_torch import get_ari_mse
+
+    data = Path(__file__).resolve().parent / "data" / "hdf5" / "lzf-fletcher32.h5"
+    reset_launches()
+    results = get_ari_mse.main(["ocr=slate", "dataset=random-N5C4S4S2",
+                                f"dataset.datadir={data}", "batch_size=8",
+                                f"run_dir={tmp_path}"])
+    torch.cuda.synchronize()
+    assert LAUNCHES == {gumbel.SOFT_KERNEL: 4, gumbel.IDS_KERNEL: 4, tsr.KERNEL: 24}
+    (logged,) = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert logged["_step"] == 0
+    assert (logged["eval/ari"], logged["eval/mse"]) == (results["ari"], results["mse"])
+    assert np.isfinite([results["ari"], results["mse"]]).all()
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ does without, on the CPU at small sizes (env obs 16, a few dozen images):
 - the HDF5 reader (``data.hdf5_format.read_layout``) against h5py's offsets,
   shapes and dtypes on a file JAX's collector wrote; the writer's file read
   by h5py and taken by JAX's ``H5Dataset`` on its memmap path; files outside
-  the subset (chunked, gzip, ``libver="latest"``, big-endian) refused;
+  the collectors' subset (chunked, gzip, ``libver="latest"``, big-endian)
+  read as h5py reads them, scaleoffset and external storage refused;
 - the collector against JAX's, bitwise, with one and two workers;
 - the loader's batches against JAX's over two epochs, shuffled and not;
 - ``prefetch_to_device`` against JAX's, superbatches, a shape change, and a
@@ -106,20 +107,34 @@ def test_writer_file_reads_back_in_h5py_and_jax(tmp_path):
                                   arrays["TrainingSet"]["obss"][1:4])
 
 
-@pytest.mark.parametrize("kind", ["chunked", "gzip", "latest", "big-endian"])
-def test_files_outside_the_subset_are_refused(tmp_path, kind):
+@pytest.mark.parametrize("kind", ["chunked", "gzip", "latest", "big-endian", "scaleoffset",
+                                  "external"])
+def test_files_outside_the_collectors_subset_read_as_h5py_reads_them(tmp_path, kind):
+    """Chunked, gzip-compressed, ``libver="latest"`` and big-endian files
+    read as h5py reads them (tests/test_torch_hdf5_layouts.py holds every
+    layout); a scaleoffset filter and external storage are refused by name."""
     path = tmp_path / f"{kind}.hdf5"
-    options = {"chunked": dict(chunks=(2, 4)), "gzip": dict(compression="gzip")}.get(kind, {})
+    options = {"chunked": dict(chunks=(2, 4)), "gzip": dict(compression="gzip"),
+               "scaleoffset": dict(scaleoffset=0),
+               "external": dict(external=[(str(tmp_path / "raw"), 0, h5py.h5f.UNLIMITED)])
+               }.get(kind, {})
     with h5py.File(path, "w", **({"libver": "latest"} if kind == "latest" else {})) as f:
         f.create_group("TrainingSet").create_dataset(
             "obss", data=np.arange(32, dtype=">f4" if kind == "big-endian" else np.uint8)
             .reshape(8, 4), **options)
-    match = {"chunked": "chunked", "gzip": "compressed", "latest": "superblock version",
-             "big-endian": "big-endian"}[kind]
-    with pytest.raises(hdf5_format.UnsupportedHDF5, match=match):
-        hdf5_format.read_layout(path)
-    with pytest.raises(hdf5_format.UnsupportedHDF5):
-        thdf5.H5Dataset(path, "TrainingSet")
+    refused = {"scaleoffset": "scaleoffset", "external": "external files"}.get(kind)
+    if refused:
+        with pytest.raises(hdf5_format.UnsupportedHDF5, match=refused):
+            hdf5_format.read_layout(path)
+        with pytest.raises(hdf5_format.UnsupportedHDF5, match=refused):
+            thdf5.H5Dataset(path, "TrainingSet")
+        return
+    got = thdf5.H5Dataset(path, "TrainingSet").read_slice(1, 7)["obss"]
+    want = jhdf5.H5Dataset(path, "TrainingSet").read_slice(1, 7)["obss"]
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    with h5py.File(path, "r") as f:
+        assert thdf5.read_array(path, hdf5_format.read_layout(path)["TrainingSet"]["obss"]
+                                ).tobytes() == f["TrainingSet"]["obss"][()].tobytes()
 
 
 @pytest.mark.parametrize("num_proc", [1, 2])

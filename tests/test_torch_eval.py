@@ -1,7 +1,8 @@
 """The evaluation slice against the JAX package, at a small width (obs 16,
 vocab 32, d 32, 2 decoder blocks): the ARI, SLATE's loss with masks, the
-KV-cached decode, greedy generation, the broadcast decoder and the
-get_ari_mse entry, on the same weights (utils.convert) and the same draws.
+KV-cached decode, greedy generation, the broadcast decoder, the
+get_ari_mse loop and its command line against JAX's on a gzip-chunked
+file, on the same weights (utils.convert) and the same draws.
 
 Tolerances, and why:
 - ARI within 1e-6 and label maps exactly: the contingency counts are exact
@@ -16,6 +17,9 @@ Tolerances, and why:
 - the entry's ARI within 1e-6 and MSE 1e-5 relative, as the loss.
 """
 
+import json
+
+import h5py
 import numpy as np
 import pytest
 import torch
@@ -31,8 +35,10 @@ from ocrl_tpu.models.dvae import BroadCastDecoder as JBroadCastDecoder
 from ocrl_tpu.utils import metrics as jmetrics
 from ocrl_tpu.utils.checkpoint import save_checkpoint
 
+import get_ari_mse as jget_ari_mse
 from ocrl_tpu_torch import config as tcfg
-from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate, main
+from ocrl_tpu_torch import get_ari_mse as tget_ari_mse
+from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate, evaluate_arrays
 from ocrl_tpu_torch.models import transformer as ttf
 from ocrl_tpu_torch.models.common import conv_nhwc
 from ocrl_tpu_torch.models.dvae import BroadCastDecoder
@@ -329,9 +335,10 @@ SMALL = [("env.obs_size", 16), ("ocr.cnn.hidden_size", 16),
 
 
 def port_eval_config(bcdec=False, **fields):
+    """GetAriMseConfig at SMALL's sizes (its dataset for JAX's env)."""
     cfg = tcfg.GetAriMseConfig()
     for path, value in SMALL + ([("ocr.use_bcdec", True)] if bcdec else []):
-        cfg = tcfg.replace(cfg, path, value)
+        cfg = tcfg.replace(cfg, path.replace("env.", "dataset.", 1), value)
     for path, value in fields.items():
         cfg = tcfg.replace(cfg, path, value)
     return cfg
@@ -360,6 +367,92 @@ def _jax_eval_loop(jocr, batches, with_gen):
         else:
             mses.append(float(np.asarray(m["mse"] if "mse" in m else m["dvae_mse"])))
     return {"ari": float(np.mean(aris)), "mse": float(np.mean(mses))}
+
+
+def _gzip_file(path, masks: bool) -> None:
+    """8 training and 8 validation painted scenes at obs 16, gzip and
+    shuffle at h5py's automatic chunks; with their masks or without."""
+    with h5py.File(path, "w") as f:
+        for split, seed in (("TrainingSet", 3), ("ValidationSet", 7)):
+            obs, mask = painted(8, 16, seed=seed)
+            group = f.create_group(split)
+            group.create_dataset("obss", data=obs, compression="gzip", shuffle=True)
+            if masks:
+                group.create_dataset("masks", data=mask, compression="gzip", shuffle=True)
+
+
+def test_cli_matches_the_jax_cli_on_a_chunked_file(tmp_path, monkeypatch):
+    """``python -m ocrl_tpu_torch.get_ari_mse``'s main(argv, device="cpu")
+    against the repo-root get_ari_mse.main (its config composed from the
+    same argv; the decorator's compilation cache left out) on a
+    gzip-chunked file, with the same draws (as
+    test_evaluate_matches_the_jax_loop feeds them: JAX's patched by shape,
+    the port's given to its evaluate): JAX's run builds SLATE from seed 0,
+    and the checkpoint JAX writes of that OCR is the one the port loads.
+    ARI within ARI_TOL, MSE 1e-5 relative, the same keys logged at step 0.
+    A file without masks raises KeyError on both sides."""
+    rng = np.random.default_rng(100)
+    e = [rng.exponential(size=(4 * 16, 32)).astype(np.float32) for _ in range(2)]
+    slot_draws = [rng.standard_normal((4, 3, 32)).astype(np.float32) for _ in range(2)]
+    calls = {"exponential": 0, "normal": 0}
+    exponential0, normal0 = jax.random.exponential, jax.random.normal
+
+    def exponential(key, shape=(), dtype=jnp.float32):
+        if tuple(shape) != e[0].shape:
+            return exponential0(key, shape, dtype)
+        calls["exponential"] += 1
+        return jnp.asarray(e[(calls["exponential"] - 1) % 2])
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        if tuple(shape) != slot_draws[0].shape:
+            return normal0(key, shape, dtype)
+        calls["normal"] += 1                   # the loss's trace, then gen_mse's
+        return jnp.asarray(slot_draws[calls["normal"] - 1])
+
+    _gzip_file(tmp_path / "ds.h5", masks=True)
+    argv = ["ocr=slate", "dataset=random-N5C4S4S2", f"dataset.datadir={tmp_path}/ds.h5",
+            "batch_size=4"] + [f"{k.replace('env.', 'dataset.', 1)}={v}" for k, v in SMALL]
+    built, jax_get_ocr = [], jget_ari_mse.get_ocr
+
+    def get_ocr_kept(*args, **kwargs):          # built once, for both of JAX's runs
+        if not built:
+            built.append(jax_get_ocr(*args, **kwargs)[0])
+        return built[0], False
+
+    monkeypatch.setattr(jget_ari_mse, "get_ocr", get_ocr_kept)
+    monkeypatch.setattr(jax.random, "exponential", exponential)
+    monkeypatch.setattr(jax.random, "normal", normal)
+    jget_ari_mse.main.__wrapped__(compose("get_ari_mse", argv + [f"run_dir={tmp_path}/jax"]))
+    assert calls == {"exponential": 2, "normal": 2}
+    save_checkpoint(tmp_path / "model_best.ckpt", built[0].save(), {"step": 0})
+    argv.append(f"ocr_checkpoint.local_file={tmp_path}/model_best.ckpt")
+
+    fields = {"soft": torch.from_numpy(-np.log(e[0] + TINY)),
+              "ids": torch.from_numpy(-np.log(e[1] + TINY)),
+              "slots": torch.from_numpy(slot_draws[0]),
+              "gen_slots": torch.from_numpy(slot_draws[1])}
+    port_evaluate = tget_ari_mse.evaluate
+    monkeypatch.setattr(tget_ari_mse, "evaluate", lambda ocr, batches, seed, **kw: port_evaluate(
+        ocr, batches, seed, noise=[dict(fields), dict(fields)], **kw))
+    got = tget_ari_mse.main(argv + [f"run_dir={tmp_path}/port"], device="cpu")
+    assert len(got["batches"]) == 2
+
+    def logged(side):
+        return [json.loads(line) for line in open(tmp_path / side / "metrics.jsonl")]
+
+    (want,), (port,) = logged("jax"), logged("port")
+    assert want["_step"] == port["_step"] == 0
+    assert set(port) == set(want) == {"_step", "_time", "eval/ari", "eval/mse"}
+    np.testing.assert_allclose(port["eval/ari"], want["eval/ari"], rtol=0, atol=ARI_TOL)
+    np.testing.assert_allclose(port["eval/mse"], want["eval/mse"], rtol=1e-5)
+    assert (got["ari"], got["mse"]) == (port["eval/ari"], port["eval/mse"])
+
+    _gzip_file(tmp_path / "bare.h5", masks=False)
+    bare = [a.replace("ds.h5", "bare.h5") for a in argv]
+    with pytest.raises(KeyError, match="masks"):
+        jget_ari_mse.main.__wrapped__(compose("get_ari_mse", bare + [f"run_dir={tmp_path}/j2"]))
+    with pytest.raises(KeyError, match="masks"):
+        tget_ari_mse.main(bare + [f"run_dir={tmp_path}/p2"], device="cpu")
 
 
 @pytest.mark.parametrize("ocr", ["slate", "slotattention"])
@@ -398,7 +491,8 @@ def test_evaluate_matches_the_jax_loop(ocr, tmp_path, monkeypatch):
     path = tmp_path / "model_best.ckpt"
     save_checkpoint(path, jocr.save(), {"step": 0})
     port = port_eval_config(bcdec, **{"ocr_checkpoint.local_file": str(path)})
-    tocr, pretrained = get_ocr(port.ocr, port.env, port.ocr_checkpoint, seed=3, device="cpu")
+    tocr, pretrained = get_ocr(port.ocr, port.dataset, port.ocr_checkpoint, seed=3,
+                               device="cpu")
     assert pretrained
     fields = {"soft": torch.from_numpy(-np.log(e[0] + TINY)),
               "ids": torch.from_numpy(-np.log(e[1] + TINY)),
@@ -413,15 +507,15 @@ def test_evaluate_matches_the_jax_loop(ocr, tmp_path, monkeypatch):
 
 
 def test_main_evaluates_in_batches_and_refuses_what_it_cannot_score(tmp_path):
-    """main() = evaluate() of get_ocr's OCR over batches of batch_size, the
-    last one partial; a batch without masks, a background not last and an
-    OCR without masks (the VAE) raise, as JAX's entry does; IODINE scores
-    (held against JAX in test_torch_pretrain.py)."""
+    """evaluate_arrays() = evaluate() of get_ocr's OCR over batches of
+    batch_size, the last one partial; a batch without masks, a background
+    not last and an OCR without masks (the VAE) raise, as JAX's entry does;
+    IODINE scores (held against JAX in test_torch_pretrain.py)."""
     obs, masks = painted(6, 16, seed=8)
     data = {"obss": obs, "masks": masks}
     cfg = port_eval_config(batch_size=4)
-    got = main(cfg, data, device="cpu")
-    ocr, pretrained = get_ocr(cfg.ocr, cfg.env, cfg.ocr_checkpoint, cfg.seed, "cpu")
+    got = evaluate_arrays(cfg, data, device="cpu")
+    ocr, pretrained = get_ocr(cfg.ocr, cfg.dataset, cfg.ocr_checkpoint, cfg.seed, "cpu")
     assert not pretrained
     want = evaluate(ocr, batches_of(data, 4), cfg.seed)
     assert [len(b) for b in batches_of(data, 4)] == [2, 2]
@@ -430,10 +524,11 @@ def test_main_evaluates_in_batches_and_refuses_what_it_cannot_score(tmp_path):
     with pytest.raises(KeyError, match="masks"):
         evaluate(ocr, [{"obss": obs}])
     with pytest.raises(ValueError, match="bg_mask_idx"):
-        main(port_eval_config(bg_mask_idx=0), data, device="cpu")
+        evaluate_arrays(port_eval_config(bg_mask_idx=0), data, device="cpu")
     with pytest.raises(ValueError, match="mask-producing"):
-        main(tcfg.GetAriMseConfig(ocr=tcfg.VAEConfig(), env=cfg.env), data, device="cpu")
+        evaluate_arrays(tcfg.GetAriMseConfig(ocr=tcfg.VAEConfig(), dataset=cfg.dataset), data,
+                        device="cpu")
     iodine = tcfg.GetAriMseConfig(ocr=tcfg.IodineConfig(slot_size=8, num_iterations=2),
-                                  env=cfg.env, batch_size=4)
-    scored = main(iodine, data, device="cpu")
+                                  dataset=cfg.dataset, batch_size=4)
+    scored = evaluate_arrays(iodine, data, device="cpu")
     assert len(scored["batches"]) == 2 and np.isfinite([scored["ari"], scored["mse"]]).all()

@@ -63,7 +63,7 @@ from ocrl_tpu.utils.checkpoint import save_checkpoint
 from ocrl_tpu_torch import config as tcfg
 from ocrl_tpu_torch import train_ocr
 from ocrl_tpu_torch.data.collect import collect_dataset
-from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate, main
+from ocrl_tpu_torch.get_ari_mse import batches_of, evaluate, evaluate_arrays
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.base import clip_by_total_norm
 from ocrl_tpu_torch.models.iodine import _kl_std_normal
@@ -341,17 +341,18 @@ def test_evaluate_scores_iodine_as_jax_does(tmp_path):
         want = _jax_eval_loop(jocr, batches_of(data, 4))
     path = tmp_path / "model_best.ckpt"
     save_checkpoint(path, jocr.save(), {"step": 0})
-    port = tcfg.GetAriMseConfig(ocr=cfg.ocr, env=cfg.env, batch_size=4,
+    port = tcfg.GetAriMseConfig(ocr=cfg.ocr, dataset=tcfg.DatasetConfig(obs_size=cfg.env.obs_size),
+                                batch_size=4,
                                 ocr_checkpoint=tcfg.OCRCheckpointConfig(local_file=str(path)))
-    tocr, pretrained = get_ocr(port.ocr, port.env, port.ocr_checkpoint, 0, "cpu")
+    tocr, pretrained = get_ocr(port.ocr, port.dataset, port.ocr_checkpoint, 0, "cpu")
     assert pretrained
     got = evaluate(tocr, batches_of(data, 4), noise=[{"eps": torch.from_numpy(noise)}
                                                      for _ in range(2)])
     np.testing.assert_allclose(got["ari"], want["ari"], atol=ARI_TOL)
     np.testing.assert_allclose(got["mse"], want["mse"], rtol=TOL)
     assert all(b["gen_s"] == 0.0 for b in got["batches"])
-    ran = main(port, data, device="cpu")
-    again = evaluate(get_ocr(port.ocr, port.env, port.ocr_checkpoint, 0, "cpu")[0],
+    ran = evaluate_arrays(port, data, device="cpu")
+    again = evaluate(get_ocr(port.ocr, port.dataset, port.ocr_checkpoint, 0, "cpu")[0],
                      batches_of(data, 4), port.seed)
     assert (ran["ari"], ran["mse"]) == (again["ari"], again["mse"])
     assert np.isfinite([ran["ari"], ran["mse"]]).all()
@@ -359,13 +360,13 @@ def test_evaluate_scores_iodine_as_jax_does(tmp_path):
 
 @pytest.mark.parametrize("ocr", ["vae", "mae"])
 def test_get_ari_mse_refuses_ocrs_without_masks(ocr):
-    """VAE and MAE produce no masks: main and evaluate raise ValueError, as
-    the JAX entry does."""
+    """VAE and MAE produce no masks: evaluate_arrays and evaluate raise
+    ValueError, as the JAX entry does."""
     _, cfg = configs(VARIANTS[ocr])
     obs, masks = painted(2, cfg.env.obs_size, seed=1)
-    port = tcfg.GetAriMseConfig(ocr=cfg.ocr, env=cfg.env)
+    port = tcfg.GetAriMseConfig(ocr=cfg.ocr, dataset=tcfg.DatasetConfig(obs_size=cfg.env.obs_size))
     with pytest.raises(ValueError, match="mask-producing"):
-        main(port, {"obss": obs, "masks": masks}, device="cpu")
+        evaluate_arrays(port, {"obss": obs, "masks": masks}, device="cpu")
     with pytest.raises(ValueError, match="mask-producing"):
         evaluate(create_ocr(cfg.ocr, cfg.env, 0, "cpu"), [{"obss": obs, "masks": masks}])
 
