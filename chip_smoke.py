@@ -22,7 +22,10 @@ Phases, each printing its own line with its seconds:
    each that computes the same function with its own noise
    (F.gumbel_softmax, Categorical(logits).sample()); B1 and B2 with a row
    offset (row0, a data-parallel rank's rows): the field drawn equals rows
-   [row0, row0 + R) of the replay at row0 + R rows;
+   [row0, row0 + R) of the replay at row0 + R rows; the heads kernels
+   (B3 and B4 for more heads, more than 16 slots or other widths:
+   slot_routing_heads_fwd / _bwd) at HEADS_SHAPES, each against its plain
+   version with its bound and a second launch bitwise equal;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -208,7 +211,21 @@ Phases, each printing its own line with its seconds:
    bitwise the twin's; then the chunked TrainingSet's shuffled batches bitwise the
    twin's, and train_ocr.main ocr=slate on eval-gzip.h5 for 8 steps at 24
    with its final evaluation, launches exactly as the train-ocr phase counts
-   them.
+   them;
+18. slot-shapes: train_ocr ocr=slate past the single-head kernels' range,
+   at full width on eval-gzip.h5 (N = 4096), batch 24, superbatch 4, 8 steps
+   with the final evaluation, in two configurations (SLOT_SHAPES):
+   slate-heads4 (ocr.slotattr.num_slot_heads=4: 5 slots in 4 heads of 48)
+   and slate-slots24 (24 slots of 256, mlp_hidden_size 256); for each one
+   update against the same update through the plain versions (check_step),
+   ms a step and images/s over the last superbatch, launches exactly B1 and
+   B2 once a step and a validation batch (B1 a sample pass too), the heads
+   forward 3 and backward 3 a step and the forward 3 a validation batch and
+   a sample pass; for slate-heads4 also get_ari_mse's command line on its
+   checkpoint over one batch of 32 (B1 1, B2 1, heads forward 6) and one
+   slot-attention forward at 24 through fused=never (JAX's einsum route, no
+   launch) against the kernel route, within NEVER_TOL, each route's device
+   ms beside the other's.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -467,6 +484,18 @@ EVAL_BATCH, EVAL_BATCHES, EVAL_OBJECTS = 32, 4, 4   # configs/get_ari_mse.yaml: 
 # HDF5_RATE_REPS passes; HDF5_TRAIN_STEPS train_ocr steps at 24.
 HDF5_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "hdf5"
 HDF5_VAL, HDF5_SMALL_VAL, HDF5_RATE_REPS, HDF5_TRAIN_STEPS = 256, 32, 5, 8
+# The slot-shapes phase: train_ocr ocr=slate past the single-head kernels'
+# range, each configuration with its PERF.md name, on eval-gzip.h5 (N = 4096)
+# at batch 24 for SLOT_STEPS steps (superbatch 4); the kernels phase's heads
+# shapes [B, N, S, H, D]; the fused=never slot-attention forward within
+# NEVER_TOL of the kernel route's largest entry (fp32, the sums taken in
+# another order through three GRU iterations: POLICY_TOL's 1e-4).
+SLOT_SHAPES = {"slate-heads4": ["ocr.slotattr.num_slot_heads=4"],
+               "slate-slots24": ["ocr.slotattr.num_slots=24", "ocr.slotattr.slot_size=256",
+                                 "ocr.slotattr.mlp_hidden_size=256"]}
+SLOT_STEPS, NEVER_TOL = 8, 1e-4
+HEADS_SHAPES = [(24, 4096, 5, 4, 192), (24, 4096, 24, 1, 256), (24, 4096, 7, 1, 100),
+                (2, 333, 32, 8, 512), (3, 37, 5, 3, 21)]
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -547,16 +576,18 @@ def per_call_ms(fn, *name_parts: str, reps: int = 20) -> tuple[float, ...]:
     return (wall_ms(fn, reps),) * len(name_parts)
 
 
-def sweep_bytes(B: int, N: int, S: int, D: int) -> int:
-    """Bytes route_sweep must move: read k, v, q once, write a, S_a, A_v once."""
-    return 4 * (2 * B * N * D + B * S * D + B * N * S + B * S + B * S * D)
+def sweep_bytes(B: int, N: int, S: int, D: int, H: int = 1) -> int:
+    """Bytes route_sweep must move: read k, v, q once, write a [B, N, H S],
+    S_a [B, H S] and A_v once."""
+    return 4 * (2 * B * N * D + B * S * D + B * N * H * S + B * H * S + B * S * D)
 
 
-def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
-    """Least time for route_sweep: its bytes; two [N, S, D] products and the
-    softmax over S per token."""
-    ops = 4 * B * N * S * D + 4 * B * N * S
-    t_bytes, t_ops = sweep_bytes(B, N, S, D) / bw, ops / flops
+def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float, H: int = 1):
+    """Least time for route_sweep: its bytes; two [N, S, D] products (H S
+    dot products of D / H a token, and A_v) and the softmax over H S per
+    token."""
+    ops = 4 * B * N * S * D + 4 * B * N * H * S
+    t_bytes, t_ops = sweep_bytes(B, N, S, D, H) / bw, ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -612,33 +643,51 @@ def check_repeatable(name: str, fn, first) -> None:
         raise SystemExit(f"{name} is not deterministic")
 
 
+def sweep_shape(shape) -> tuple[int, int, int, int, int, str]:
+    """(B, N, S, H, D, printed) of a sweep shape [B, N, S, D] (one head) or
+    [B, N, S, H, D]."""
+    B, N, S, H, D = shape if len(shape) == 5 else (*shape[:3], 1, shape[3])
+    return B, N, S, H, D, f"B={B} N={N} S={S} D={D}" + (f" H={H}" if len(shape) == 5 else "")
+
+
+def sweep_kernels(S: int, D: int, H: int) -> tuple[str, str, str, str]:
+    """(B3's counter, its kernel's name, B4's counter, its kernel's name) of
+    the C entry pair that takes the shape."""
+    if slot_routing.fast_path(S, D, H):
+        return slot_routing.KERNEL, "sweep_fwd_kernel", slot_routing.BWD_KERNEL, \
+            "sweep_bwd_kernel"
+    return slot_routing.HEADS_KERNEL, "heads_fwd_kernel", slot_routing.HEADS_BWD_KERNEL, \
+        "heads_bwd_kernel"
+
+
 def check_sweep(shape, bw, flops, gen):
-    B, N, S, D = shape
-    k = torch.randn(B, N, D, device="cuda", generator=gen) * D ** -0.5
+    B, N, S, H, D, named = sweep_shape(shape)
+    counter, kernel_name = sweep_kernels(S, D, H)[:2]
+    k = torch.randn(B, N, D, device="cuda", generator=gen) * (D // H) ** -0.5
     v = torch.randn(B, N, D, device="cuda", generator=gen)
     q = torch.randn(B, S, D, device="cuda", generator=gen)
-    got = slot_routing.route_sweep(k, v, q)
-    want = slot_routing.route_sweep_reference(k, v, q)
+    got = slot_routing.route_sweep(k, v, q, H)
+    want = slot_routing.route_sweep_reference(k, v, q, H)
     torch.cuda.synchronize()
     errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
     scales = [w.abs().max().item() for w in want]
     ok = all(e <= SWEEP_TOL * s for e, s in zip(errs, scales))
     rel = ", ".join(f"{name} {e:.2e}/{s:.2e}" for name, e, s
                     in zip(("S_a", "A_v", "a"), errs, scales))
-    print(f"  route_sweep B={B} N={N} S={S} D={D}: max_abs_err/max_abs ({rel}), "
+    print(f"  route_sweep {named}: max_abs_err/max_abs ({rel}), "
           f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise SystemExit(f"route_sweep disagrees with its plain version at {shape}")
-    check_repeatable("route_sweep", lambda: slot_routing.route_sweep(k, v, q), got)
+    check_repeatable("route_sweep", lambda: slot_routing.route_sweep(k, v, q, H), got)
     ms, kernel_alone_ms, plain_ms, call_ms = sweep_times(   # with its row sums, and alone
-        lambda: slot_routing.route_sweep(k, v, q),
-        lambda: slot_routing.route_sweep_reference(k, v, q), "sweep_fwd_kernel",
-        slot_routing.KERNEL)
-    bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: route_sweep {ms:.4f} (sweep kernel alone {alone(kernel_alone_ms)}), "
-          f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f} % of it, {sweep_bytes(B, N, S, D) / ms / 1e9:.3f} TB/s; "
-          f"wall per call {call_ms:.4f} ms", flush=True)
+        lambda: slot_routing.route_sweep(k, v, q, H),
+        lambda: slot_routing.route_sweep_reference(k, v, q, H), kernel_name, counter)
+    bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops, H)
+    print(f"    device ms: route_sweep {ms:.4f} ({kernel_name} alone "
+          f"{alone(kernel_alone_ms)}), plain {plain_ms:.4f}, bound {bound_ms:.4f} "
+          f"({bound_by}), {100 * bound_ms / ms:.1f} % of it, "
+          f"{sweep_bytes(B, N, S, D, H) / ms / 1e9:.3f} TB/s; wall per call {call_ms:.4f} ms",
+          flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -658,17 +707,19 @@ def gumbel_bound_ms(R: int, V: int, soft: bool, bw: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sweep_bwd_bytes(B: int, N: int, S: int, D: int) -> int:
-    """Bytes the sweep's backward must move: read k, v, a, g_a, q, g_av once,
-    write gk, gv, gq once."""
-    return 4 * (4 * B * N * D + 2 * B * N * S + 3 * B * S * D)
+def sweep_bwd_bytes(B: int, N: int, S: int, D: int, H: int = 1) -> int:
+    """Bytes the sweep's backward must move: read k, v, a, g_a (a and g_a
+    [B, N, H S]), q, g_av once, write gk, gv, gq once."""
+    return 4 * (4 * B * N * D + 2 * B * N * H * S + 3 * B * S * D)
 
 
-def sweep_bwd_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float):
+def sweep_bwd_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float,
+                       H: int = 1):
     """Least time for the sweep's backward: its bytes; per token 8 S D
-    operations (v . g_av, dl q, a g_av and the dl^T k partial)."""
-    ops = 8 * B * N * S * D + 6 * B * N * S
-    t_bytes, t_ops = sweep_bwd_bytes(B, N, S, D) / bw, ops / flops
+    operations (v . g_av, dl q, a g_av and the dl^T k partial) and 6 H S
+    (da, dl)."""
+    ops = 8 * B * N * S * D + 6 * B * N * H * S
+    t_bytes, t_ops = sweep_bwd_bytes(B, N, S, D, H) / bw, ops / flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -847,19 +898,20 @@ def report_ptxas(names: list[str]) -> None:
 
 def check_sweep_bwd(shape, bw, flops, gen):
     """B4 against autograd of the plain sweep, given the same cotangents."""
-    B, N, S, D = shape
-    k = torch.randn(B, N, D, device="cuda", generator=gen) * D ** -0.5
+    B, N, S, H, D, named = sweep_shape(shape)
+    counter, kernel_name = sweep_kernels(S, D, H)[2:]
+    k = torch.randn(B, N, D, device="cuda", generator=gen) * (D // H) ** -0.5
     v = torch.randn(B, N, D, device="cuda", generator=gen)
     q = torch.randn(B, S, D, device="cuda", generator=gen)
-    g_sa = torch.randn(B, S, device="cuda", generator=gen)
+    g_sa = torch.randn(B, H * S, device="cuda", generator=gen)
     g_av = torch.randn(B, S, D, device="cuda", generator=gen)
-    g_a = torch.randn(B, N, S, device="cuda", generator=gen)
-    _, _, a = slot_routing.route_sweep(k, v, q)
+    g_a = torch.randn(B, N, H * S, device="cuda", generator=gen)
+    _, _, a = slot_routing.route_sweep(k, v, q, H)
     kernel_fn = lambda: slot_routing._sweep_bwd(  # noqa: E731 - the Function's backward
-        k, v, q, a, g_av, (g_a + g_sa[:, None, :]).contiguous())
+        k, v, q, a, g_av, (g_a + g_sa[:, None, :]).contiguous(), H)
     got = kernel_fn()
     leaves = [x.clone().requires_grad_() for x in (k, v, q)]
-    outs = slot_routing.route_sweep_reference(*leaves)
+    outs = slot_routing.route_sweep_reference(*leaves, H)
     plain_fn = lambda: torch.autograd.grad(outs, leaves, (g_sa, g_av, g_a),  # noqa: E731
                                            retain_graph=True)
     want = plain_fn()
@@ -869,18 +921,19 @@ def check_sweep_bwd(shape, bw, flops, gen):
     ok = all(e <= SWEEP_TOL * s for e, s in zip(errs, scales))
     rel = ", ".join(f"{name} {e:.2e}/{s:.2e}" for name, e, s
                     in zip(("gk", "gv", "gq"), errs, scales))
-    print(f"  route_sweep backward B={B} N={N} S={S} D={D}: max_abs_err/max_abs ({rel}), "
+    print(f"  route_sweep backward {named}: max_abs_err/max_abs ({rel}), "
           f"tolerance {SWEEP_TOL} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise SystemExit(f"the sweep's backward disagrees with its plain version at {shape}")
     check_repeatable("route_sweep backward", kernel_fn, got)
-    ms, kernel_alone_ms, plain_ms, call_ms = sweep_times(
-        kernel_fn, plain_fn, "sweep_bwd_kernel", slot_routing.BWD_KERNEL)
-    bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops)
-    print(f"    device ms: backward {ms:.4f} (sweep kernel alone {alone(kernel_alone_ms)}), plain "
-          f"(autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
-          f"{100 * bound_ms / ms:.1f} % of it, {sweep_bwd_bytes(B, N, S, D) / ms / 1e9:.3f} "
-          f"TB/s; wall per call {call_ms:.4f} ms", flush=True)
+    ms, kernel_alone_ms, plain_ms, call_ms = sweep_times(kernel_fn, plain_fn, kernel_name,
+                                                         counter)
+    bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops, H)
+    print(f"    device ms: backward {ms:.4f} ({kernel_name} alone {alone(kernel_alone_ms)}), "
+          f"plain (autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f} % of it, "
+          f"{sweep_bwd_bytes(B, N, S, D, H) / ms / 1e9:.3f} TB/s; wall per call "
+          f"{call_ms:.4f} ms", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -2304,6 +2357,115 @@ def hdf5_eval_phase(card: str, workdir) -> dict:
     return dict(launches=tuple(r["launches"] for r in runs) + (train_launches,))
 
 
+def slot_routes(card: str, ocr, B: int) -> None:
+    """One slot-attention forward of ``ocr``'s encoder at batch B on random
+    features, through the kernels (``auto``) and through JAX's einsum route
+    (``fused=never``, no launch): slots and attention within NEVER_TOL of the
+    kernel route's largest entry, and each route's device ms."""
+    enc = ocr.module.slotattn
+    sa = enc.slot_attention
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    x = torch.randn(B, 64 * 64, enc.layer_norm.normalized_shape[0], device="cuda",
+                    generator=gen)
+    noise = torch.randn(B, sa.num_slots, sa.slot_size, device="cuda", generator=gen)
+    out, launches, ms = {}, {}, {}
+    with torch.no_grad():
+        for fused in ("auto", "never"):
+            sa.fused = fused
+            reset_launches()
+            out[fused] = enc(x, noise=noise)
+            torch.cuda.synchronize()
+            launches[fused] = dict(LAUNCHES)
+            ms[fused], = per_call_ms(lambda: enc(x, noise=noise))
+    sa.fused = "auto"
+    errs = [((n - k).abs().max() / k.abs().max()).item()
+            for n, k in zip(out["never"], out["auto"])]
+    ok = max(errs) <= NEVER_TOL and launches["never"] == {} and \
+        launches["auto"] == {slot_routing.HEADS_KERNEL: sa.num_iterations}
+    print(f"  {card}: slot attention at {B} x 4096 tokens, {sa.num_slots} slots of "
+          f"{sa.slot_size} in {sa.num_heads} heads: fused=never against the kernel route: "
+          f"slots {errs[0]:.2e}, attention {errs[1]:.2e} of their largest entry (tolerance "
+          f"{NEVER_TOL}); device ms a forward: kernels {ms['auto']:.4f}, never (einsum) "
+          f"{ms['never']:.4f} ({ms['never'] / ms['auto']:.3f} x); launches {launches}",
+          flush=True)
+    if not ok:
+        raise SystemExit("fused=never disagrees with the kernel route, or launched a kernel")
+
+
+def slot_shapes_phase(card: str, workdir) -> dict:
+    """The slot-shapes phase (see the module docstring). Returns the launch
+    counts of its main-path runs."""
+    import tempfile
+
+    gzip_file, lzf_file = HDF5_FIXTURES / "eval-gzip.h5", HDF5_FIXTURES / "lzf-fletcher32.h5"
+    iters = GROUPS["ocr"]["slate"].slotattr.num_iterations
+    val_batches = -(-HDF5_VAL // TRAIN_BATCH)
+    batch = np.random.default_rng(0).integers(
+        0, 256, (TRAIN_BATCH, 64, 64, 3), dtype=np.uint8)
+    runs = []
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        for name, over in SLOT_SHAPES.items():
+            run_dir = Path(tmp) / name
+            argv = ["ocr=slate", *over, f"dataset={OCR_ENV}", f"dataset.datadir={gzip_file}",
+                    f"batch_size={TRAIN_BATCH}", "superbatch=4", "log_interval=8",
+                    "eval_interval=1000", f"max_steps={SLOT_STEPS}", f"run_dir={run_dir}"]
+            cfg = compose(TrainOCRConfig(), argv)
+            sa = cfg.ocr.slotattr
+            print(f"  {card}: {name}: {sa.num_slots} slots of {sa.slot_size} in "
+                  f"{sa.num_slot_heads} heads (train_ocr {' '.join(argv[:len(over) + 1])})",
+                  flush=True)
+            check_step(cfg.ocr, EnvConfig(), batch)
+            calls, update_many = [], OCR.update_many
+
+            def timed_update_many(self, obs, masks, step, k, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = update_many(self, obs, masks, step, k, **kwargs)
+                torch.cuda.synchronize()
+                calls.append((k, time.perf_counter() - t0))
+                return out
+
+            OCR.update_many = timed_update_many
+            try:
+                reset_launches()
+                trained = train_ocr.main(argv)
+                launches = dict(LAUNCHES)
+            finally:
+                OCR.update_many = update_many
+            runs.append(launches)
+            records = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+            samples = sum("samples" in r for r in records)
+            steps = sorted(r["_step"] for r in records if "train/loss" in r)
+            finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                         if k.startswith(("train/", "val/")))
+            want = {gumbel.SOFT_KERNEL: SLOT_STEPS + val_batches + samples,
+                    gumbel.IDS_KERNEL: SLOT_STEPS + val_batches,
+                    slot_routing.HEADS_KERNEL: iters * (SLOT_STEPS + val_batches + samples),
+                    slot_routing.HEADS_BWD_KERNEL: iters * SLOT_STEPS}
+            k, seconds = calls[-1]           # the last superbatch: past the warm-up
+            print(f"  {card}: {name}: train_ocr.main to step {trained['step']} at batch "
+                  f"{TRAIN_BATCH}: {1e3 * seconds / k:.3f} ms/step, "
+                  f"{TRAIN_BATCH * k / seconds:.1f} images/s over its last {k} steps (the "
+                  f"first {calls[0][0]}, with the warm-up: {1e3 * calls[0][1] / calls[0][0]:.3f} "
+                  f"ms/step); train records {steps}, one evaluation of {val_batches} batches, "
+                  f"{samples} sample pass(es), finite: {'yes' if finite else 'NO'}; launches "
+                  f"{launches}, expected {want}", flush=True)
+            if not (launches == want and steps == list(range(SLOT_STEPS)) and finite
+                    and trained["step"] == SLOT_STEPS):
+                raise SystemExit(f"train_ocr {name} failed a check")
+            if name == "slate-heads4":
+                weights = run_dir / "checkpoints" / "model_latest.ckpt"
+                runs.append(hdf5_eval_cli(
+                    card, f"{name} on lzf-fletcher32", [
+                        "ocr=slate", *over, f"dataset={OCR_ENV}", f"dataset.datadir={lzf_file}",
+                        f"ocr_checkpoint.local_file={weights}", f"batch_size={EVAL_BATCH}",
+                        f"run_dir={Path(tmp) / 'eval'}"],
+                    {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1,
+                     slot_routing.HEADS_KERNEL: 2 * iters}, HDF5_SMALL_VAL)["launches"])
+                slot_routes(card, trained["model"], TRAIN_BATCH)
+    return dict(launches=tuple(runs))
+
+
 def read_gif_blocks(data: bytes) -> tuple[int, int, int]:
     """(width, height, frames) of a GIF89a file, found by walking its blocks
     (header, screen, global palette, extensions, images, trailer)."""
@@ -3688,6 +3850,11 @@ def main() -> int:
                       (EVAL_BATCH,) + serving_shape[1:], (2, 4096, 6, 192),
                       (3, 333, 5, 192), (2, 100, 16, 64)]:
             check_sweep_bwd(shape, bw, flops, gen)
+        # the heads kernels: the slot-shapes phase's two configurations
+        # (slate-heads4 first: its numbers go to the kernels line), then
+        # other widths and the corner of their range
+        heads = [(check_sweep(shape, bw, flops, gen), check_sweep_bwd(shape, bw, flops, gen))
+                 for shape in HEADS_SHAPES]
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
         check_gumbel(EVAL_BATCH * (env_cfg.obs_size // 4) ** 2, ocr_cfg.dvae.vocab_size,
                      bw, flops, gen)
@@ -3795,6 +3962,9 @@ def main() -> int:
 
     with phase("hdf5-eval"):
         hdf5_eval = hdf5_eval_phase(card, workdir.name)
+
+    with phase("slot-shapes"):
+        slot_shapes = slot_shapes_phase(card, workdir.name)
     workdir.cleanup()
 
     if args.profile:
@@ -3865,13 +4035,14 @@ def main() -> int:
         # bf16 steps, update and get_loss, evaluation of SLATE and of Slot-Attention, the PPO iteration, the
         # frozen updates, the RL evaluation, the other OCRs' iterations, the
         # pretraining phase, train_ocr's two runs, the multi-seed runs, the
-        # two SAC runs, the two probes, the ddp phase's ranks and the
-        # hdf5-eval phase's command lines and train_ocr run
+        # two SAC runs, the two probes, the ddp phase's ranks, the
+        # hdf5-eval phase's command lines and train_ocr run, and the
+        # slot-shapes phase's train_ocr runs and command line
         runs = (launches, train_launches, *amp["launches"], eval_launches,
                 sa_launches) + rl["launches"] + (
             other["launches"], pretrain["launches"]) + ocr_train["launches"] + \
             multi["launches"] + sac["launches"] + probes["launches"] + ddp["launches"] + \
-            hdf5_eval["launches"]
+            hdf5_eval["launches"] + slot_shapes["launches"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(run.get(name, 0) for run in runs),
                     max_abs_err=result["max_abs_err"], ms=result["ms"],
@@ -3887,6 +4058,9 @@ def main() -> int:
             soft_ids[gumbel.IDS_KERNEL]),
         row(slot_routing.KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:79", sweep),
         row(slot_routing.BWD_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:86", sweep_bwd),
+        row(slot_routing.HEADS_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:79", heads[0][0]),
+        row(slot_routing.HEADS_BWD_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:86",
+            heads[0][1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,18 +5,29 @@ slots), then renormalised over the inputs with an epsilon, as in JAX.
 
 Two routes compute the same function:
 
-- the sweep (``ops.route_sweep``): one head, S <= 16 slots, slot size a
-  multiple of 32 up to 256. On a CUDA tensor it is the hand-written kernel;
-  on the CPU its plain version. The renormalisation is then done from the
-  sweep's sums:
-  ``upd = (A_v + eps * sum_n v) / (S_a + N * eps)``;
-- the einsum route, the plain version of the whole loop, for any head count.
+- the sweep (``ops.route_sweep``), for every head count H dividing the slot
+  size D and 1 <= S <= 32 slots, wherever the kernels' ring fits the card's
+  shared memory (``ops.sweep_supports``: every H <= 8 and D <= 512 does).
+  On a CUDA tensor it is the hand-written kernels; on the CPU their plain
+  version. The renormalisation is then done per head from the sweep's sums:
+  ``upd[b, s, c] = (A_v[b, s, c] + eps * sum_n v[b, n, c]) /
+  (S_a[b, h(c) S + s] + N * eps)``, h(c) the head of column c; the
+  attention returned is ``a`` summed over the heads, as JAX's
+  ``attn.sum(2)``;
+- the einsum route, JAX's own jnp route (ocrl_tpu/models/slot_attention.py:
+  96-108), which reaches no kernel, on any device.
 
-``fused`` keeps JAX's three values, with JAX's ``auto`` semantics: ``auto``
-takes the sweep whenever it is eligible, ``always`` raises when it is not,
-``never`` takes the einsum route. On a CUDA tensor this slice runs the sweep
-only: ``never``, and more than one head, raise there rather than hide the
-device path behind a silent einsum.
+``fused`` keeps JAX's three values:
+
+- ``auto`` (the port's default) takes the sweep wherever the kernels take
+  the shape; outside it, on the CPU the einsum route and on a CUDA tensor
+  ``NotImplementedError`` naming the shape (no silent second route on the
+  card);
+- ``always`` raises ``ValueError`` exactly where JAX's does (more than one
+  head, or no power-of-two chunk from 8 to 512 dividing N:
+  ocrl_tpu/models/slot_attention.py:71-77) and takes the sweep elsewhere;
+- ``never`` takes the einsum route, also on the card: only a user's explicit
+  value reaches it.
 """
 
 from __future__ import annotations
@@ -60,33 +71,31 @@ class SlotAttention(nn.Module):
             linear(mlp_hidden_size, slot_size),
         )
 
-    def _use_sweep(self, device: torch.device) -> bool:
-        eligible = (self.num_heads == 1 and
-                    slot_routing.sweep_supports(self.num_slots, self.slot_size))
-        if self.fused == "always" and not eligible:
+    def _use_sweep(self, device: torch.device, N: int) -> bool:
+        S, D, H = self.num_slots, self.slot_size, self.num_heads
+        if self.fused == "never":
+            return False
+        if self.fused == "always" and (H != 1 or slot_routing.pick_chunk(N) == 0):
             raise ValueError(
-                f"fused=always but routing is ineligible (heads={self.num_heads}, "
-                f"slots={self.num_slots}, slot_size={self.slot_size})")
-        if device.type == "cuda":
-            if self.fused == "never":
-                raise ValueError(
-                    "fused=never: the einsum route is the plain version and "
-                    "does not run on CUDA in this slice; use auto or always")
-            if not eligible:
-                raise NotImplementedError(
-                    f"heads={self.num_heads}, slots={self.num_slots}, "
-                    f"slot_size={self.slot_size}: the routing kernel takes one "
-                    "head, at most 16 slots and a slot size that is a multiple "
-                    "of 32 up to 256")
-        return eligible and self.fused != "never"
+                f"fused=always but routing is ineligible (heads={H}, N={N}, "
+                f"chunk={slot_routing.pick_chunk(N)})")
+        if slot_routing.sweep_supports(S, D, H):
+            return True
+        if device.type == "cuda" or self.fused == "always":
+            raise NotImplementedError(
+                f"heads={H}, slots={S}, slot_size={D}: the routing kernels take 1 <= "
+                f"slots <= {slot_routing.MAX_SLOTS} and need "
+                f"{slot_routing.needed_bytes(S, D, H)} bytes of shared memory a block "
+                f"(the card has {slot_routing.SMEM_LIMIT})")
+        return False
 
     def forward(self, inputs: torch.Tensor, slots: torch.Tensor):
         """inputs [B, N, D_in], slots [B, S, D] -> (slots [B, S, D],
-        attention [B, N, S] of the last iteration)."""
+        attention [B, N, S] of the last iteration, summed over the heads)."""
         B, N, _ = inputs.shape
         S, H = self.num_slots, self.num_heads
         hd = self.slot_size // H
-        use_sweep = self._use_sweep(inputs.device)
+        use_sweep = self._use_sweep(inputs.device, N)
 
         inputs = self.norm_inputs(inputs)
         k = self.project_k(inputs) * hd ** -0.5          # [B, N, H*hd]
@@ -102,9 +111,15 @@ class SlotAttention(nn.Module):
             slots_prev = slots
             q = self.project_q(self.norm_slots(slots))    # [B, S, D]
             if use_sweep:
-                sa, av, attn_vis = slot_routing.route_sweep(k, v, q)
-                updates = (av + self.epsilon * v_sum[:, None, :]) \
-                    / (sa + N * self.epsilon)[..., None]
+                sa, av, attn_vis = slot_routing.route_sweep(k, v, q, H)
+                if H == 1:
+                    updates = (av + self.epsilon * v_sum[:, None, :]) \
+                        / (sa + N * self.epsilon)[..., None]
+                else:   # each column over its own head's S_a
+                    denom = (sa + N * self.epsilon).reshape(B, H, S).transpose(1, 2)
+                    updates = ((av + self.epsilon * v_sum[:, None, :]).reshape(B, S, H, hd)
+                               / denom[..., None]).reshape(B, S, self.slot_size)
+                    attn_vis = attn_vis.reshape(B, N, H, S).sum(2)
             else:
                 q = q.reshape(B, S, H, hd)
                 logits = torch.einsum("bnhd,bshd->bnhs", k, q)

@@ -753,7 +753,553 @@ cudaError_t launch_bwd(const float* k, const float* v, const float* a,
   return launch_reduce(scratch, gq, nullptr, S * D, S * D, 0, B, N, G, stream);
 }
 
+// -- The heads kernels: any head count H dividing D, any S up to 32 --------
+//
+// The same function with H heads of hd = D / H columns: the logit of token
+// n for slot s of head h is the dot product over head h's columns, the
+// softmax runs jointly over the H * S logits, and column c of A_v takes the
+// weights of its own head h(c) = c / hd. a, S_a and a's cotangent hold H * S
+// values a token, in (h, s) order. The skeleton is the kernels' above (one
+// producer thread, bulk copies into a ring, 8 consumer warps, one partial a
+// (block, batch row), the row sums in reduce_rows); what differs:
+// - Spans: a tile of k or v starts wherever pos * D puts it; the producer
+//   fetches the 16-byte-aligned span that covers it, and reads the 1-3
+//   floats after the tensor's last whole 16 bytes with plain loads (as the
+//   single-head backward reads a and g_a). gk and gv go out with plain
+//   stores from the consumers, so the backward's ring is only read.
+// - Logits: a warp takes kTok tokens at a time and a lane one logit j of
+//   each chunk of 32 (j = 32 jb + lane). q (the backward: g_av) of the row
+//   sits in shared memory as qh[cc][j], cc the column within head h(j), so
+//   the 32 lanes read 32 consecutive entries while the k values of a token
+//   are one broadcast a head. V = 4 reads both 16 bytes at a time where
+//   hd % 4 == 0 (so D % 4 == 0 and every tile starts 16-byte aligned), each
+//   lane keeping V partial sums a token; V = 1 reads floats. The logits go
+//   to a [T][H][SP] buffer in shared memory (SP = S rounded up to 4, the
+//   padding 0), where the warp then takes the softmax (the backward: dl)
+//   of each of its tokens.
+// - Columns: a consumer thread takes columns tid, tid + 256, ... one at a
+//   time, all S slots of it in registers (SM, the bucket of S: 8, 16 or
+//   32), and walks every token of the tile reading its head's weights as
+//   float4 broadcasts; the column's sums over the tile are added to the
+//   block's partial of the row in the scratch, which only this thread
+//   touches (written at the segment's first tile), so nothing is kept in
+//   registers across tiles and D has no limit but shared memory.
+// - Tiles and stages: the C entry chooses the largest tile of kHeadsTiles
+//   whose ring fits the card's shared memory (the backward takes 3 stages
+//   where they fit, else 2); a shape that does not fit with one token is
+//   refused.
+// Bound: bytes, as above: k and v are read once (the backward also writes
+// gk and gv), a and g_a are B * N * H * S floats, and the FLOPs do not grow
+// with H (H * S dot products of length hd).
+
+constexpr int kWarps = kConsumers / 32;
+constexpr int kTok = 4;                        // tokens a warp takes at once
+constexpr int kHeadsMaxSlots = 32;
+constexpr int kHeadsTiles[] = {64, 48, 32, 24, 16, 8, 4, 2, 1};
+constexpr int kHeadsFwdStages = 2;
+constexpr int kHeadsBwdStages[] = {3, 2};      // preferred first, for each tile
+constexpr int kMaxStages = kHeaderBytes / (2 * static_cast<int>(sizeof(uint64_t)));
+
+__host__ __device__ inline size_t heads_fwd_smem_bytes(int S, int D, int H, int T,
+                                                       int stages) {
+  const size_t HSP = static_cast<size_t>(H) * padded(S);
+  return kHeaderBytes +
+         sizeof(float) * (static_cast<size_t>(stages) * 2 * span_floats(T, D) +
+                          padded(S * D) + 2 * T * HSP);
+}
+
+__host__ __device__ inline size_t heads_bwd_smem_bytes(int S, int D, int H, int T,
+                                                       int stages) {
+  const size_t HSP = static_cast<size_t>(H) * padded(S);
+  return kHeaderBytes +
+         sizeof(float) * (static_cast<size_t>(stages) *
+                              (2 * span_floats(T, D) + 2 * span_floats(T, H * S)) +
+                          2 * padded(S * D) + 4 * T * HSP);
+}
+
+__device__ __forceinline__ void init_barriers_n(uint64_t* full, uint64_t* empty,
+                                                int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The floats [f0, f1) of a tensor of `total` floats, fetched into dst: the
+// bulk copy takes [s0, s1), 16-byte aligned and never past the tensor's last
+// whole 16 bytes; plain loads take [s1, f1). dst[f - s0] holds float f.
+struct Span {
+  long long s0, s1;
+  __device__ Span(long long f0, long long f1, long long total) {
+    s0 = f0 & ~3LL;
+    s1 = (f1 + 3) & ~3LL;
+    if (s1 > (total & ~3LL)) s1 = total & ~3LL;
+    if (s1 < s0) s1 = s0;
+  }
+  __device__ uint32_t bytes() const {
+    return static_cast<uint32_t>((s1 - s0) * sizeof(float));
+  }
+  // The plain loads; true where there were any.
+  __device__ bool tail(float* dst, const float* src, long long f1) const {
+    for (long long f = s1; f < f1; ++f) dst[f - s0] = src[f];
+    return s1 < f1;
+  }
+  __device__ void bulk(float* dst, const float* src, uint64_t* bar) const {
+    if (s1 > s0) bulk_load(dst, src + s0, bytes(), bar);
+  }
+};
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(static_cast<int>(0xff800000u));
+}
+
+template <int V>
+struct Vec {
+  float x[V];
+};
+
+template <int V>
+__device__ __forceinline__ Vec<V> load_vec(const float* p) {
+  Vec<V> r;
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    r.x[0] = f.x;
+    r.x[1] = f.y;
+    r.x[2] = f.z;
+    r.x[3] = f.w;
+  } else {
+    r.x[0] = *p;
+  }
+  return r;
+}
+
+// Row b's [S, D] matrix m (q or g_av) into shared memory as mh: entry
+// (cc, j) of column cc of head h, logit j = h S + s, at
+// (cc / V) * H * S * V + j * V + cc % V.
+template <int V>
+__device__ __forceinline__ void load_heads(float* mh, const float* m, int S, int D,
+                                           int H) {
+  const int hd = D / H, HS = H * S;
+  for (int e = threadIdx.x; e < S * D; e += kConsumers) {
+    const int s = e / D, c = e - s * D, h = c / hd, cc = c - h * hd;
+    mh[(cc / V) * HS * V + (h * S + s) * V + cc % V] = m[e];
+  }
+}
+
+// Where logit j = h S + s of token t sits in a [T][H][SP] buffer.
+__device__ __forceinline__ int at_logit(int t, int j, int S, int SP, int HSP) {
+  const int h = j / S;
+  return t * HSP + h * SP + (j - h * S);
+}
+
+// The logits of this warp's tokens of a [T, D] tile x against mh, into the
+// [T][H][SP] buffer out: tokens t0 + kWarps r (r < kTok, those below count),
+// lane j of each chunk of 32 logits the dot product over head h(j)'s
+// columns of x's token with logit j of mh.
+template <int V>
+__device__ __forceinline__ void head_dots(const float* x, const float* mh, float* out,
+                                          int t0, int count, int D, int hd, int S,
+                                          int SP, int HSP, int lane) {
+  const int HS = (D / hd) * S;
+  int tok[kTok];
+#pragma unroll
+  for (int r = 0; r < kTok; ++r) {
+    const int t = t0 + r * kWarps;
+    tok[r] = t < count ? t : t0;
+  }
+  for (int j = lane; j - lane < HS; j += 32) {
+    const int jj = j < HS ? j : HS - 1;
+    const float* xr = x + (jj / S) * hd;
+    const float* mr = mh + jj * V;
+    float acc[kTok][V];
+#pragma unroll
+    for (int r = 0; r < kTok; ++r)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+#pragma unroll 2
+    for (int cc = 0; cc < hd; cc += V) {
+      const Vec<V> w = load_vec<V>(mr + cc * HS);
+#pragma unroll
+      for (int r = 0; r < kTok; ++r) {
+        const Vec<V> xv = load_vec<V>(xr + tok[r] * D + cc);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r][e] = fmaf(xv.x[e], w.x[e], acc[r][e]);
+      }
+    }
+    if (j < HS) {
+#pragma unroll
+      for (int r = 0; r < kTok; ++r) {
+        float sum = acc[r][0];
+#pragma unroll
+        for (int e = 1; e < V; ++e) sum += acc[r][e];
+        if (t0 + r * kWarps < count) out[at_logit(tok[r], j, S, SP, HSP)] = sum;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFullMask, x, off);
+  return x;
+}
+
+// Adds x to a partial this thread owns, or writes it at a segment's first tile.
+__device__ __forceinline__ void add_partial(float* p, float x, bool fresh) {
+  *p = fresh ? x : *p + x;
+}
+
+template <int SM, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ q, float* __restrict__ a,
+                 float* __restrict__ partial, int B, int N, int S, int D, int H,
+                 int T, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
+  const int HS = H * S, hd = D / H, SP = padded(S), HSP = H * SP;
+  const int span = span_floats(T, D);       // k, then v, a stage
+  float* qh = ring + stages * 2 * span;     // q of the row, in head order
+  float* w0 = qh + padded(S * D);           // [2][T][H][SP] logits, then weights
+  const long long BN = static_cast<long long>(B) * N;
+  const size_t width = static_cast<size_t>(S) * D + padded(HS);
+  const int tid = threadIdx.x;
+
+  init_barriers_n(full, empty, stages);
+
+  if (tid >= kConsumers) {                  // the producer
+    if (tid == kConsumers) {
+      Tiles it = block_tiles(BN, N, T);
+      for (int i = 0; it.valid(); ++i, it.next()) {
+        const int st = i % stages;
+        if (i >= stages) mbar_wait(&empty[st], ((i / stages) - 1) & 1);
+        const long long f0 = it.pos * D, f1 = f0 + static_cast<long long>(it.count()) * D;
+        const Span sp(f0, f1, BN * D);
+        float* dst = ring + st * 2 * span;
+        const bool tail = sp.tail(dst, k, f1) | sp.tail(dst + span, v, f1);
+        if (tail) fence_async_shared();   // before a later bulk copy here
+        mbar_expect_tx(&full[st], 2 * sp.bytes());
+        sp.bulk(dst, k, &full[st]);
+        sp.bulk(dst + span, v, &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < 2 * T * HSP; e += kConsumers) w0[e] = 0.f;   // the padding
+  bool fresh = true;   // the tile starts this block's partial of its row
+  int row = -1;
+
+  Tiles it = block_tiles(BN, N, T);
+  for (int i = 0; it.valid(); ++i, it.next()) {
+    const int b = it.b(), count = it.count();
+    if (b != row) {                   // a new row: its q into shared memory
+      consumer_sync();                // (nobody reads the last row's any more)
+      load_heads<V>(qh, q + static_cast<size_t>(b) * S * D, S, D, H);
+      consumer_sync();
+      row = b;
+    }
+    const int st = i % stages;
+    mbar_wait(&full[st], (i / stages) & 1);
+    const int off = static_cast<int>((it.pos * D) & 3);
+    const float* kt = ring + st * 2 * span + off;
+    const float* vt = kt + span;
+    float* w = w0 + (i & 1) * T * HSP;
+
+    // the per-head dot products, then a = their softmax over heads x slots
+    for (int t0 = warp; t0 < count; t0 += kWarps * kTok)
+      head_dots<V>(kt, qh, w, t0, count, D, hd, S, SP, HSP, lane);
+    __syncwarp();
+    for (int t = warp; t < count; t += kWarps) {
+      float m = neg_inf(), sum = 0.f;
+      for (int j = lane; j < HS; j += 32) m = fmaxf(m, w[at_logit(t, j, S, SP, HSP)]);
+      m = warp_max(m);
+      for (int j = lane; j < HS; j += 32) {
+        float* x = w + at_logit(t, j, S, SP, HSP);
+        *x = expf(*x - m);
+        sum += *x;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < HS; j += 32) {
+        float* x = w + at_logit(t, j, S, SP, HSP);
+        *x = *x / sum;
+        a[(it.pos + t) * HS + j] = *x;
+      }
+    }
+    consumer_sync();
+
+    // A_v and S_a of the tile, into this block's partial of row b
+    float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * width;
+    for (int c = tid; c < D; c += kConsumers) {
+      float acc[SM];
+#pragma unroll
+      for (int s = 0; s < SM; ++s) acc[s] = 0.f;
+      const float* wr = w + (c / hd) * SP;
+#pragma unroll 2
+      for (int t = 0; t < count; ++t) {
+        const float x = vt[t * D + c];
+        const float4* w4 = reinterpret_cast<const float4*>(wr + t * HSP);
+#pragma unroll
+        for (int s4 = 0; s4 < SM / 4; ++s4) {
+          if (4 * s4 < S) {
+            const float4 f = w4[s4];
+            acc[4 * s4] = fmaf(f.x, x, acc[4 * s4]);
+            acc[4 * s4 + 1] = fmaf(f.y, x, acc[4 * s4 + 1]);
+            acc[4 * s4 + 2] = fmaf(f.z, x, acc[4 * s4 + 2]);
+            acc[4 * s4 + 3] = fmaf(f.w, x, acc[4 * s4 + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < SM; ++s)
+        if (s < S) add_partial(p + s * D + c, acc[s], fresh);
+    }
+    for (int j = tid; j < HS; j += kConsumers) {
+      float total = 0.f;
+      for (int t = 0; t < count; ++t) total += w[at_logit(t, j, S, SP, HSP)];
+      add_partial(p + S * D + j, total, fresh);
+    }
+    release(&empty[st]);
+    fresh = it.ends_segment();
+  }
+}
+
+template <int SM, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+heads_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ a, const float* __restrict__ q,
+                 const float* __restrict__ g_av, const float* __restrict__ g_a,
+                 float* __restrict__ gk, float* __restrict__ gv,
+                 float* __restrict__ partial, int B, int N, int S, int D, int H,
+                 int T, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
+  const int HS = H * S, hd = D / H, SP = padded(S), HSP = H * SP;
+  const int span = span_floats(T, D), span_a = span_floats(T, HS);
+  const int stage = 2 * span + 2 * span_a;  // k, v, then the spans of a, g_a
+  float* qh = ring + stages * stage;        // q and g_av of the row, head order
+  float* gh = qh + padded(S * D);
+  float* sdl0 = gh + padded(S * D);         // [2][T][H][SP] da, then dl
+  float* sa0 = sdl0 + 2 * T * HSP;          // [2][T][H][SP] a of the tile
+  const long long BN = static_cast<long long>(B) * N;
+  const int tid = threadIdx.x;
+
+  init_barriers_n(full, empty, stages);
+
+  if (tid >= kConsumers) {                  // the producer
+    if (tid == kConsumers) {
+      Tiles it = block_tiles(BN, N, T);
+      for (int i = 0; it.valid(); ++i, it.next()) {
+        const int st = i % stages;
+        if (i >= stages) mbar_wait(&empty[st], ((i / stages) - 1) & 1);
+        const long long count = it.count();
+        const long long f0 = it.pos * D, f1 = f0 + count * D;
+        const long long h0 = it.pos * HS, h1 = h0 + count * HS;
+        const Span sp(f0, f1, BN * D), sp_a(h0, h1, BN * HS);
+        float* dst = ring + st * stage;
+        bool tail = sp.tail(dst, k, f1) | sp.tail(dst + span, v, f1);
+        tail |= sp_a.tail(dst + 2 * span, a, h1) |
+                sp_a.tail(dst + 2 * span + span_a, g_a, h1);
+        if (tail) fence_async_shared();   // before a later bulk copy here
+        mbar_expect_tx(&full[st], 2 * sp.bytes() + 2 * sp_a.bytes());
+        sp.bulk(dst, k, &full[st]);
+        sp.bulk(dst + span, v, &full[st]);
+        sp_a.bulk(dst + 2 * span, a, &full[st]);
+        sp_a.bulk(dst + 2 * span + span_a, g_a, &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < 4 * T * HSP; e += kConsumers) sdl0[e] = 0.f;   // the padding
+  bool fresh = true;
+  int row = -1;
+
+  Tiles it = block_tiles(BN, N, T);
+  for (int i = 0; it.valid(); ++i, it.next()) {
+    const int b = it.b(), count = it.count();
+    if (b != row) {   // a new row: q and g_av into shared memory
+      consumer_sync();
+      load_heads<V>(qh, q + static_cast<size_t>(b) * S * D, S, D, H);
+      load_heads<V>(gh, g_av + static_cast<size_t>(b) * S * D, S, D, H);
+      consumer_sync();
+      row = b;
+    }
+    const int st = i % stages;
+    mbar_wait(&full[st], (i / stages) & 1);
+    const float* base = ring + st * stage;
+    const float* kt = base + ((it.pos * D) & 3);
+    const float* vt = base + span + ((it.pos * D) & 3);
+    const float* at = base + 2 * span + ((it.pos * HS) & 3);
+    const float* gat = at + span_a;
+    float* sdl = sdl0 + (i & 1) * T * HSP;   // two buffers: the next tile's
+    float* sa = sa0 + (i & 1) * T * HSP;     // writes race no reader of these
+
+    // da = v . g_av per head + g_a, then dl = a (da - sum_j da_j a_j)
+    for (int t0 = warp; t0 < count; t0 += kWarps * kTok)
+      head_dots<V>(vt, gh, sdl, t0, count, D, hd, S, SP, HSP, lane);
+    __syncwarp();
+    for (int t = warp; t < count; t += kWarps) {
+      float inner = 0.f;
+      for (int j = lane; j < HS; j += 32) {
+        const int x = at_logit(t, j, S, SP, HSP);
+        const float aj = at[t * HS + j], da = sdl[x] + gat[t * HS + j];
+        sdl[x] = da;
+        sa[x] = aj;
+        inner = fmaf(da, aj, inner);
+      }
+      inner = warp_sum(inner);
+      for (int j = lane; j < HS; j += 32) {
+        const int x = at_logit(t, j, S, SP, HSP);
+        sdl[x] = sa[x] * (sdl[x] - inner);
+      }
+    }
+    consumer_sync();
+
+    // gk, gv of columns tid, tid + 256, ...; gq's sums into the partial
+    float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * (static_cast<size_t>(S) * D);
+    for (int c = tid; c < D; c += kConsumers) {
+      const int h = c / hd, cc = c - h * hd;
+      const float* qc_at = qh + (cc / V) * HS * V + h * S * V + cc % V;
+      const float* gc_at = gh + (qc_at - qh);
+      float qc[SM], gc[SM], acc[SM];
+#pragma unroll
+      for (int s = 0; s < SM; ++s) {
+        qc[s] = s < S ? qc_at[s * V] : 0.f;
+        gc[s] = s < S ? gc_at[s * V] : 0.f;
+        acc[s] = 0.f;
+      }
+      const float* dlr = sdl + h * SP;
+      const float* ar = sa + h * SP;
+#pragma unroll 2
+      for (int t = 0; t < count; ++t) {
+        const float x = kt[t * D + c];
+        const float4* dl4 = reinterpret_cast<const float4*>(dlr + t * HSP);
+        const float4* a4 = reinterpret_cast<const float4*>(ar + t * HSP);
+        float gkx[4] = {0.f, 0.f, 0.f, 0.f}, gvx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s4 = 0; s4 < SM / 4; ++s4) {
+          if (4 * s4 < S) {
+            const float4 d = dl4[s4], f = a4[s4];
+            const float dv[4] = {d.x, d.y, d.z, d.w}, av[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              gkx[e] = fmaf(dv[e], qc[4 * s4 + e], gkx[e]);
+              gvx[e] = fmaf(av[e], gc[4 * s4 + e], gvx[e]);
+              acc[4 * s4 + e] = fmaf(dv[e], x, acc[4 * s4 + e]);
+            }
+          }
+        }
+        const long long at_t = (it.pos + t) * D + c;
+        gk[at_t] = (gkx[0] + gkx[1]) + (gkx[2] + gkx[3]);
+        gv[at_t] = (gvx[0] + gvx[1]) + (gvx[2] + gvx[3]);
+      }
+#pragma unroll
+      for (int s = 0; s < SM; ++s)
+        if (s < S) add_partial(p + s * D + c, acc[s], fresh);
+    }
+    release(&empty[st]);
+    fresh = it.ends_segment();
+  }
+}
+
+bool heads_shape_ok(int B, int N, int S, int D, int H, int max_blocks) {
+  return B > 0 && N > 0 && S >= 1 && S <= kHeadsMaxSlots && H >= 1 && D > 0 &&
+         D % H == 0 && max_blocks > 0;
+}
+
+// The heads kernels' tile and stages: the largest tile whose ring fits
+// (the backward with 3 stages where they fit, else 2), or T = 0.
+struct Plan {
+  int T, stages;
+};
+
+Plan heads_fwd_plan(int S, int D, int H) {
+  const size_t limit = smem_limit();
+  for (int T : kHeadsTiles)
+    if (heads_fwd_smem_bytes(S, D, H, T, kHeadsFwdStages) <= limit)
+      return {T, kHeadsFwdStages};
+  return {0, 0};
+}
+
+Plan heads_bwd_plan(int S, int D, int H) {
+  const size_t limit = smem_limit();
+  for (int T : kHeadsTiles)
+    for (int stages : kHeadsBwdStages)
+      if (heads_bwd_smem_bytes(S, D, H, T, stages) <= limit) return {T, stages};
+  return {0, 0};
+}
+
+template <int SM, int V>
+cudaError_t launch_heads_fwd(const float* k, const float* v, const float* q, float* a,
+                             float* sa, float* av, float* scratch, int B, int N,
+                             int S, int D, int H, int max_blocks,
+                             cudaStream_t stream) {
+  const Plan plan = heads_fwd_plan(S, D, H);
+  if (plan.T == 0) return cudaErrorInvalidValue;
+  const int G = blocks(B, N, plan.T, max_blocks);
+  const size_t smem = heads_fwd_smem_bytes(S, D, H, plan.T, plan.stages);
+  cudaError_t err = cudaFuncSetAttribute(heads_fwd_kernel<SM, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  heads_fwd_kernel<SM, V><<<G, kThreads, smem, stream>>>(k, v, q, a, scratch, B, N, S,
+                                                         D, H, plan.T, plan.stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(scratch, av, sa, S * D + padded(H * S), S * D, H * S, B, N, G,
+                       stream);
+}
+
+template <int SM, int V>
+cudaError_t launch_heads_bwd(const float* k, const float* v, const float* a,
+                             const float* q, const float* g_av, const float* g_a,
+                             float* gk, float* gv, float* gq, float* scratch, int B,
+                             int N, int S, int D, int H, int max_blocks,
+                             cudaStream_t stream) {
+  const Plan plan = heads_bwd_plan(S, D, H);
+  if (plan.T == 0) return cudaErrorInvalidValue;
+  const int G = blocks(B, N, plan.T, max_blocks);
+  const size_t smem = heads_bwd_smem_bytes(S, D, H, plan.T, plan.stages);
+  cudaError_t err = cudaFuncSetAttribute(heads_bwd_kernel<SM, V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  heads_bwd_kernel<SM, V><<<G, kThreads, smem, stream>>>(
+      k, v, a, q, g_av, g_a, gk, gv, scratch, B, N, S, D, H, plan.T, plan.stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(scratch, gq, nullptr, S * D, S * D, 0, B, N, G, stream);
+}
+
 }  // namespace
+
+// The heads kernels' instantiations: the bucket of S (8, 16 or 32) and V (4
+// where the head width is a multiple of 4, else 1).
+#define OCRL_HEADS_DISPATCH(FN, ...)                                         \
+  const bool v4 = (D / H) % 4 == 0;                                          \
+  if (S <= 8)                                                                \
+    return static_cast<int>(v4 ? FN<8, 4>(__VA_ARGS__) : FN<8, 1>(__VA_ARGS__)); \
+  if (S <= 16)                                                               \
+    return static_cast<int>(v4 ? FN<16, 4>(__VA_ARGS__)                      \
+                               : FN<16, 1>(__VA_ARGS__));                    \
+  return static_cast<int>(v4 ? FN<32, 4>(__VA_ARGS__) : FN<32, 1>(__VA_ARGS__))
 
 #define OCRL_SWEEP_CASES(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) \
@@ -805,4 +1351,39 @@ extern "C" int slot_routing_bwd(const float* k, const float* v, const float* a,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// k, v: [B, N, D]; q: [B, S, D]; a: [B, N, H S]; sa: [B, H S]; av: [B, S,
+// D]; scratch: [min(max_blocks, B * N) + B, S * D + H S rounded up to 4].
+// All fp32, contiguous, 16-byte aligned, on the current device. k holds each
+// head's columns pre-scaled by (D / H)^-0.5. 1 <= S <= 32, H dividing D,
+// and a ring of one token that fits the card's shared memory
+// (heads_fwd_smem_bytes, heads_bwd_smem_bytes); returns the CUDA error code
+// of the launches (0 = none).
+extern "C" int slot_routing_heads_fwd(const float* k, const float* v,
+                                      const float* q, float* a, float* sa,
+                                      float* av, float* scratch, int B, int N,
+                                      int S, int D, int H, int max_blocks,
+                                      void* stream) {
+  if (!heads_shape_ok(B, N, S, D, H, max_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  OCRL_HEADS_DISPATCH(launch_heads_fwd, k, v, q, a, sa, av, scratch, B, N, S, D, H,
+                      max_blocks, st);
+}
+
+// k, v: [B, N, D]; a, g_a: [B, N, H S]; q, g_av: [B, S, D]; gk, gv: [B, N,
+// D]; gq: [B, S, D]; scratch: [min(max_blocks, B * N) + B, S * D]. As the
+// heads forward for the rest; returns the CUDA error code of the launches.
+extern "C" int slot_routing_heads_bwd(const float* k, const float* v,
+                                      const float* a, const float* q,
+                                      const float* g_av, const float* g_a,
+                                      float* gk, float* gv, float* gq,
+                                      float* scratch, int B, int N, int S, int D,
+                                      int H, int max_blocks, void* stream) {
+  if (!heads_shape_ok(B, N, S, D, H, max_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  OCRL_HEADS_DISPATCH(launch_heads_bwd, k, v, a, q, g_av, g_a, gk, gv, gq, scratch, B,
+                      N, S, D, H, max_blocks, st);
 }

@@ -1,26 +1,39 @@
 """Slot-attention routing sweep (counterpart of ocrl_tpu/ops/slot_routing.py).
 
-One sweep over the tokens computes, for k [B, N, D] (pre-scaled by D**-0.5),
-v [B, N, D] and q [B, S, D]:
+One sweep over the tokens computes, for k [B, N, D] (each head's columns
+pre-scaled by hd**-0.5, hd = D / H), v [B, N, D] and q [B, S, D], with H
+heads of hd columns each and h(c) = c // hd the head of column c:
 
-    a   = softmax over slots of k q^T     [B, N, S]
-    S_a = sum_n a                         [B, S]
-    A_v = a^T v                           [B, S, D]
+    a[b, n, h S + s] = softmax over (h, s) of sum_{c in head h} k[b, n, c] q[b, s, c]
+    S_a = sum_n a                                        [B, H S]
+    A_v[b, s, c] = sum_n a[b, n, h(c) S + s] v[b, n, c]  [B, S, D]
 
-``route_sweep`` launches the hand-written CUDA kernel (``csrc/slot_routing.cu``)
-on a CUDA tensor and raises when it cannot; on a CPU tensor it runs
-``route_sweep_reference``, the plain version, whose gradient is autograd's.
-The kernel computes all three outputs itself: a persistent grid of at most
-one block per SM cuts the B * N tokens into equal contiguous ranges and
-walks each in tiles (the C entry chooses the tile, from the shared memory it
-needs); every block keeps one partial of ``S_a`` and ``a^T v`` per batch row
-it touches, in a scratch slot that the wrapper allocates
-(``scratch_rows``), and a second kernel of the same C entry sums each row's
-slots in block order (no atomics: bitwise equal from run to run). On CUDA
-the gradient is the backward kernel of the same source, as
-``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
-cotangents, with that of ``S_a`` folded into that of ``a`` first, and writes
-gk, gv and gq the same way (ocrl_tpu/ops/slot_routing.py:142-164).
+With H = 1 these are JAX's route_sweep (ocrl_tpu/ops/slot_routing.py:123-139,
+a [B, N, S]); with more heads, the sums of JAX's einsum route
+(ocrl_tpu/models/slot_attention.py:97-103), which JAX runs instead of its
+kernel there.
+
+``route_sweep(k, v, q, heads)`` launches a hand-written CUDA kernel
+(``csrc/slot_routing.cu``) on a CUDA tensor and raises when it cannot; on a
+CPU tensor it runs ``route_sweep_reference``, the plain version, whose
+gradient is autograd's. Two C entries of the same source compute it:
+``slot_routing_fwd`` for one head, at most 16 slots and D a multiple of 32
+up to 256 (the path of every config in configs/), and
+``slot_routing_heads_fwd`` for the rest, ``sweep_supports``: 1 <= S <= 32,
+H dividing D, and a ring of one token that fits the card's shared memory
+(``needed_bytes``: every H <= 8 and D <= 512 fits). Each entry computes all
+three outputs itself: a persistent grid of at most one block per SM cuts
+the B * N tokens into equal contiguous ranges and walks each in tiles (the
+C entry chooses the tile, from the shared memory it needs); every block
+keeps one partial of ``S_a`` and ``A_v`` per batch row it touches, in a
+scratch slot that the wrapper allocates (``scratch_rows``), and a second
+kernel of the same C entry sums each row's slots in block order (no
+atomics: bitwise equal from run to run). On CUDA the gradient is the
+backward kernel of the same entry's pair (``slot_routing_bwd`` /
+``slot_routing_heads_bwd``), as ``torch.autograd.Function``: it takes the
+saved (k, v, q, a) and the cotangents, with that of ``S_a`` folded into that
+of ``a`` first, and writes gk, gv and gq the same way
+(ocrl_tpu/ops/slot_routing.py:142-164).
 
 ``route_sweep`` also runs under ``torch.func``: ``vmap``, ``grad`` and
 ``vmap(grad(...))``, as the multi-seed policy calls it (JAX gets this from
@@ -33,7 +46,8 @@ when serving) ``_RouteSweep`` records no node and keeps nothing it saved,
 so the same Function serves both. Each has a
 ``vmap`` rule that writes the vmapped axis out into the kernel's batch:
 inputs [V, B, ...] (an unbatched one expanded to V) become [V*B, ...], one
-launch, and the outputs go back to [V, B, ...] with ``out_dims`` 0. Rows of
+launch, and the outputs go back to [V, B, ...] with ``out_dims`` 0; the
+head count, an int, passes through unbatched. Rows of
 B3 are independent, and so are rows of B4, so this is exact. The launches
 themselves only ever see plain tensors (``torch.func`` unwraps them before
 a Function's ``forward``), so a vmapped policy call launches B3 once per
@@ -53,12 +67,56 @@ from . import _build
 
 KERNEL = "slot_routing_fwd"
 BWD_KERNEL = "slot_routing_bwd"
-MAX_SLOTS = 16
-MAX_WIDTH = 256        # one feature column per consumer thread
+HEADS_KERNEL = "slot_routing_heads_fwd"
+HEADS_BWD_KERNEL = "slot_routing_heads_bwd"
+FAST_SLOTS, FAST_WIDTH = 16, 256   # one head: one feature column per consumer thread
+MAX_SLOTS = 32                     # the heads kernels: a column's S slots in registers
+# The heads kernels' tiles and stages (csrc/slot_routing.cu kHeadsTiles,
+# kHeadsFwdStages, kHeadsBwdStages) and the shared memory a block may use on
+# Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+HEADS_TILES = (64, 48, 32, 24, 16, 8, 4, 2, 1)
+HEADS_FWD_STAGES, HEADS_BWD_STAGES = 2, (3, 2)
+SMEM_LIMIT = 232448
 
 
 def _padded(S: int) -> int:
     return -(-S // 4) * 4
+
+
+def _span(T: int, X: int) -> int:
+    """Floats of a stage's span of T rows of X floats that may start up to 3
+    floats after a 16-byte boundary (csrc: span_floats)."""
+    return (T * X + 6 + 3) & ~3
+
+
+def heads_fwd_bytes(S: int, D: int, H: int, T: int, stages: int = HEADS_FWD_STAGES) -> int:
+    """Shared memory of a heads forward block (csrc: heads_fwd_smem_bytes)."""
+    return 128 + 4 * (stages * 2 * _span(T, D) + _padded(S * D) + 2 * T * H * _padded(S))
+
+
+def heads_bwd_bytes(S: int, D: int, H: int, T: int, stages: int) -> int:
+    """Shared memory of a heads backward block (csrc: heads_bwd_smem_bytes)."""
+    return 128 + 4 * (stages * (2 * _span(T, D) + 2 * _span(T, H * S)) + 2 * _padded(S * D)
+                      + 4 * T * H * _padded(S))
+
+
+def needed_bytes(S: int, D: int, H: int) -> int:
+    """The shared memory the heads kernels need at their smallest ring (one
+    token, two stages): the C entries refuse a shape over SMEM_LIMIT and
+    otherwise choose the largest tile of HEADS_TILES that fits."""
+    return max(heads_fwd_bytes(S, D, H, 1), heads_bwd_bytes(S, D, H, 1, 2))
+
+
+def pick_chunk(n: int, target: int = 512) -> int:
+    """Largest power-of-two chunk <= target that divides n, 0 where none from
+    8 up does (ocrl_tpu/ops/slot_routing.py:54-61: JAX's sweep needs one, so
+    its ``fused=always`` raises without one; the kernels here take any n)."""
+    c = target
+    while c >= 8:
+        if n % c == 0:
+            return c
+        c //= 2
+    return 0
 
 
 def scratch_rows(B: int, N: int, max_blocks: int) -> int:
@@ -68,14 +126,28 @@ def scratch_rows(B: int, N: int, max_blocks: int) -> int:
     return min(max_blocks, B * N) + B
 
 
-def sweep_supports(S: int, D: int) -> bool:
-    """Whether the kernels take S slots of width D: 1 <= S <= 16 and D a
-    multiple of 32 up to 256, so that a tile is whole 16-byte rows and each
-    consumer thread owns at most one feature column."""
-    return 1 <= S <= MAX_SLOTS and 0 < D <= MAX_WIDTH and D % 32 == 0
+def fast_path(S: int, D: int, H: int = 1) -> bool:
+    """Whether the single-head kernels take the shape: one head, 1 <= S <=
+    16 and D a multiple of 32 up to 256 (a tile is whole 16-byte rows and
+    each consumer thread owns at most one feature column)."""
+    return H == 1 and 1 <= S <= FAST_SLOTS and 0 < D <= FAST_WIDTH and D % 32 == 0
 
 
-def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> None:
+def _heads_shape(S: int, D: int, H: int) -> bool:
+    return 1 <= S <= MAX_SLOTS and H >= 1 and D > 0 and D % H == 0
+
+
+def sweep_supports(S: int, D: int, heads: int = 1) -> bool:
+    """Whether the kernels take S slots of width D in ``heads`` heads: the
+    single-head kernels' shapes (``fast_path``), and else 1 <= S <= 32, the
+    heads dividing D, and the heads kernels' smallest ring within the card's
+    shared memory (``needed_bytes``), as the C entries' rules. Everything
+    with at most 8 heads and D <= 512 fits; D = 2048 at 32 slots does not."""
+    return fast_path(S, D, heads) or (
+        _heads_shape(S, D, heads) and needed_bytes(S, D, heads) <= SMEM_LIMIT)
+
+
+def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, heads: int) -> None:
     for name, t in (("k", k), ("v", v), ("q", q)):
         if t.dtype != torch.float32:
             raise TypeError(f"route_sweep: {name} must be float32, got {t.dtype}")
@@ -86,27 +158,45 @@ def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> None:
         if t.device != k.device:
             raise ValueError("route_sweep: k, v and q must be on one device")
     B, N, D = k.shape
+    S = q.shape[1]
     if v.shape != k.shape:
         raise ValueError(f"route_sweep: v {tuple(v.shape)} != k {tuple(k.shape)}")
     if q.shape[0] != B or q.shape[2] != D:
         raise ValueError(f"route_sweep: q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if N < 1:
         raise ValueError("route_sweep: needs at least one token")
-    if not sweep_supports(q.shape[1], D):
+    if not isinstance(heads, int) or heads < 1 or D % heads:
+        raise ValueError(f"route_sweep: heads={heads} must be a positive int dividing D={D}")
+    if not _heads_shape(S, D, heads) and not fast_path(S, D, heads):
         raise ValueError(
-            f"route_sweep: the kernel takes 1 <= S <= {MAX_SLOTS} slots and D a "
-            f"multiple of 32 up to {MAX_WIDTH} (got S={q.shape[1]}, D={D})")
+            f"route_sweep: the kernels take 1 <= S <= {MAX_SLOTS} slots (got S={S}, "
+            f"D={D}, heads={heads})")
+    if not sweep_supports(S, D, heads):
+        raise ValueError(
+            f"route_sweep: S={S}, D={D}, heads={heads} needs {needed_bytes(S, D, heads)} "
+            f"bytes of shared memory a block, over the card's {SMEM_LIMIT}")
 
 
-def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
-    """Plain torch sweep: the kernel's reference and its CPU path."""
-    a = torch.softmax(torch.einsum("bnd,bsd->bns", k, q), dim=-1)
-    return a.sum(1), torch.einsum("bns,bnd->bsd", a, v), a
+def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+                          heads: int = 1):
+    """Plain torch sweep: the kernels' reference and its CPU path."""
+    if heads == 1:
+        a = torch.softmax(torch.einsum("bnd,bsd->bns", k, q), dim=-1)
+        return a.sum(1), torch.einsum("bns,bnd->bsd", a, v), a
+    B, N, D = k.shape
+    S = q.shape[1]
+    kh, vh = k.reshape(B, N, heads, D // heads), v.reshape(B, N, heads, D // heads)
+    logits = torch.einsum("bnhd,bshd->bnhs", kh, q.reshape(B, S, heads, D // heads))
+    a = torch.softmax(logits.reshape(B, N, heads * S), dim=-1)
+    av = torch.einsum("bnhs,bnhd->bshd", a.reshape(B, N, heads, S), vh)
+    return a.sum(1), av.reshape(B, S, D), a
 
 
-_ARGTYPES = {   # pointers, then B, N, S, D, max_blocks, then the stream
+_ARGTYPES = {   # pointers, then B, N, S, D (and H), max_blocks, then the stream
     KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    HEADS_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    HEADS_BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -132,23 +222,28 @@ def _check_aligned(**tensors) -> None:
                              "(the kernel reads it with bulk copies)")
 
 
-def _sweep_fwd(k, v, q):
+def _sweep_fwd(k, v, q, heads=1):
     _check_aligned(k=k, v=v, q=q)
     B, N, D = k.shape
     S = q.shape[1]
+    HS = heads * S
     sms = _num_sms(k.device.index)
-    a = torch.empty((B, N, S), dtype=torch.float32, device=k.device)
-    sa = torch.empty((B, S), dtype=torch.float32, device=k.device)
+    a = torch.empty((B, N, HS), dtype=torch.float32, device=k.device)
+    sa = torch.empty((B, HS), dtype=torch.float32, device=k.device)
     av = torch.empty((B, S, D), dtype=torch.float32, device=k.device)
-    scratch = torch.empty((scratch_rows(B, N, sms), S * D + _padded(S)),
+    scratch = torch.empty((scratch_rows(B, N, sms), S * D + _padded(HS)),
                           dtype=torch.float32, device=k.device)
-    _build.launch_on(k.device, KERNEL, _entry(KERNEL), k.data_ptr(), v.data_ptr(),
-                     q.data_ptr(), a.data_ptr(), sa.data_ptr(), av.data_ptr(),
-                     scratch.data_ptr(), B, N, S, D, sms)
+    pointers = (k.data_ptr(), v.data_ptr(), q.data_ptr(), a.data_ptr(), sa.data_ptr(),
+                av.data_ptr(), scratch.data_ptr())
+    if fast_path(S, D, heads):
+        _build.launch_on(k.device, KERNEL, _entry(KERNEL), *pointers, B, N, S, D, sms)
+    else:
+        _build.launch_on(k.device, HEADS_KERNEL, _entry(HEADS_KERNEL), *pointers,
+                         B, N, S, D, heads, sms)
     return sa, av, a
 
 
-def _sweep_bwd(k, v, q, a, g_av, g_a):
+def _sweep_bwd(k, v, q, a, g_av, g_a, heads=1):
     _check_aligned(k=k, v=v, q=q, a=a)
     B, N, D = k.shape
     S = q.shape[1]
@@ -159,10 +254,15 @@ def _sweep_bwd(k, v, q, a, g_av, g_a):
     gq = torch.empty_like(q)
     scratch = torch.empty((scratch_rows(B, N, sms), S * D), dtype=torch.float32,
                           device=k.device)
-    _build.launch_on(k.device, BWD_KERNEL, _entry(BWD_KERNEL), k.data_ptr(),
-                     v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
-                     g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr(),
-                     scratch.data_ptr(), B, N, S, D, sms)
+    pointers = (k.data_ptr(), v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
+                g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr(),
+                scratch.data_ptr())
+    if fast_path(S, D, heads):
+        _build.launch_on(k.device, BWD_KERNEL, _entry(BWD_KERNEL), *pointers, B, N, S, D,
+                         sms)
+    else:
+        _build.launch_on(k.device, HEADS_BWD_KERNEL, _entry(HEADS_BWD_KERNEL), *pointers,
+                         B, N, S, D, heads, sms)
     return gk, gv, gq
 
 
@@ -185,13 +285,13 @@ def _unfolded(V: int, outs) -> tuple:
 
 
 class _SweepBackward(torch.autograd.Function):
-    """B4: (k, v, q, a, g_av, g_a) -> (gk, gv, gq), g_a already holding the
-    cotangent of S_a."""
+    """B4: (k, v, q, a, g_av, g_a, heads) -> (gk, gv, gq), g_a already
+    holding the cotangent of S_a."""
 
     @staticmethod
-    def forward(k, v, q, a, g_av, g_a):
+    def forward(k, v, q, a, g_av, g_a, heads=1):
         return _sweep_bwd(k.contiguous(), v.contiguous(), q.contiguous(), a.contiguous(),
-                          g_av, g_a)
+                          g_av, g_a, heads)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -203,36 +303,42 @@ class _SweepBackward(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        return _unfolded(info.batch_size, _SweepBackward.apply(*_folded(info, in_dims, args)))
+        folded = _folded(info, in_dims[:6], args[:6])
+        return _unfolded(info.batch_size, _SweepBackward.apply(*folded, *args[6:]))
 
 
 class _RouteSweep(torch.autograd.Function):
     """B3 recorded for autograd: its backward is B4."""
 
     @staticmethod
-    def forward(k, v, q):
-        return _sweep_fwd(k, v, q)
+    def forward(k, v, q, heads=1):
+        return _sweep_fwd(k, v, q, heads)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs, output[2])
+        ctx.save_for_backward(*inputs[:3], output[2])
+        ctx.heads = inputs[3] if len(inputs) > 3 else 1
 
     @staticmethod
     def backward(ctx, g_sa, g_av, g_a):
         k, v, q, a = ctx.saved_tensors
         # S_a = sum_n a is linear: its cotangent joins a's before the sweep
-        return _SweepBackward.apply(k, v, q, a, g_av, g_a + g_sa[:, None, :])
+        # (the head count, an int, gets no gradient)
+        return (*_SweepBackward.apply(k, v, q, a, g_av, g_a + g_sa[:, None, :], ctx.heads),
+                None)
 
     @staticmethod
-    def vmap(info, in_dims, k, v, q):
-        return _unfolded(info.batch_size, _RouteSweep.apply(*_folded(info, in_dims, (k, v, q))))
+    def vmap(info, in_dims, k, v, q, heads=1):
+        folded = _folded(info, in_dims[:3], (k, v, q))
+        return _unfolded(info.batch_size, _RouteSweep.apply(*folded, heads))
 
 
-def route_sweep(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor):
-    """-> (S_a [B, S], A_v [B, S, D], a [B, N, S]); see the module docstring."""
-    _check(k, v, q)
+def route_sweep(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, heads: int = 1):
+    """-> (S_a [B, H S], A_v [B, S, D], a [B, N, H S]) for H = ``heads``; see
+    the module docstring."""
+    _check(k, v, q, heads)
     if k.device.type == "cpu":
-        return route_sweep_reference(k, v, q)
+        return route_sweep_reference(k, v, q, heads)
     if k.device.type != "cuda":
         raise ValueError(f"route_sweep: no kernel for device {k.device}")
-    return _RouteSweep.apply(k, v, q)
+    return _RouteSweep.apply(k, v, q, heads)

@@ -19,7 +19,9 @@ and resumes on the card through B1-B4, and get_ari_mse's command line
 scores a chunked, LZF-compressed file through B1-B3. One SAC update is held card against
 CPU, end to end and frozen. With ``ocr.amp=bf16`` the conv blocks output
 bf16 on the card and one step is held against the CPU's bf16 and fp32
-steps (chip_smoke.check_amp_step)."""
+steps (chip_smoke.check_amp_step). The heads kernels take every head count
+up to 8, every S up to 32 and D of 21, 100 and 512, under torch.func.vmap
+too, and SlotAttention's three routes behave on the card as on the CPU."""
 
 import math
 
@@ -199,6 +201,125 @@ def test_sweep_takes_every_slot_count_on_the_card(cuda, D):
         torch.cuda.synchronize()
         for g, w in zip((*outs, *got), (*want_outs, *want)):
             assert (g - w).abs().max() <= 1e-5 * w.abs().max(), S
+
+
+def _entries(S, D, H):
+    """The launch counters of the C entry pair that takes the shape."""
+    if tsr.fast_path(S, D, H):
+        return tsr.KERNEL, tsr.BWD_KERNEL
+    return tsr.HEADS_KERNEL, tsr.HEADS_BWD_KERNEL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D", [(1, 21), (3, 21), (7, 21), (1, 100), (2, 100), (4, 100),
+                                 (1, 512), (2, 512), (4, 512), (8, 512)])
+def test_sweep_takes_every_head_and_slot_count_on_the_card(cuda, H, D):
+    """Every S from 1 to 32 at H heads of D / H columns (D = 21: heads of 7
+    and 3 columns, no 16-byte rows) launches one B3 and one B4 of the entry
+    pair that takes the shape and matches the plain sweep and its autograd
+    to 1e-5 of each output's largest entry; 3 x 37 tokens, so that tiles
+    and the spans of a and g_a end off 16-byte boundaries."""
+    B, N = 3, 37
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for S in range(1, 33):
+        k, v, q = (torch.randn(s, device="cuda", generator=gen)
+                   for s in ((B, N, D), (B, N, D), (B, S, D)))
+        k = k * (D // H) ** -0.5
+        cot = [torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, H * S), (B, S, D), (B, N, H * S))]
+        leaves = [x.clone().requires_grad_() for x in (k, v, q)]
+        reset_launches()
+        outs = tsr.route_sweep(*leaves, H)
+        got = torch.autograd.grad(outs, leaves, cot)
+        fwd, bwd = _entries(S, D, H)
+        assert LAUNCHES == {fwd: 1, bwd: 1}, S
+        plain = [x.clone().requires_grad_() for x in (k, v, q)]
+        want_outs = tsr.route_sweep_reference(*plain, H)
+        want = torch.autograd.grad(want_outs, plain, cot)
+        torch.cuda.synchronize()
+        for g, w in zip((*outs, *got), (*want_outs, *want)):
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max(), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 4096, 5, 4, 192), (24, 4096, 24, 1, 256),
+                                   (2, 333, 32, 8, 512), (3, 37, 5, 3, 21)])
+def test_heads_kernels_are_deterministic_on_the_card(cuda, shape):
+    """The heads kernels, launched twice on the same inputs, give bitwise
+    equal outputs and gradients (row sums in block order, no atomics)."""
+    B, N, S, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    k, v, q = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, N, D), (B, N, D), (B, S, D)))
+    k = k * (D // H) ** -0.5
+    g_av = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_a = torch.randn(B, N, H * S, device="cuda", generator=gen)
+    first, second = (tsr.route_sweep(k, v, q, H) for _ in range(2))
+    grads = [tsr._sweep_bwd(k, v, q, first[2], g_av, g_a, H) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 4096, 5, 4, 192), (2, 3, 37, 24, 1, 256)])
+def test_sweep_vmap_rule_with_heads_launches_once(cuda, shape):
+    """torch.func.vmap, and vmap of a vjp, of the sweep with heads over V
+    seeds launch one B3 (and one B4) at V * B rows, within 1e-5 of each
+    output's largest entry from V separate launches."""
+    from torch.func import vjp, vmap
+
+    V, B, N, S, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k, v, q = (torch.randn(sh, device="cuda", generator=gen)
+               for sh in ((V, B, N, D), (V, B, N, D), (V, B, S, D)))
+    k = k * (D // H) ** -0.5
+    cot = [torch.randn(sh, device="cuda", generator=gen)
+           for sh in ((V, B, H * S), (V, B, S, D), (V, B, N, H * S))]
+    fwd, bwd = _entries(S, D, H)
+    reset_launches()
+    with torch.no_grad():
+        outs = vmap(lambda k, v, q: tsr.route_sweep(k, v, q, H))(k, v, q)
+    assert LAUNCHES == {fwd: 1}
+    reset_launches()
+    grads = vmap(lambda k, v, q, *c: vjp(lambda *x: tsr.route_sweep(*x, H), k, v, q)[1](c))(
+        k, v, q, *cot)
+    assert LAUNCHES == {fwd: 1, bwd: 1}
+    for i in range(V):
+        leaves = [x[i].clone().requires_grad_() for x in (k, v, q)]
+        want_outs = tsr.route_sweep(*leaves, H)
+        want = torch.autograd.grad(want_outs, leaves, [c[i] for c in cot])
+        for g, w in zip((*outs, *grads), (*want_outs, *want)):
+            assert (g[i] - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_slot_attention_routes_on_the_card(cuda):
+    """SlotAttention with 4 heads on the card: auto launches the heads
+    forward once an iteration, never launches nothing and lies within the
+    kernel route's tolerance of it (chip_smoke.NEVER_TOL), always raises as
+    JAX's does; past the kernels' range auto raises NotImplementedError."""
+    from chip_smoke import NEVER_TOL
+
+    from ocrl_tpu_torch.models.slot_attention import SlotAttention
+
+    torch.manual_seed(12)
+    routes = {f: SlotAttention(3, 5, 64, 192, 192, 4, fused=f).cuda() for f in ("auto", "never")}
+    routes["never"].load_state_dict(routes["auto"].state_dict())
+    x = torch.randn(2, 4096, 64, device="cuda")
+    s = torch.randn(2, 5, 192, device="cuda")
+    out = {}
+    for fused, module in routes.items():
+        reset_launches()
+        with torch.no_grad():
+            out[fused] = module(x, s)
+        assert LAUNCHES == ({tsr.HEADS_KERNEL: 3} if fused == "auto" else {})
+    for got, want in zip(out["never"], out["auto"]):
+        assert (got - want).abs().max() <= NEVER_TOL * want.abs().max()
+    with pytest.raises(ValueError, match="ineligible"):
+        SlotAttention(1, 5, 64, 192, 192, 4, fused="always").cuda()(x, s)
+    with pytest.raises(NotImplementedError, match="slots=33"):
+        SlotAttention(1, 33, 64, 64, 64, 1).cuda()(x, torch.randn(2, 33, 64, device="cuda"))
 
 
 @pytest.mark.cuda

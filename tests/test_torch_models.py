@@ -130,7 +130,7 @@ def test_slot_attention_refuses_what_the_kernel_cannot_route():
         SlotAttention(1, 3, 16, 32, 32, num_heads=2, fused="always")(x, s)
     with pytest.raises(ValueError, match="fused must be"):
         SlotAttention(1, 3, 16, 32, 32, 1, fused="sometimes")
-    # on the CPU more heads take the einsum route under auto
+    # more heads take the sweep under auto (on the CPU its plain version)
     out, attn = SlotAttention(1, 3, 16, 32, 32, num_heads=2)(x, s)
     assert out.shape == (1, 3, 32) and attn.shape == (1, 8, 3)
 

@@ -505,18 +505,18 @@ def test_sweep_vmap_rule_folds_the_seeds_into_one_launch(monkeypatch):
             assert not torch._C._functorch.is_functorch_wrapped_tensor(t)
             t.data_ptr()
 
-    def fwd(k, v, q):
+    def fwd(k, v, q, heads=1):
         plain(k, v, q)
         launches.append(("fwd", k.shape[0]))
         with torch.no_grad():
-            return tsr.route_sweep_reference(k, v, q)
+            return tsr.route_sweep_reference(k, v, q, heads)
 
-    def bwd(k, v, q, a, g_av, g_a):
+    def bwd(k, v, q, a, g_av, g_a, heads=1):
         plain(k, v, q, a, g_av, g_a)
         launches.append(("bwd", k.shape[0]))
         leaves = [x.detach().requires_grad_() for x in (k, v, q)]
         with torch.enable_grad():
-            _, av, a2 = tsr.route_sweep_reference(*leaves)
+            _, av, a2 = tsr.route_sweep_reference(*leaves, heads)
             return torch.autograd.grad((av, a2), leaves, (g_av, g_a))
 
     monkeypatch.setattr(tsr, "_sweep_fwd", fwd)

@@ -59,9 +59,14 @@ def test_sweep_ragged_n_matches_jax_reference():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "v_shape", "q_width",
-                                 "slots", "width", "too_wide", "layout"])
+                                 "slots", "width", "too_wide", "layout", "smem"])
 def test_sweep_rejects_what_the_kernel_does_not_take(bad):
+    """route_sweep refuses, before any launch, what no kernel takes: more
+    than 32 slots, a head count that does not divide D, a shape whose ring
+    of one token does not fit a block's shared memory (D = 8192, or 32 slots
+    of 2048), and malformed inputs."""
     k, v, q = (torch.from_numpy(x) for x in _inputs(2, 40, 5, 32, seed=0))
+    heads = 1
     if bad == "dtype":
         k, exc = k.double(), TypeError
     elif bad == "rank":
@@ -71,17 +76,19 @@ def test_sweep_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "q_width":
         q, exc = torch.zeros(2, 5, 64), ValueError
     elif bad == "slots":
-        q, exc = torch.zeros(2, 17, 32), ValueError
-    elif bad == "width":
-        k, v, q, exc = k[..., :24].contiguous(), v[..., :24].contiguous(), \
-            q[..., :24].contiguous(), ValueError
-    elif bad == "too_wide":     # one feature column per thread: D <= 256
-        k, v, q, exc = torch.zeros(2, 40, 288), torch.zeros(2, 40, 288), \
-            torch.zeros(2, 5, 288), ValueError
+        q, exc = torch.zeros(2, 33, 32), ValueError
+    elif bad == "width":        # 3 heads do not divide 32 columns
+        heads, exc = 3, ValueError
+    elif bad == "too_wide":     # k and v tiles and q over 227 KB
+        k, v, q, exc = torch.zeros(2, 40, 8192), torch.zeros(2, 40, 8192), \
+            torch.zeros(2, 5, 8192), ValueError
+    elif bad == "smem":         # 32 slots of 2048: q and g_av alone 512 KB
+        k, v, q, heads, exc = torch.zeros(2, 40, 2048), torch.zeros(2, 40, 2048), \
+            torch.zeros(2, 32, 2048), 8, ValueError
     else:
         k, exc = k.transpose(0, 1).contiguous().transpose(0, 1), ValueError
     with pytest.raises(exc):
-        tsr.route_sweep(k, v, q)
+        tsr.route_sweep(k, v, q, heads)
 
 
 def block_range(g: int, G: int, BN: int) -> tuple[int, int]:
@@ -99,8 +106,9 @@ def row_blocks(b: int, N: int, G: int, BN: int) -> range:
     return range(holding(b * N), holding(b * N + N - 1) + 1)
 
 
-# the tiles the C entry may choose (csrc/slot_routing.cu kFwdTiles, kBwdTiles)
-_TILES = (64, 48, 32, 24, 16, 8)
+# the tiles the C entries may choose (csrc/slot_routing.cu kFwdTiles,
+# kBwdTiles, kHeadsTiles)
+_TILES = tsr.HEADS_TILES
 
 
 @pytest.mark.parametrize("B,N,num_sms", [(24, 4096, 132), (16, 4096, 132),
@@ -128,19 +136,48 @@ def test_plan_covers_any_n(B, N, num_sms):
             assert all(0 <= g + b < rows for g in meet)
 
 
+def heads_plan(S: int, D: int, H: int):
+    """The tile of the heads forward and (tile, stages) of the heads
+    backward that the C entries choose (csrc/slot_routing.cu heads_fwd_plan,
+    heads_bwd_plan): the largest tile whose ring fits, the backward with 3
+    stages where they fit."""
+    fits = [(T, n) for T in tsr.HEADS_TILES for n in tsr.HEADS_BWD_STAGES
+            if tsr.heads_bwd_bytes(S, D, H, T, n) <= tsr.SMEM_LIMIT]
+    return next(T for T in tsr.HEADS_TILES
+                if tsr.heads_fwd_bytes(S, D, H, T) <= tsr.SMEM_LIMIT), fits[0]
+
+
 def test_sweep_supports_and_tiles():
-    """The kernels take 1 <= S <= 16 and D a multiple of 32 up to 256 (the
-    C entry then chooses a tile that fits in shared memory: the card-only
-    test_sweep_takes_every_slot_count_on_the_card launches each S at the
-    narrowest and widest D); route_sweep rejects the rest before any launch."""
-    for S in range(0, 18):
-        for D in range(16, 289, 16):
-            want = 1 <= S <= 16 and D % 32 == 0 and D <= 256
-            assert tsr.sweep_supports(S, D) == want, (S, D)
-    k, v, q = torch.zeros(1, 3, 256), torch.zeros(1, 3, 256), torch.zeros(1, 16, 256)
-    sa, av, a = tsr.route_sweep(k, v, q)    # the widest shape, on the CPU
-    assert sa.shape == (1, 16) and av.shape == (1, 16, 256) and a.shape == (1, 3, 16)
-    torch.testing.assert_close(sa, torch.full((1, 16), 3 / 16))
+    """The single-head kernels take 1 <= S <= 16 and D a multiple of 32 up
+    to 256 (fast_path); the heads kernels take the rest of 1 <= S <= 32 with
+    H dividing D where their smallest ring fits a Hopper block's shared
+    memory: everywhere with H <= 8 and D <= 512 (each C entry then chooses
+    a tile that fits: the card-only tests launch every S at the narrowest
+    and widest D, and H up to 8 at D = 21, 100 and 512); route_sweep rejects
+    the rest before any launch, naming the bytes a shape needs."""
+    for S in range(0, 35):
+        for H in (1, 2, 3, 4, 8, 16):
+            for D in range(1, 600, 1 if S in (1, 17, 32) else 7):
+                fast = H == 1 and 1 <= S <= 16 and D % 32 == 0 and D <= 256
+                heads = 1 <= S <= 32 and D % H == 0
+                assert tsr.fast_path(S, D, H) == fast, (S, D, H)
+                assert tsr.sweep_supports(S, D, H) == (fast or heads), (S, D, H)
+    for S, D, H, fits in [(32, 512, 8, True), (32, 768, 8, True), (32, 1024, 8, False),
+                          (16, 1024, 8, True), (5, 4096, 1, True), (5, 8192, 1, False),
+                          (1, 4096, 64, True)]:
+        assert tsr.sweep_supports(S, D, H) == fits, (S, D, H)
+        assert (tsr.needed_bytes(S, D, H) <= tsr.SMEM_LIMIT) == fits, (S, D, H)
+    # the tiles the C entries choose where they have room, and at the corner
+    assert heads_plan(5, 192, 4) == (64, (48, 2))
+    assert heads_plan(24, 256, 1) == (48, (32, 2))
+    assert heads_plan(32, 512, 8) == (16, (4, 3))
+    with pytest.raises(ValueError, match="needs 565632 bytes"):
+        tsr.route_sweep(torch.zeros(1, 3, 2048), torch.zeros(1, 3, 2048),
+                        torch.zeros(1, 32, 2048), 8)
+    k, v, q = torch.zeros(1, 3, 512), torch.zeros(1, 3, 512), torch.zeros(1, 32, 512)
+    sa, av, a = tsr.route_sweep(k, v, q, 8)    # the corner of the range, on the CPU
+    assert sa.shape == (1, 256) and av.shape == (1, 32, 512) and a.shape == (1, 3, 256)
+    torch.testing.assert_close(sa, torch.full((1, 256), 3 / 256))
 
 
 _CTYPE_OF = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
