@@ -25,7 +25,10 @@ Phases, each printing its own line with its seconds:
    [row0, row0 + R) of the replay at row0 + R rows; the heads kernels
    (B3 and B4 for more heads, more than 16 slots or other widths:
    slot_routing_heads_fwd / _bwd) at HEADS_SHAPES, each against its plain
-   version with its bound and a second launch bitwise equal;
+   version with its bound and a second launch bitwise equal, after the plan
+   each C entry chooses there (tile, stages, lanes, chunk, column items and
+   token groups or the scratch variant; slot_routing_heads_plan), which
+   must equal the wrapper's mirror;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -162,7 +165,10 @@ Phases, each printing its own line with its seconds:
    matching's ms a step, the validation metrics, the property probe's file
    reloaded bitwise; then card against CPU on the same weights, batch and
    noise: one property update at 24 (matched columns equal; metrics, head
-   and Adam moments), one classifier step at 128, and one aux-loss Pooling
+   and Adam moments), one classifier step at 128 (the parameters held to
+   PROBE_TOL where a float64 replay of the CPU step makes an entry sure, the
+   rest to Adam's bound; at most MOVED_SHARE of a leaf may leave the fp32
+   rule's sure entries: sure_entries), and one aux-loss Pooling
    call at 24 (dropout 0; B1's and B2's fields replayed from their seeds by
    ops.gumbel.replay_field for the CPU); B3 at B = 128 against the plain
    sweep, bitwise repeatable, timed beside its bound. --profile adds the
@@ -235,6 +241,7 @@ ocrl_tpu_torch package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -244,6 +251,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ocrl_tpu_torch import (get_ari_mse, test_sb3, train_classifier, train_ocr,
                             train_property_predictor, train_sb3)
@@ -441,6 +449,9 @@ SAC_COLLECT = ("cw-notarget-N4C11S1S1-hard", 256, 64)     # env, training, valid
 # Pooling call's pooled output and metrics the same.
 PROBE_ENV, PROBE_TRAIN, PROBE_VAL, PROBE_TIMED, PROBE_TOL = \
     "target-N4C4S3S1", 1024, 256, 5, 1e-5
+# The probes' first Adam steps: the float64 rule of sure entries may move at
+# most this share of a leaf's entries out of the fp32 rule's sure ones.
+MOVED_SHARE = 0.01
 PROBE_PP_ARGV = ["ocr=slate", f"dataset={PROBE_ENV}", "batch_size=24", "max_epochs=1"]
 PROBE_CL_ARGV = ["ocr=slate", "pooling=transformer", f"dataset={PROBE_ENV}",
                  "batch_size=128", "max_epochs=1"]
@@ -658,6 +669,27 @@ def sweep_kernels(S: int, D: int, H: int) -> tuple[str, str, str, str]:
             "sweep_bwd_kernel"
     return slot_routing.HEADS_KERNEL, "heads_fwd_kernel", slot_routing.HEADS_BWD_KERNEL, \
         "heads_bwd_kernel"
+
+
+def plan_text(p) -> str:
+    return (f"tile {p.T}, {p.stages} stages, {p.lanes} lanes a logits job, {p.V} floats a "
+            f"chunk, {p.items} column items, "
+            + (f"{p.groups} token groups (registers)" if p.groups else "scratch variant"))
+
+
+def check_heads_plans() -> None:
+    """The plans the heads C entries choose on this card at HEADS_SHAPES,
+    printed; each must equal the wrapper's mirror (slot_routing.heads_plan)."""
+    for _, _, S, H, D in HEADS_SHAPES:
+        fwd, bwd, fwd_bytes, bwd_bytes = slot_routing.card_plans(S, D, H)
+        ok = (fwd, bwd) == (slot_routing.heads_plan(S, D, H, True),
+                            slot_routing.heads_plan(S, D, H, False))
+        print(f"  heads plan S={S} D={D} H={H}: forward {plan_text(fwd)}, {fwd_bytes} bytes "
+              f"of shared memory; backward {plan_text(bwd)}, {bwd_bytes} bytes; "
+              f"{'as the wrapper mirrors it' if ok else 'NOT AS THE WRAPPER MIRRORS IT'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"the heads plan at S={S} D={D} H={H} differs from its mirror")
 
 
 def check_sweep(shape, bw, flops, gen):
@@ -1783,37 +1815,59 @@ def pretraining_noise(ocr_cfg, env_cfg, B: int, rng) -> dict:
                                         ocr_cfg.slot_size)).astype(np.float32)}
 
 
+def sure_entries(grads: dict, grads64: dict | None = None) -> tuple[dict, dict]:
+    """Which entries of a first step's gradient (numpy by name) are sure, by
+    name: where the gradient exceeds PRETRAIN_SURE of its leaf's largest and
+    STEP_GRAD_FLOOR of the model's. With ``grads64``, the same step's
+    gradient from a float64 run, an entry is sure only where the float64
+    gradient clears both and the fp32 one lies within half of it: only then
+    do the data, and not rounding, set its sign and size. Returns (the
+    masks, the count of entries of each leaf that the float64 rule moved out
+    of the fp32 rule's sure ones)."""
+    def rule(gs: dict) -> dict:
+        top = max(float(np.abs(g).max(initial=0.0)) for g in gs.values())
+        return {n: (np.abs(g) > PRETRAIN_SURE * np.abs(g).max(initial=0.0))
+                & (np.abs(g) > STEP_GRAD_FLOOR * top) for n, g in gs.items()}
+    sure = rule(grads)
+    if grads64 is None:
+        return sure, {}
+    sure64 = rule(grads64)
+    kept = {n: sure64[n] & (np.abs(grads[n] - grads64[n]) <= 0.5 * np.abs(grads64[n]))
+            for n in grads}
+    return kept, {n: int((sure[n] & ~kept[n]).sum()) for n in grads}
+
+
 def first_step_gap(grads: dict, start: dict, card: dict, cpu: dict, groups: dict,
-                   floor: float) -> tuple[float, str, int, bool]:
+                   floor: float, sure: dict | None = None) -> tuple[float, str, int, bool]:
     """Two sides' parameters after one first optimizer step from the same
     ``start`` (numpy by name), under the rule stated at PRETRAIN_TOL: an
     entry is sure where the CPU's gradient exceeds PRETRAIN_SURE of its
-    leaf's largest and STEP_GRAD_FLOOR of the model's. Returns (the worst
+    leaf's largest and STEP_GRAD_FLOOR of the model's (``sure_entries``;
+    ``sure``, its masks, where the caller has them). Returns (the worst
     deviation over max(|leaf|, ``floor``) on sure entries, its leaf, the
     count of the other entries, whether each of those moved on both sides
     within Adam's bound lr (1 + weight decay |p|) of ``groups``' name ->
     (lr, weight decay), plus one ulp of the parameter). Below those scales a gradient entry is mostly
     rounding (an attention's key bias has none in exact arithmetic), and
     Adam's first step g / (|g| + eps) turns it into any move up to lr."""
-    top = max(float(np.abs(g).max(initial=0.0)) for g in grads.values())
+    if sure is None:
+        sure = sure_entries(grads)[0]
     worst, where, noisy, bound_ok = 0.0, "", 0, True
-    for name, g in grads.items():
-        g = np.abs(g)
-        sure = (g > PRETRAIN_SURE * g.max(initial=0.0)) & (g > STEP_GRAD_FLOOR * top)
-        want = cpu[name]
-        if sure.any():
-            err = (float(np.abs(card[name] - want)[sure].max())
+    for name in grads:
+        mask, want = sure[name], cpu[name]
+        if mask.any():
+            err = (float(np.abs(card[name] - want)[mask].max())
                    / max(float(np.abs(want).max()), floor))
             if err > worst:
                 worst, where = err, name
         lr, decay = groups[name]
         # plus one ulp of the parameter: a step below it (SLATE's warm-up
         # starts its lr at 3.3e-9) moves the stored fp32 value by 0 or 1 ulp
-        p0 = np.abs(start[name][~sure])
+        p0 = np.abs(start[name][~mask])
         bound = lr * (1 + decay * p0) * (1 + 1e-3) + np.spacing(p0.astype(np.float32))
         for side in (card, cpu):
-            bound_ok &= bool((np.abs(side[name] - start[name])[~sure] <= bound).all())
-        noisy += int((~sure).sum())
+            bound_ok &= bool((np.abs(side[name] - start[name])[~mask] <= bound).all())
+        noisy += int((~mask).sum())
     return worst, where, noisy, bound_ok
 
 
@@ -3185,13 +3239,15 @@ def adam_side(named, optimizer) -> dict:
                for key, values in (("mu", optimizer.mu), ("nu", optimizer.nu))}}
 
 
-def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float,
-                        b1: float = 0.9) -> tuple[float, int, bool, str]:
+def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float, grads64: dict,
+                        b1: float = 0.9) -> tuple[float, int, bool, str, dict]:
     """Two sides' first Adam step (``adam_side``) from the same ``init``:
     (the worst deviation over max(|x|, 1) of the moments, and of the
     parameters under ``first_step_gap``'s rule, the CPU's gradient being
-    its mu / (1 - b1); the count of the entries held to Adam's bound lr;
-    whether all are; the worst leaf)."""
+    its mu / (1 - b1) and the sure entries decided with ``grads64``, the
+    step's float64 gradient (``sure_entries``); the count of the entries
+    held to Adam's bound lr; whether all are; the worst leaf; by leaf, the
+    entries the float64 rule moved out of the sure ones)."""
     worst, worst_name = 0.0, ""
     for key in ("mu", "nu"):
         for name, want in cpu[key].items():
@@ -3199,11 +3255,65 @@ def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float,
             if err > worst:
                 worst, worst_name = err, f"{key} of {name}"
     grads = {n: m / (1 - b1) for n, m in cpu["mu"].items()}
+    sure, moved = sure_entries(grads, grads64)
     param, where, noisy, bound_ok = first_step_gap(grads, init, card["params"], cpu["params"],
-                                                   {n: (lr, 0.0) for n in grads}, 1.0)
+                                                   {n: (lr, 0.0) for n in grads}, 1.0, sure)
     if param > worst:
         worst, worst_name = param, where
-    return worst, noisy, bound_ok, worst_name
+    return worst, noisy, bound_ok, worst_name, moved
+
+
+def moved_line(moved: dict, sizes: dict) -> tuple[str, bool]:
+    """What the float64 rule moved out of the sure entries, and whether
+    every leaf kept within MOVED_SHARE of its entries."""
+    total = sum(moved.values())
+    worst = max(moved, key=lambda n: moved[n] / sizes[n])
+    share = moved[worst] / sizes[worst]
+    return (f"the float64 rule moved {total} entries out of the sure ones (most: "
+            f"{moved[worst]} of {sizes[worst]} in {worst})"), share <= MOVED_SHARE
+
+
+def property_grads64(probe, start: dict, batch: dict, noise: np.ndarray,
+                     matched: np.ndarray) -> dict:
+    """A property update's gradient of every head parameter in float64 on
+    the CPU: the same batch, slot noise and encoder features (the OCR in
+    fp32, as the update runs it) and the same matched columns, the head
+    (its parameters ``start``) and the loss in float64."""
+    head = copy.deepcopy(probe.head).double()
+    obs, target = probe._batch(batch)
+    with torch.no_grad():
+        for n, p in head.named_parameters():
+            p.copy_(torch.from_numpy(start[n]))
+        rep = probe._ocr.rep(obs, noise={"rep": torch.from_numpy(noise)}).double()
+    B, S = rep.shape[:2]
+    if probe._num_pseudo is None:
+        output = head(rep.reshape(B * S, -1)).reshape(B, S, probe._per_slot_size)
+    else:
+        output = head(rep).reshape(B, probe._num_pseudo, probe._per_slot_size)
+    cost = probe._pairwise_cost(output, target.double())
+    loss = cost.gather(2, torch.from_numpy(matched)[..., None])[..., 0].sum()
+    names = [n for n, _ in head.named_parameters()]
+    grads = torch.autograd.grad(loss, list(head.parameters()))
+    return {n: g.numpy() for n, g in zip(names, grads)}
+
+
+def classifier_grads64(classifier, start: dict, batch: dict, noise: np.ndarray) -> dict:
+    """A classifier step's gradient of every pooling and head parameter in
+    float64 on the CPU: the same batch, slot noise and encoder features (the
+    OCR in fp32, as the step runs it), the pooling and the head (their
+    parameters ``start``, by ``check_classifier_step``'s names) and the loss
+    in float64."""
+    pooling, head = copy.deepcopy(classifier.pooling), copy.deepcopy(classifier.head)
+    named = list(pooling.double().named_parameters()) + \
+        [(f"head.{n}", p) for n, p in head.double().named_parameters()]
+    with torch.no_grad():
+        for n, p in named:
+            p.copy_(torch.from_numpy(start[n]))
+        rep = classifier.ocr.rep(batch["obss"], noise={"rep": torch.from_numpy(noise)})
+    labels = torch.as_tensor(batch["labels"])[:, 0].to(torch.int64)
+    ce = F.cross_entropy(head(pooling(rep.double())), labels)
+    grads = torch.autograd.grad(ce, [p for _, p in named])
+    return {n: g.numpy() for (n, _), g in zip(named, grads)}
 
 
 def check_property_step(encoder, batch: dict) -> float:
@@ -3226,18 +3336,22 @@ def check_property_step(encoder, batch: dict) -> float:
                                matched=matched)
         sides[device] = (metrics, matched[0],
                          adam_side(list(probe.head.named_parameters()), probe.optimizer))
+        if device == "cpu":
+            grads64 = property_grads64(probe, init, batch, noise, matched[0])
     (card, card_cols, card_adam), (cpu, cpu_cols, cpu_adam) = sides["cuda"], sides["cpu"]
-    gap, noisy, bound_ok, where = first_adam_step_gap(card_adam, cpu_adam, init,
-                                                      cfg.property_predictor.learning.lr)
+    gap, noisy, bound_ok, where, moved = first_adam_step_gap(
+        card_adam, cpu_adam, init, cfg.property_predictor.learning.lr, grads64)
+    moved_text, moved_ok = moved_line(moved, {n: v.size for n, v in init.items()})
     worst = max(worst_value(card, cpu), gap)
     same_cols = np.array_equal(card_cols, cpu_cols)
     finite = all(np.isfinite(v) for v in card.values())
     print(f"  property update at {len(batch['obss'])}, card against CPU: matched columns "
           f"{'equal' if same_cols else 'DIFFER'}; metrics {worst_value(card, cpu):.3e}, head "
           f"and Adam moments {gap:.3e} ({where}) of max(|x|, 1) (tolerance {PROBE_TOL}), "
-          f"{noisy} entries under Adam's bound: {'ok' if bound_ok else 'OUT'}; the card's "
-          f"metrics {card}", flush=True)
-    if not (same_cols and finite and worst <= PROBE_TOL and bound_ok):
+          f"{noisy} entries under Adam's bound: {'ok' if bound_ok else 'OUT'}; {moved_text} "
+          f"(at most {MOVED_SHARE:.0%} of a leaf) {'ok' if moved_ok else 'TOO MANY'}; the "
+          f"card's metrics {card}", flush=True)
+    if not (same_cols and finite and worst <= PROBE_TOL and bound_ok and moved_ok):
         raise SystemExit("the property update disagrees between card and CPU")
     return worst
 
@@ -3264,15 +3378,19 @@ def check_classifier_step(encoder, batch: dict) -> float:
         init = {n: p.detach().cpu().numpy().copy() for n, p in named}
         loss = classifier.step(batch, noise={"rep": torch.from_numpy(noise).to(device)})
         sides[device] = (dict(zip(("loss", "acc"), loss)), adam_side(named, classifier.optimizer))
+        if device == "cpu":
+            grads64 = classifier_grads64(classifier, init, batch, noise)
     (card, card_adam), (cpu, cpu_adam) = sides["cuda"], sides["cpu"]
-    gap, noisy, bound_ok, where = first_adam_step_gap(card_adam, cpu_adam, init,
-                                                      cfg.classifier.learning.lr)
+    gap, noisy, bound_ok, where, moved = first_adam_step_gap(
+        card_adam, cpu_adam, init, cfg.classifier.learning.lr, grads64)
+    moved_text, moved_ok = moved_line(moved, {n: v.size for n, v in init.items()})
     worst = max(worst_value(card, cpu), gap)
     print(f"  classifier step at {len(batch['obss'])}, card against CPU: loss and accuracy "
           f"{worst_value(card, cpu):.3e}, pooling, head and Adam moments {gap:.3e} ({where}) "
           f"of max(|x|, 1) (tolerance {PROBE_TOL}), {noisy} entries under Adam's bound: "
-          f"{'ok' if bound_ok else 'OUT'}; the card's {card}", flush=True)
-    if not (np.isfinite(card["loss"]) and worst <= PROBE_TOL and bound_ok):
+          f"{'ok' if bound_ok else 'OUT'}; {moved_text} (at most {MOVED_SHARE:.0%} of a "
+          f"leaf) {'ok' if moved_ok else 'TOO MANY'}; the card's {card}", flush=True)
+    if not (np.isfinite(card["loss"]) and worst <= PROBE_TOL and bound_ok and moved_ok):
         raise SystemExit("the classifier step disagrees between card and CPU")
     return worst
 
@@ -3853,6 +3971,7 @@ def main() -> int:
         # the heads kernels: the slot-shapes phase's two configurations
         # (slate-heads4 first: its numbers go to the kernels line), then
         # other widths and the corner of their range
+        check_heads_plans()
         heads = [(check_sweep(shape, bw, flops, gen), check_sweep_bwd(shape, bw, flops, gen))
                  for shape in HEADS_SHAPES]
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)

@@ -62,6 +62,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -759,62 +760,118 @@ cudaError_t launch_bwd(const float* k, const float* v, const float* a,
 // n for slot s of head h is the dot product over head h's columns, the
 // softmax runs jointly over the H * S logits, and column c of A_v takes the
 // weights of its own head h(c) = c / hd. a, S_a and a's cotangent hold H * S
-// values a token, in (h, s) order. The skeleton is the kernels' above (one
-// producer thread, bulk copies into a ring, 8 consumer warps, one partial a
-// (block, batch row), the row sums in reduce_rows); what differs:
+// values a token, in (h, s) order. They replace the same TPU kernels where
+// those hold one head, and the sums of JAX's einsum route
+// (ocrl_tpu/models/slot_attention.py:96-103) for more.
+// What bounds them: bytes, as above (k and v read once, the backward also
+// writes gk and gv; a and g_a are B * N * H * S floats). The FLOPs do not
+// grow with H but come near the bytes at many slots: at 24 slots of 256 the
+// forward's fp32 FMAs take 57 % of its bytes' time on the CUDA cores. So
+// every shared-memory load has to feed several FMAs (shared memory returns
+// 128 bytes a cycle to an SM's 128 FMA lanes), and no lane may idle.
+//
+// The skeleton is the kernels' above (one producer thread, bulk copies into
+// a ring, 8 consumer warps, one partial a (block, batch row), the row sums
+// in reduce_rows). What differs:
 // - Spans: a tile of k or v starts wherever pos * D puts it; the producer
 //   fetches the 16-byte-aligned span that covers it, and reads the 1-3
 //   floats after the tensor's last whole 16 bytes with plain loads (as the
-//   single-head backward reads a and g_a). gk and gv go out with plain
-//   stores from the consumers, so the backward's ring is only read.
-// - Logits: a warp takes kTok tokens at a time and a lane one logit j of
-//   each chunk of 32 (j = 32 jb + lane). q (the backward: g_av) of the row
-//   sits in shared memory as qh[cc][j], cc the column within head h(j), so
-//   the 32 lanes read 32 consecutive entries while the k values of a token
-//   are one broadcast a head. V = 4 reads both 16 bytes at a time where
-//   hd % 4 == 0 (so D % 4 == 0 and every tile starts 16-byte aligned), each
-//   lane keeping V partial sums a token; V = 1 reads floats. The logits go
-//   to a [T][H][SP] buffer in shared memory (SP = S rounded up to 4, the
-//   padding 0), where the warp then takes the softmax (the backward: dl)
-//   of each of its tokens.
-// - Columns: a consumer thread takes columns tid, tid + 256, ... one at a
-//   time, all S slots of it in registers (SM, the bucket of S: 8, 16 or
-//   32), and walks every token of the tile reading its head's weights as
-//   float4 broadcasts; the column's sums over the tile are added to the
-//   block's partial of the row in the scratch, which only this thread
-//   touches (written at the segment's first tile), so nothing is kept in
-//   registers across tiles and D has no limit but shared memory.
-// - Tiles and stages: the C entry chooses the largest tile of kHeadsTiles
-//   whose ring fits the card's shared memory (the backward takes 3 stages
-//   where they fit, else 2); a shape that does not fit with one token is
-//   refused.
-// Bound: bytes, as above: k and v are read once (the backward also writes
-// gk and gv), a and g_a are B * N * H * S floats, and the FLOPs do not grow
-// with H (H * S dot products of length hd).
+//   single-head backward reads a and g_a).
+// - Logits (the backward: da = v . g_av): a job is M tokens x one head x a
+//   block of 8 slots, taken by a group of GH lanes (GH = 4 and M = 4 where
+//   there are at least 4 (head, slot block) pairs or the head is narrow,
+//   else GH = 32, M = 8 in the forward and 4 in the backward). Lane l of the
+//   group reads chunks l, l + GH, .. of V floats of the head's columns of
+//   each token and of each slot's row of q (g_av) of the row, [S, D] in
+//   shared memory: distinct 16-byte words, no broadcasts, and a chunk of k
+//   feeds 8 slots, a chunk of q M tokens. The M x 8 partial dot products
+//   stay in registers; an xor reduce-scatter over the group leaves each
+//   logit with one lane. A warp takes the jobs of its own blocks of M tokens
+//   (tokens M (w + 8 i) ..).
+// - Softmax (the backward: dl) in the lanes that hold the logits: a token's
+//   logits lie with a few lanes a fixed xor apart (warp_logits), which take
+//   its max and sum (the backward: sum_j da_j a_j) with butterflies and
+//   write the weights (dl) to a [T][H][SP] buffer (SP = S rounded up to 8,
+//   the padding 0) and a to global memory; where a block of tokens has more
+//   than 8 jobs, the logits go through the buffer and a lane a logit
+//   finishes each token. One consumer barrier a tile, before the columns.
+// - Columns: a consumer thread owns a column item, V columns x a block of 8
+//   slots, and walks every `groups`-th token of the tile: one load of V
+//   floats of v (the backward: k) and two float4 of weights feed 8 V FMAs.
+//   items x groups fills the 256 threads (at most 16 groups). The forward
+//   adds the weights into S_a beside A_v. The backward also keeps q and g_av
+//   of its item in registers, forms gk and gv of its V columns over its 8
+//   slots, sums them over the item's slot blocks with full-warp shuffles
+//   (lane groups of 1, 2 or 4, the padding lanes holding q = g_av = 0) and
+//   stores 16 bytes each. Past 16 slots at V = 4 the backward takes the
+//   column layout instead: an item is one column with all its slots (the
+//   same 32 floats of registers), so no lane pads a slot block, no shuffle
+//   sums gk and gv, and a warp's 32 lanes store 128 contiguous bytes of
+//   each. A_v, S_a and gq stay in registers across the block's tiles; at a
+//   segment's end the token groups are added in a fixed order through
+//   shared memory (all but the first written at once, the first adding them
+//   in group order) and the total goes to the block's scratch slot once.
+//   Where the items pass 256 (groups = 0, the scratch variant: over 8 heads
+//   of 512, say), a thread loops over items and adds each tile's sums into
+//   the scratch slot, whose entries only it touches.
+// - Registers: the block is 8 consumer warps and a producer warpgroup that
+//   hands its registers to them (setmaxnreg), so the consumers hold an
+//   item's 96 floats and a logits job without spilling.
+// - The plan (heads_plan, mirrored by ops/slot_routing.py): V = 4 where hd
+//   is a multiple of 4, else 1; GH; the items; the largest tile of
+//   kHeadsTiles whose ring fits the card's shared memory (the backward with
+//   3 stages where they fit, else 2), with the registers variant where its
+//   token groups' buffer fits too; a shape that does not fit with one token
+//   is refused. PERF.md has what each step bought on the card.
 
 constexpr int kWarps = kConsumers / 32;
-constexpr int kTok = 4;                        // tokens a warp takes at once
 constexpr int kHeadsMaxSlots = 32;
 constexpr int kHeadsTiles[] = {64, 48, 32, 24, 16, 8, 4, 2, 1};
 constexpr int kHeadsFwdStages = 2;
 constexpr int kHeadsBwdStages[] = {3, 2};      // preferred first, for each tile
 constexpr int kMaxStages = kHeaderBytes / (2 * static_cast<int>(sizeof(uint64_t)));
+constexpr int kSlotBlock = 8;                  // slots of a logits job, of a column item
+constexpr int kNarrowLanes = 4;                // lanes of a logits job: 4 tokens
+constexpr int kWideLanes = 32;                 // or 8 (the backward: 4)
+constexpr int kNarrowHead = 16;                // chunks of a head below which GH = 4
+constexpr int kMaxGroups = 16;                 // token groups of the column items
+// A block: 8 consumer warps and a producer warpgroup (one thread of it
+// streams), whose registers go to the consumers (setmaxnreg): ptxas reports
+// 168 a thread (at launch a scheduler holds three of the 12 warps), and the
+// code after the split runs with 56 (producer) and 224 (consumers).
+constexpr int kHeadsThreads = kConsumers + 128;
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 
+__host__ __device__ constexpr int padded8(int S) { return (S + 7) & ~7; }
+__host__ __device__ constexpr int slot_blocks(int S) {
+  return (S + kSlotBlock - 1) / kSlotBlock;
+}
+// The backward's slot blocks of a column item, padded to 1, 2 or 4 lanes.
+__host__ __device__ constexpr int lane_blocks(int S) {
+  return slot_blocks(S) == 1 ? 1 : slot_blocks(S) == 2 ? 2 : 4;
+}
+// Floats a column item keeps across tiles: its A_v (gq) and, forward, S_a.
+__host__ __device__ constexpr int item_floats(int V, bool fwd) {
+  return kSlotBlock * V + (fwd ? kSlotBlock : 0);
+}
+
+// `red` floats: the token groups' buffer, which shares the region of the
+// logits buffers.
 __host__ __device__ inline size_t heads_fwd_smem_bytes(int S, int D, int H, int T,
-                                                       int stages) {
-  const size_t HSP = static_cast<size_t>(H) * padded(S);
+                                                       int stages, int red) {
+  const size_t w = 2 * static_cast<size_t>(T) * H * padded8(S);
   return kHeaderBytes +
          sizeof(float) * (static_cast<size_t>(stages) * 2 * span_floats(T, D) +
-                          padded(S * D) + 2 * T * HSP);
+                          padded(S * D) + (w > static_cast<size_t>(red) ? w : red));
 }
 
 __host__ __device__ inline size_t heads_bwd_smem_bytes(int S, int D, int H, int T,
-                                                       int stages) {
-  const size_t HSP = static_cast<size_t>(H) * padded(S);
+                                                       int stages, int red) {
+  const size_t w = 4 * static_cast<size_t>(T) * H * padded8(S);
   return kHeaderBytes +
          sizeof(float) * (static_cast<size_t>(stages) *
                               (2 * span_floats(T, D) + 2 * span_floats(T, H * S)) +
-                          2 * padded(S * D) + 4 * T * HSP);
+                          padded(S * D) + (w > static_cast<size_t>(red) ? w : red));
 }
 
 __device__ __forceinline__ void init_barriers_n(uint64_t* full, uint64_t* empty,
@@ -827,6 +884,15 @@ __device__ __forceinline__ void init_barriers_n(uint64_t* full, uint64_t* empty,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// The warpgroups' register split: every thread of a warpgroup calls one.
+__device__ __forceinline__ void release_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+
+__device__ __forceinline__ void claim_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
 // The floats [f0, f1) of a tensor of `total` floats, fetched into dst: the
@@ -877,66 +943,151 @@ __device__ __forceinline__ Vec<V> load_vec(const float* p) {
   return r;
 }
 
-// Row b's [S, D] matrix m (q or g_av) into shared memory as mh: entry
-// (cc, j) of column cc of head h, logit j = h S + s, at
-// (cc / V) * H * S * V + j * V + cc % V.
 template <int V>
-__device__ __forceinline__ void load_heads(float* mh, const float* m, int S, int D,
-                                           int H) {
-  const int hd = D / H, HS = H * S;
-  for (int e = threadIdx.x; e < S * D; e += kConsumers) {
-    const int s = e / D, c = e - s * D, h = c / hd, cc = c - h * hd;
-    mh[(cc / V) * HS * V + (h * S + s) * V + cc % V] = m[e];
+__device__ __forceinline__ void store_vec(float* p, const float* x) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *p = x[0];
+}
+
+// The 8 floats at p (16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&x)[kSlotBlock]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4 f0 = p4[0], f1 = p4[1];
+  x[0] = f0.x, x[1] = f0.y, x[2] = f0.z, x[3] = f0.w;
+  x[4] = f1.x, x[5] = f1.y, x[6] = f1.z, x[7] = f1.w;
+}
+
+// Step K of reduce_scatter: offset GH >> K over the first N >> (K - 1)
+// entries; a lane keeps one half (the upper where its bit is set) and adds
+// its partner's copy of that half.
+template <int N, int GH, int K>
+__device__ __forceinline__ void reduce_scatter_step(float (&x)[N], int gl) {
+  if constexpr ((GH >> K) > 0) {
+    constexpr int o = GH >> K, n = N >> K;
+    const bool up = gl & o;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = up ? x[i] : x[i + n];
+      const float keep = up ? x[i + n] : x[i];
+      x[i] = keep + __shfl_xor_sync(kFullMask, send, o);
+    }
+    reduce_scatter_step<N, GH, K + 1>(x, gl);
   }
 }
 
-// Where logit j = h S + s of token t sits in a [T][H][SP] buffer.
-__device__ __forceinline__ int at_logit(int t, int j, int S, int SP, int HSP) {
-  const int h = j / S;
-  return t * HSP + h * SP + (j - h * S);
+// Sums x over the GH lanes of a group (the lanes whose lane ids differ in
+// their low log2(GH) bits only), each lane keeping N / GH of the sums: lane
+// l ends with the sums of entries l N / GH .. (l + 1) N / GH - 1 in x[0 ..].
+template <int N, int GH>
+__device__ __forceinline__ void reduce_scatter(float (&x)[N], int gl) {
+  reduce_scatter_step<N, GH, 1>(x, gl);
 }
 
-// The logits of this warp's tokens of a [T, D] tile x against mh, into the
-// [T][H][SP] buffer out: tokens t0 + kWarps r (r < kTok, those below count),
-// lane j of each chunk of 32 logits the dot product over head h(j)'s
-// columns of x's token with logit j of mh.
-template <int V>
-__device__ __forceinline__ void head_dots(const float* x, const float* mh, float* out,
-                                          int t0, int count, int D, int hd, int S,
-                                          int SP, int HSP, int lane) {
-  const int HS = (D / hd) * S;
-  int tok[kTok];
+// One logits job: tokens t0 .. t0 + M - 1 (those below count) of the tile x
+// (rows of D floats) against slots s0 .. s0 + 7 (those below S) of m (q or
+// g_av of the row, rows of D floats) over head h's columns; lane gl of the
+// group takes chunks gl, gl + GH, .. of V floats. The sums end in
+// acc[0 .. M 8 / GH): lane gl holds entries gl M 8 / GH .. of the job's
+// [M][8] logits (reduce_scatter). A job that is not live adds zeros (every
+// lane of the warp takes part in the shuffles).
+template <int V, int GH, int M>
+__device__ __forceinline__ void logits_job(const float* x, const float* m,
+                                           float (&acc)[M * kSlotBlock], int count, int D,
+                                           int hd, int S, int t0, int h, int s0, bool live,
+                                           int gl) {
 #pragma unroll
-  for (int r = 0; r < kTok; ++r) {
-    const int t = t0 + r * kWarps;
-    tok[r] = t < count ? t : t0;
-  }
-  for (int j = lane; j - lane < HS; j += 32) {
-    const int jj = j < HS ? j : HS - 1;
-    const float* xr = x + (jj / S) * hd;
-    const float* mr = mh + jj * V;
-    float acc[kTok][V];
+  for (int i = 0; i < M * kSlotBlock; ++i) acc[i] = 0.f;
+  if (live) {
+    const int ns = S - s0;
+    const float* xh = x + h * hd;
+    const float* mh = m + s0 * D + h * hd;
+    int row[M];
 #pragma unroll
-    for (int r = 0; r < kTok; ++r)
+    for (int r = 0; r < M; ++r) row[r] = (t0 + r < count ? t0 + r : t0) * D;
+    for (int c = gl * V; c < hd; c += GH * V) {
+      Vec<V> xv[M];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
-#pragma unroll 2
-    for (int cc = 0; cc < hd; cc += V) {
-      const Vec<V> w = load_vec<V>(mr + cc * HS);
+      for (int r = 0; r < M; ++r) xv[r] = load_vec<V>(xh + row[r] + c);
 #pragma unroll
-      for (int r = 0; r < kTok; ++r) {
-        const Vec<V> xv = load_vec<V>(xr + tok[r] * D + cc);
+      for (int s = 0; s < kSlotBlock; ++s) {
+        if (s < ns) {
+          const Vec<V> w = load_vec<V>(mh + s * D + c);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[r][e] = fmaf(xv.x[e], w.x[e], acc[r][e]);
+          for (int r = 0; r < M; ++r)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[r * kSlotBlock + s] = fmaf(xv[r].x[e], w.x[e], acc[r * kSlotBlock + s]);
+        }
       }
     }
-    if (j < HS) {
+  }
+  reduce_scatter<M * kSlotBlock, GH>(acc, gl);
+}
+
+// Where a tile's logits go once summed: the [T][H][SP] buffer w (the
+// forward's weights or logits, the backward's da and then dl), the
+// backward's a in sa ([T][H][SP]), the forward's a of the tile's first token
+// (global, H S floats a token), the backward's spans of a and g_a.
+struct TileOut {
+  float* w;
+  float* sa;
+  float* a;
+  const float* at;
+  const float* gat;
+  int S, SP, HS, HSP;
+};
+
+// The softmax (kFwd: the weights into w, a into global) or dl (into w, a
+// into sa) of the logits this lane holds, entry k logit (h[k], s[k]) of
+// token t[k] of the tile where ok[k]; the token's other logits are held by
+// the lanes lane ^ o, o = o_lo, 2 o_lo, .. below o_hi.
+template <bool kFwd, int K>
+__device__ __forceinline__ void finish_held(const TileOut& f, const float (&x)[K],
+                                            const int (&t)[K], const int (&h)[K],
+                                            const int (&s)[K], const bool (&ok)[K],
+                                            int o_lo, int o_hi) {
+  if constexpr (kFwd) {
+    float m = neg_inf();
 #pragma unroll
-      for (int r = 0; r < kTok; ++r) {
-        float sum = acc[r][0];
+    for (int k = 0; k < K; ++k)
+      if (ok[k]) m = fmaxf(m, x[k]);
+    for (int o = o_lo; o < o_hi; o <<= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, o));
+    float e[K], sum = 0.f;
 #pragma unroll
-        for (int e = 1; e < V; ++e) sum += acc[r][e];
-        if (t0 + r * kWarps < count) out[at_logit(tok[r], j, S, SP, HSP)] = sum;
+    for (int k = 0; k < K; ++k) {
+      e[k] = ok[k] ? expf(x[k] - m) : 0.f;
+      sum += e[k];
+    }
+    for (int o = o_lo; o < o_hi; o <<= 1) sum += __shfl_xor_sync(kFullMask, sum, o);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (ok[k]) {
+        const float y = e[k] / sum;
+        f.w[t[k] * f.HSP + h[k] * f.SP + s[k]] = y;
+        f.a[static_cast<size_t>(t[k]) * f.HS + h[k] * f.S + s[k]] = y;
+      }
+    }
+  } else {
+    float da[K], aj[K], inner = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      da[k] = aj[k] = 0.f;
+      if (ok[k]) {
+        const int j = t[k] * f.HS + h[k] * f.S + s[k];
+        aj[k] = f.at[j];
+        da[k] = x[k] + f.gat[j];
+        inner = fmaf(da[k], aj[k], inner);
+      }
+    }
+    for (int o = o_lo; o < o_hi; o <<= 1) inner += __shfl_xor_sync(kFullMask, inner, o);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (ok[k]) {
+        const int y = t[k] * f.HSP + h[k] * f.SP + s[k];
+        f.w[y] = aj[k] * (da[k] - inner);
+        f.sa[y] = aj[k];
       }
     }
   }
@@ -954,25 +1105,381 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Adds x to a partial this thread owns, or writes it at a segment's first tile.
-__device__ __forceinline__ void add_partial(float* p, float x, bool fresh) {
-  *p = fresh ? x : *p + x;
+// Where logit j = h S + s sits in a token's [H][SP] row.
+__device__ __forceinline__ int at_logit(int j, int S, int SP) {
+  const int h = j / S;
+  return h * SP + (j - h * S);
 }
 
-template <int SM, int V>
-__global__ void __launch_bounds__(kThreads, 1)
+// The softmax of one token's H S logits (its [H][SP] row wt), in place and
+// into a_t (H S floats in (h, s) order); x: this lane's logit where HS <= 32.
+__device__ __forceinline__ void softmax_token(float* wt, float* a_t, int S, int SP, int HS,
+                                              int x, int lane) {
+  if (HS <= 32) {
+    const float l = lane < HS ? wt[x] : neg_inf();
+    const float m = warp_max(l);
+    const float e = lane < HS ? expf(l - m) : 0.f;
+    const float sum = warp_sum(e);
+    if (lane < HS) {
+      const float y = e / sum;
+      wt[x] = y;
+      a_t[lane] = y;
+    }
+    return;
+  }
+  float m = neg_inf(), sum = 0.f;
+  for (int j = lane; j < HS; j += 32) m = fmaxf(m, wt[at_logit(j, S, SP)]);
+  m = warp_max(m);
+  for (int j = lane; j < HS; j += 32) {
+    float* y = wt + at_logit(j, S, SP);
+    *y = expf(*y - m);
+    sum += *y;
+  }
+  sum = warp_sum(sum);
+  for (int j = lane; j < HS; j += 32) {
+    float* y = wt + at_logit(j, S, SP);
+    *y = *y / sum;
+    a_t[j] = *y;
+  }
+}
+
+// dl = a (da - sum_j da_j a_j) of one token, da = its [H][SP] row dt (v .
+// g_av) + g_a: dt becomes dl and at_s gets a, both in [H][SP] order; a_t,
+// ga_t: the token's H S floats of a and g_a.
+__device__ __forceinline__ void dl_token(float* dt, float* at_s, const float* a_t,
+                                         const float* ga_t, int S, int SP, int HS, int x,
+                                         int lane) {
+  if (HS <= 32) {
+    float aj = 0.f, da = 0.f;
+    if (lane < HS) {
+      aj = a_t[lane];
+      da = dt[x] + ga_t[lane];
+    }
+    const float inner = warp_sum(da * aj);
+    if (lane < HS) {
+      dt[x] = aj * (da - inner);
+      at_s[x] = aj;
+    }
+    return;
+  }
+  float inner = 0.f;
+  for (int j = lane; j < HS; j += 32) {
+    const int y = at_logit(j, S, SP);
+    const float aj = a_t[j], da = dt[y] + ga_t[j];
+    dt[y] = da;
+    at_s[y] = aj;
+    inner = fmaf(da, aj, inner);
+  }
+  inner = warp_sum(inner);
+  for (int j = lane; j < HS; j += 32) {
+    const int y = at_logit(j, S, SP);
+    dt[y] = at_s[y] * (dt[y] - inner);
+  }
+}
+
+// The logits of warp `warp`'s blocks of M tokens (tokens M (warp + 8 i) ..)
+// and their softmax (kFwd) or dl, into f. A block's jobs are its H heads x
+// slot blocks, J of them:
+// - GH = 32 (J <= 3 by the plan): the warp takes its blocks one by one and
+//   each block's jobs in turn; lane l ends with kMine logits of token
+//   kMine l / 8 in each job, and a token's logits lie with 8 / kMine lanes.
+// - GH = 4, J <= 8: a round takes 8 / Jp blocks (Jp: J rounded up to a
+//   power of two), group g job g % Jp of block g / Jp; lane gl of a group
+//   holds the 8 logits of token gl of its job, and a token's logits lie with
+//   the lanes 4 apart across the block's Jp groups.
+// Both finish the tokens in registers (finish_held). Else (GH = 4, J > 8)
+// the groups take the jobs in turn, the logits go to f.w, and a lane a
+// logit finishes each token from there (softmax_token, dl_token).
+template <int V, int GH, int M, bool kFwd>
+__device__ __forceinline__ void warp_logits(const float* x, const float* m,
+                                            const TileOut& f, int count, int D, int hd,
+                                            int H, int S, int warp, int lane, int x_lane) {
+  constexpr int kGroups = 32 / GH, N = M * kSlotBlock, kMine = N / GH;
+  const int nsb = slot_blocks(S), J = H * nsb;
+  const int blocks = (count + M - 1) / M;
+  const int grp = lane / GH, gl = lane % GH;
+  if constexpr (GH == kWideLanes) {
+    constexpr int kJobs = 3, K = kJobs * kMine;
+    for (int bi = warp; bi < blocks; bi += kWarps) {
+      const int t0 = bi * M;
+      float held[K];
+      int t[K], h[K], s[K];
+      bool ok[K];
+#pragma unroll
+      for (int j = 0; j < kJobs; ++j) {
+        float acc[N];
+        const int hj = j < J ? j / nsb : 0, sb = j < J ? j - hj * nsb : 0;
+        if (j < J)
+          logits_job<V, GH, M>(x, m, acc, count, D, hd, S, t0, hj, sb * kSlotBlock, true,
+                               gl);
+#pragma unroll
+        for (int i = 0; i < kMine; ++i) {
+          const int idx = kMine * gl + i, r = idx / kSlotBlock;
+          const int k = j * kMine + i;
+          held[k] = j < J ? acc[i] : 0.f;
+          t[k] = t0 + r;
+          h[k] = hj;
+          s[k] = sb * kSlotBlock + idx % kSlotBlock;
+          ok[k] = j < J && t0 + r < count && s[k] < S;
+        }
+      }
+      finish_held<kFwd, K>(f, held, t, h, s, ok, 1, kSlotBlock / kMine);
+    }
+  } else {
+    const int mine = warp < blocks ? (blocks - warp + kWarps - 1) / kWarps : 0;
+    if (J <= kGroups) {
+      const int Jp = J == 1 ? 1 : J == 2 ? 2 : J <= 4 ? 4 : 8;
+      const int per_round = kGroups / Jp, b_in = grp / Jp, j = grp - b_in * Jp;
+      const int hj = j < J ? j / nsb : 0, sb = j < J ? j - hj * nsb : 0;
+      for (int b0 = 0; b0 < mine; b0 += per_round) {
+        const int bl = b0 + b_in, t0 = (warp + bl * kWarps) * M;
+        const bool live = bl < mine && j < J;
+        float acc[N];
+        logits_job<V, GH, M>(x, m, acc, count, D, hd, S, t0, hj, sb * kSlotBlock, live, gl);
+        int t[kMine], h[kMine], s[kMine];
+        bool ok[kMine];
+#pragma unroll
+        for (int i = 0; i < kMine; ++i) {
+          t[i] = t0 + gl;
+          h[i] = hj;
+          s[i] = sb * kSlotBlock + i;
+          ok[i] = live && t0 + gl < count && s[i] < S;
+        }
+        float held[kMine];
+#pragma unroll
+        for (int i = 0; i < kMine; ++i) held[i] = acc[i];
+        finish_held<kFwd, kMine>(f, held, t, h, s, ok, GH, GH * Jp);
+      }
+    } else {
+      const int jobs = mine * J;
+      for (int j0 = 0; j0 < jobs; j0 += kGroups) {
+        const int j = j0 + grp;
+        const bool live = j < jobs;
+        const int jj = live ? j : 0;
+        const int hb = jj / nsb, sb = jj - hb * nsb;
+        const int bi = hb / H, hj = hb - bi * H, t0 = (warp + bi * kWarps) * M;
+        float acc[N];
+        logits_job<V, GH, M>(x, m, acc, count, D, hd, S, t0, hj, sb * kSlotBlock, live, gl);
+        if (live) {
+#pragma unroll
+          for (int i = 0; i < kMine; ++i) {
+            const int idx = kMine * gl + i, r = idx / kSlotBlock;
+            const int sl = sb * kSlotBlock + idx % kSlotBlock;
+            if (t0 + r < count && sl < S) f.w[(t0 + r) * f.HSP + hj * f.SP + sl] = acc[i];
+          }
+        }
+      }
+      __syncwarp();
+      for (int t0 = warp * M; t0 < count; t0 += kWarps * M)
+        for (int t = t0; t < t0 + M && t < count; ++t) {
+          if constexpr (kFwd)
+            softmax_token(f.w + t * f.HSP, f.a + static_cast<size_t>(t) * f.HS, S, f.SP,
+                          f.HS, x_lane, lane);
+          else
+            dl_token(f.w + t * f.HSP, f.sa + t * f.HSP, f.at + t * f.HS, f.gat + t * f.HS,
+                     S, f.SP, f.HS, x_lane, lane);
+        }
+    }
+  }
+}
+
+// A column item's sums over tokens t0, t0 + step, .. < count of a tile:
+// x[s V + e] += w_ts v_t[e] and x[8 V + s] += w_ts, its V floats of v at
+// vt + t * D and its 8 weights at wt + t * HSP.
+template <int V>
+__device__ __forceinline__ void av_tokens(const float* vt, const float* wt, int D, int HSP,
+                                          int t0, int step, int count,
+                                          float (&x)[item_floats(V, true)]) {
+#pragma unroll 2
+  for (int t = t0; t < count; t += step) {
+    const Vec<V> y = load_vec<V>(vt + t * D);
+    float w[kSlotBlock];
+    load8(wt + t * HSP, w);
+#pragma unroll
+    for (int s = 0; s < kSlotBlock; ++s) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[s * V + e] = fmaf(w[s], y.x[e], x[s * V + e]);
+      x[kSlotBlock * V + s] += w[s];
+    }
+  }
+}
+
+// The backward of a column item over tokens t0, t0 + step, .. < count
+// where live: gk and gv of its V columns over its 8 slots (dl q and a g_av,
+// q and g_av of the item in qc and gc), summed over its group of nl lanes
+// (its slot blocks) and stored by lanes 0 and nl / 2 of the group (lane 0
+// both where nl = 1) at gk + t * D and gv + t * D; x[s V + e] += dl_ts
+// k_t[e]. Its V floats of k are at kt + t * D, its dl and a at dlt, at + t *
+// HSP. Every lane of the warp goes round count / step times (rounded up),
+// the shuffles taking all 32 lanes; a round past count, or of a lane that
+// is not live, adds and stores nothing.
+template <int V>
+__device__ __forceinline__ void bwd_tokens(const float* kt, const float* dlt,
+                                           const float* at, float* gk, float* gv, int D,
+                                           int HSP, int t0, int step, int count, bool live,
+                                           const float (&qc)[kSlotBlock * V],
+                                           const float (&gc)[kSlotBlock * V],
+                                           float (&x)[kSlotBlock * V], int sb, int nl) {
+  const int o = nl >> 1, rounds = (count + step - 1) / step;
+  const bool up = sb & o, owner = (sb & (o - 1)) == 0;
+  for (int i = 0; i < rounds; ++i) {
+    const int t = t0 + i * step;
+    const bool on = live && t < count;
+    float g[2 * V];
+#pragma unroll
+    for (int e = 0; e < 2 * V; ++e) g[e] = 0.f;
+    if (on) {
+      const Vec<V> y = load_vec<V>(kt + t * D);
+      float dl[kSlotBlock], as[kSlotBlock];
+      load8(dlt + t * HSP, dl);
+      load8(at + t * HSP, as);
+#pragma unroll
+      for (int s = 0; s < kSlotBlock; ++s) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          g[e] = fmaf(dl[s], qc[s * V + e], g[e]);
+          g[V + e] = fmaf(as[s], gc[s * V + e], g[V + e]);
+          x[s * V + e] = fmaf(dl[s], y.x[e], x[s * V + e]);
+        }
+      }
+    }
+    if (nl == 1) {
+      if (on) {
+        store_vec<V>(gk + t * D, g);
+        store_vec<V>(gv + t * D, g + V);
+      }
+      continue;
+    }
+    // keep gk (gv where the lane's bit o is set), add the partner's copy
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float send = up ? g[e] : g[V + e];
+      const float keep = up ? g[V + e] : g[e];
+      g[e] = keep + __shfl_xor_sync(kFullMask, send, o);
+    }
+    if (nl == 4)
+#pragma unroll
+      for (int e = 0; e < V; ++e) g[e] += __shfl_xor_sync(kFullMask, g[e], 1);
+    if (on && owner) store_vec<V>((up ? gv : gk) + t * D, g);
+  }
+}
+
+// The backward of one column over tokens t0, t0 + step, .. < count (the
+// column layout: more than 16 slots, V = 4): gk and gv of the column over
+// all S slots (dl q and a g_av, q and g_av of the column in qc and gc,
+// slots 0 .. 31), stored at gk + t * D and gv + t * D; x[s] += dl_ts k_t.
+// The column's k is at kt + t * D, its head's dl and a at dlt, at + t *
+// HSP. No lane waits on another: a lane that is not live does nothing.
+template <int F>
+__device__ __forceinline__ void col_tokens(const float* kt, const float* dlt,
+                                           const float* at, float* gk, float* gv, int D,
+                                           int HSP, int t0, int step, int count, bool live,
+                                           const float (&qc)[F], const float (&gc)[F],
+                                           float (&x)[F], int S) {
+  if (!live) return;
+  for (int t = t0; t < count; t += step) {
+    const float y = kt[t * D];
+    float gk4[4] = {0.f, 0.f, 0.f, 0.f}, gv4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s4 = 0; s4 < F / 4; ++s4) {
+      if (4 * s4 < S) {
+        const float4 d = *reinterpret_cast<const float4*>(dlt + t * HSP + 4 * s4);
+        const float4 a = *reinterpret_cast<const float4*>(at + t * HSP + 4 * s4);
+        const float dv[4] = {d.x, d.y, d.z, d.w}, av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          gk4[e] = fmaf(dv[e], qc[4 * s4 + e], gk4[e]);
+          gv4[e] = fmaf(av[e], gc[4 * s4 + e], gv4[e]);
+          x[4 * s4 + e] = fmaf(dv[e], y, x[4 * s4 + e]);
+        }
+      }
+    }
+    gk[t * D] = (gk4[0] + gk4[1]) + (gk4[2] + gk4[3]);
+    gv[t * D] = (gv4[0] + gv4[1]) + (gv4[2] + gv4[3]);
+  }
+}
+
+// Writes (add: adds) one column's gq sums x[s], s < S, into the block's
+// partial p of the row at s D + c (the column layout).
+template <int F>
+__device__ __forceinline__ void flush_col(float* p, const float (&x)[F], int S, int D,
+                                          int c, bool add) {
+#pragma unroll
+  for (int s = 0; s < F; ++s) {
+    if (s < S) {
+      float* y = p + s * D + c;
+      *y = add ? *y + x[s] : x[s];
+    }
+  }
+}
+
+// Writes (add: adds) a column item's sums x into the block's partial p of
+// the row: x[s V + e] to A_v (gq) at (s0 + s) D + cv V + e, and in the
+// forward (kSa) x[8 V + s] to S_a at S D + h S + s0 + s from the item that
+// holds its head's first chunk; slots from S on are padding.
+template <int V, bool kSa>
+__device__ __forceinline__ void flush_item(float* p, const float* x, int S, int D, int hd,
+                                           int cv, int sb, bool add) {
+  const int s0 = sb * kSlotBlock, c = cv * V;
+#pragma unroll
+  for (int s = 0; s < kSlotBlock; ++s) {
+    if (s0 + s < S) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float* y = p + (s0 + s) * D + c + e;
+        *y = add ? *y + x[s * V + e] : x[s * V + e];
+      }
+    }
+  }
+  if (kSa && c % hd == 0) {
+    float* y = p + S * D + (c / hd) * S + s0;
+#pragma unroll
+    for (int s = 0; s < kSlotBlock; ++s)
+      if (s0 + s < S) y[s] = add ? y[s] + x[kSlotBlock * V + s] : x[kSlotBlock * V + s];
+  }
+}
+
+// Sums a column item's kept floats x over the token groups: groups 1 ..
+// write theirs to red ([groups - 1][F][items] in shared memory) together and
+// group 0 adds them in group order, ending with the total; then clears the
+// region of `clear` floats that red shares with the logits buffers (their
+// padding must read 0) and waits for every consumer. Every consumer thread
+// calls it.
+template <int F>
+__device__ __forceinline__ void sum_groups(float (&x)[F], float* red, int clear, int items,
+                                           int item, int tg, int groups, bool kept) {
+  consumer_sync();                  // nobody reads the logits buffers any more
+  if (kept && tg > 0) {
+#pragma unroll
+    for (int e = 0; e < F; ++e) red[((tg - 1) * F + e) * items + item] = x[e];
+  }
+  consumer_sync();
+  if (kept && tg == 0) {
+    for (int g = 1; g < groups; ++g)
+#pragma unroll
+      for (int e = 0; e < F; ++e) x[e] += red[((g - 1) * F + e) * items + item];
+  }
+  consumer_sync();
+  for (int e = threadIdx.x; e < clear; e += kConsumers) red[e] = 0.f;
+  consumer_sync();
+}
+
+template <int V, int GH>
+__global__ void __launch_bounds__(kHeadsThreads, 1)
 heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ q, float* __restrict__ a,
                  float* __restrict__ partial, int B, int N, int S, int D, int H,
-                 int T, int stages) {
+                 int T, int stages, int groups) {
+  constexpr int M = GH == kWideLanes ? 8 : 4;     // tokens a logits job
+  constexpr int F = item_floats(V, true);         // A_v, then S_a, of an item
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
-  const int HS = H * S, hd = D / H, SP = padded(S), HSP = H * SP;
+  const int HS = H * S, hd = D / H, SP = padded8(S), HSP = H * SP;
   const int span = span_floats(T, D);       // k, then v, a stage
-  float* qh = ring + stages * 2 * span;     // q of the row, in head order
-  float* w0 = qh + padded(S * D);           // [2][T][H][SP] logits, then weights
+  float* sq = ring + stages * 2 * span;     // [S, D] q of the row
+  float* w0 = sq + padded(S * D);           // [2][T][H][SP] logits, then weights
   const long long BN = static_cast<long long>(B) * N;
   const size_t width = static_cast<size_t>(S) * D + padded(HS);
   const int tid = threadIdx.x;
@@ -980,6 +1487,7 @@ heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
   init_barriers_n(full, empty, stages);
 
   if (tid >= kConsumers) {                  // the producer
+    release_registers();
     if (tid == kConsumers) {
       Tiles it = block_tiles(BN, N, T);
       for (int i = 0; it.valid(); ++i, it.next()) {
@@ -997,9 +1505,21 @@ heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
     }
     return;
   }
+  claim_registers();
 
   const int warp = tid >> 5, lane = tid & 31;
-  for (int e = tid; e < 2 * T * HSP; e += kConsumers) w0[e] = 0.f;   // the padding
+  const int nsb = slot_blocks(S), items = D / V * nsb;
+  const int region = max(2 * T * HSP, groups > 1 ? (groups - 1) * items * F : 0);
+  for (int e = tid; e < region; e += kConsumers) w0[e] = 0.f;   // the padding
+  const int x_lane = lane < HS ? at_logit(lane, S, SP) : 0;
+  // this thread's column item and token group (the registers variant)
+  const int tg = groups > 0 ? tid / items : 0;
+  const int item = tid - tg * items;
+  const bool kept = groups > 0 && tg < groups;
+  const int cv = item / nsb, sb = item - cv * nsb;
+  float keep[F];
+#pragma unroll
+  for (int e = 0; e < F; ++e) keep[e] = 0.f;
   bool fresh = true;   // the tile starts this block's partial of its row
   int row = -1;
 
@@ -1008,7 +1528,8 @@ heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
     const int b = it.b(), count = it.count();
     if (b != row) {                   // a new row: its q into shared memory
       consumer_sync();                // (nobody reads the last row's any more)
-      load_heads<V>(qh, q + static_cast<size_t>(b) * S * D, S, D, H);
+      const float* qb = q + static_cast<size_t>(b) * S * D;
+      for (int e = tid; e < S * D; e += kConsumers) sq[e] = qb[e];
       consumer_sync();
       row = b;
     }
@@ -1019,82 +1540,58 @@ heads_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
     const float* vt = kt + span;
     float* w = w0 + (i & 1) * T * HSP;
 
-    // the per-head dot products, then a = their softmax over heads x slots
-    for (int t0 = warp; t0 < count; t0 += kWarps * kTok)
-      head_dots<V>(kt, qh, w, t0, count, D, hd, S, SP, HSP, lane);
+    // the logits of this warp's tokens, then a = their softmax
+    const TileOut out{w, nullptr, a + it.pos * HS, nullptr, nullptr, S, SP, HS, HSP};
+    warp_logits<V, GH, M, true>(kt, sq, out, count, D, hd, H, S, warp, lane, x_lane);
     __syncwarp();
-    for (int t = warp; t < count; t += kWarps) {
-      float m = neg_inf(), sum = 0.f;
-      for (int j = lane; j < HS; j += 32) m = fmaxf(m, w[at_logit(t, j, S, SP, HSP)]);
-      m = warp_max(m);
-      for (int j = lane; j < HS; j += 32) {
-        float* x = w + at_logit(t, j, S, SP, HSP);
-        *x = expf(*x - m);
-        sum += *x;
-      }
-      sum = warp_sum(sum);
-      for (int j = lane; j < HS; j += 32) {
-        float* x = w + at_logit(t, j, S, SP, HSP);
-        *x = *x / sum;
-        a[(it.pos + t) * HS + j] = *x;
-      }
-    }
     consumer_sync();
 
-    // A_v and S_a of the tile, into this block's partial of row b
+    // A_v and S_a of the column items
     float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * width;
-    for (int c = tid; c < D; c += kConsumers) {
-      float acc[SM];
+    if (kept) {
+      av_tokens<V>(vt + cv * V, w + (cv * V / hd) * SP + sb * kSlotBlock, D, HSP, tg,
+                   groups, count, keep);
+    } else if (groups == 0) {   // the scratch variant: keep holds one item's sums
+      for (int j = tid; j < items; j += kConsumers) {
+        const int jc = j / nsb, js = j - jc * nsb;
 #pragma unroll
-      for (int s = 0; s < SM; ++s) acc[s] = 0.f;
-      const float* wr = w + (c / hd) * SP;
-#pragma unroll 2
-      for (int t = 0; t < count; ++t) {
-        const float x = vt[t * D + c];
-        const float4* w4 = reinterpret_cast<const float4*>(wr + t * HSP);
-#pragma unroll
-        for (int s4 = 0; s4 < SM / 4; ++s4) {
-          if (4 * s4 < S) {
-            const float4 f = w4[s4];
-            acc[4 * s4] = fmaf(f.x, x, acc[4 * s4]);
-            acc[4 * s4 + 1] = fmaf(f.y, x, acc[4 * s4 + 1]);
-            acc[4 * s4 + 2] = fmaf(f.z, x, acc[4 * s4 + 2]);
-            acc[4 * s4 + 3] = fmaf(f.w, x, acc[4 * s4 + 3]);
-          }
-        }
+        for (int e = 0; e < F; ++e) keep[e] = 0.f;
+        av_tokens<V>(vt + jc * V, w + (jc * V / hd) * SP + js * kSlotBlock, D, HSP, 0, 1,
+                     count, keep);
+        flush_item<V, true>(p, keep, S, D, hd, jc, js, !fresh);
       }
-#pragma unroll
-      for (int s = 0; s < SM; ++s)
-        if (s < S) add_partial(p + s * D + c, acc[s], fresh);
-    }
-    for (int j = tid; j < HS; j += kConsumers) {
-      float total = 0.f;
-      for (int t = 0; t < count; ++t) total += w[at_logit(t, j, S, SP, HSP)];
-      add_partial(p + S * D + j, total, fresh);
     }
     release(&empty[st]);
+
+    if (it.ends_segment() && groups > 0) {   // this block's partial of row b
+      if (groups > 1) sum_groups<F>(keep, w0, region, items, item, tg, groups, kept);
+      if (kept && tg == 0) flush_item<V, true>(p, keep, S, D, hd, cv, sb, false);
+#pragma unroll
+      for (int e = 0; e < F; ++e) keep[e] = 0.f;
+    }
     fresh = it.ends_segment();
   }
 }
 
-template <int SM, int V>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int V, int GH>
+__global__ void __launch_bounds__(kHeadsThreads, 1)
 heads_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ a, const float* __restrict__ q,
                  const float* __restrict__ g_av, const float* __restrict__ g_a,
                  float* __restrict__ gk, float* __restrict__ gv,
                  float* __restrict__ partial, int B, int N, int S, int D, int H,
-                 int T, int stages) {
+                 int T, int stages, int groups) {
+  constexpr int M = 4;                      // tokens a logits job
+  constexpr int F = item_floats(V, false);  // gq of an item
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   float* ring = reinterpret_cast<float*>(smem + kHeaderBytes);
-  const int HS = H * S, hd = D / H, SP = padded(S), HSP = H * SP;
+  const int HS = H * S, hd = D / H, SP = padded8(S), HSP = H * SP;
   const int span = span_floats(T, D), span_a = span_floats(T, HS);
   const int stage = 2 * span + 2 * span_a;  // k, v, then the spans of a, g_a
-  float* qh = ring + stages * stage;        // q and g_av of the row, head order
-  float* gh = qh + padded(S * D);
-  float* sdl0 = gh + padded(S * D);         // [2][T][H][SP] da, then dl
+  float* sg = ring + stages * stage;        // [S, D] g_av of the row
+  float* sdl0 = sg + padded(S * D);         // [2][T][H][SP] da, then dl
   float* sa0 = sdl0 + 2 * T * HSP;          // [2][T][H][SP] a of the tile
   const long long BN = static_cast<long long>(B) * N;
   const int tid = threadIdx.x;
@@ -1102,6 +1599,7 @@ heads_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
   init_barriers_n(full, empty, stages);
 
   if (tid >= kConsumers) {                  // the producer
+    release_registers();
     if (tid == kConsumers) {
       Tiles it = block_tiles(BN, N, T);
       for (int i = 0; it.valid(); ++i, it.next()) {
@@ -1125,19 +1623,59 @@ heads_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
     }
     return;
   }
+  claim_registers();
 
   const int warp = tid >> 5, lane = tid & 31;
-  for (int e = tid; e < 4 * T * HSP; e += kConsumers) sdl0[e] = 0.f;   // the padding
+  // the column layout (an item is one column with all its slots) where
+  // the slots pass 16 and the registers of 8 slots x 4 columns hold 32
+  const bool cols = V == 4 && S > 2 * kSlotBlock;
+  const int nsb = slot_blocks(S), nl = lane_blocks(S), items = cols ? D : D / V * nl;
+  const int region = max(4 * T * HSP, groups > 1 ? (groups - 1) * items * F : 0);
+  for (int e = tid; e < region; e += kConsumers) sdl0[e] = 0.f;   // the padding
+  const int x_lane = lane < HS ? at_logit(lane, S, SP) : 0;
+  const int tg = groups > 0 ? tid / items : 0;
+  const int item = tid - tg * items;
+  const bool kept = groups > 0 && tg < groups;
+  const int cv = cols ? item : item / nl, sb = cols ? 0 : item - cv * nl;
+  float qc[F], gc[F], keep[F];
+#pragma unroll
+  for (int e = 0; e < F; ++e) qc[e] = gc[e] = keep[e] = 0.f;
   bool fresh = true;
   int row = -1;
+
+  // q and g_av of item (jc, js) of row b: 0 past S (and for padding lanes);
+  // in the column layout, of column jc's slots 0 .. F - 1
+  auto item_rows = [&](int b, int jc, int js, float (&qx)[F], float (&gx)[F]) {
+    const float* qb = q + static_cast<size_t>(b) * S * D + jc * (cols ? 1 : V);
+    const float* gb = g_av + static_cast<size_t>(b) * S * D + jc * (cols ? 1 : V);
+    if (cols) {
+#pragma unroll
+      for (int sl = 0; sl < F; ++sl) {
+        qx[sl] = sl < S ? qb[sl * D] : 0.f;
+        gx[sl] = sl < S ? gb[sl * D] : 0.f;
+      }
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < kSlotBlock; ++s) {
+      const int sl = js * kSlotBlock + s;
+      const bool in = js < nsb && sl < S;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        qx[s * V + e] = in ? qb[sl * D + e] : 0.f;
+        gx[s * V + e] = in ? gb[sl * D + e] : 0.f;
+      }
+    }
+  };
 
   Tiles it = block_tiles(BN, N, T);
   for (int i = 0; it.valid(); ++i, it.next()) {
     const int b = it.b(), count = it.count();
-    if (b != row) {   // a new row: q and g_av into shared memory
+    if (b != row) {   // a new row: g_av into shared memory, the item's into registers
       consumer_sync();
-      load_heads<V>(qh, q + static_cast<size_t>(b) * S * D, S, D, H);
-      load_heads<V>(gh, g_av + static_cast<size_t>(b) * S * D, S, D, H);
+      const float* gb = g_av + static_cast<size_t>(b) * S * D;
+      for (int e = tid; e < S * D; e += kConsumers) sg[e] = gb[e];
+      if (kept) item_rows(b, cv, sb, qc, gc);
       consumer_sync();
       row = b;
     }
@@ -1151,70 +1689,60 @@ heads_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
     float* sdl = sdl0 + (i & 1) * T * HSP;   // two buffers: the next tile's
     float* sa = sa0 + (i & 1) * T * HSP;     // writes race no reader of these
 
-    // da = v . g_av per head + g_a, then dl = a (da - sum_j da_j a_j)
-    for (int t0 = warp; t0 < count; t0 += kWarps * kTok)
-      head_dots<V>(vt, gh, sdl, t0, count, D, hd, S, SP, HSP, lane);
+    // da = v . g_av per head (this warp's tokens), then dl
+    const TileOut out{sdl, sa, nullptr, at, gat, S, SP, HS, HSP};
+    warp_logits<V, GH, M, false>(vt, sg, out, count, D, hd, H, S, warp, lane, x_lane);
     __syncwarp();
-    for (int t = warp; t < count; t += kWarps) {
-      float inner = 0.f;
-      for (int j = lane; j < HS; j += 32) {
-        const int x = at_logit(t, j, S, SP, HSP);
-        const float aj = at[t * HS + j], da = sdl[x] + gat[t * HS + j];
-        sdl[x] = da;
-        sa[x] = aj;
-        inner = fmaf(da, aj, inner);
-      }
-      inner = warp_sum(inner);
-      for (int j = lane; j < HS; j += 32) {
-        const int x = at_logit(t, j, S, SP, HSP);
-        sdl[x] = sa[x] * (sdl[x] - inner);
-      }
-    }
     consumer_sync();
 
-    // gk, gv of columns tid, tid + 256, ...; gq's sums into the partial
+    // gk, gv and gq's sums of the column items
     float* p = partial + (static_cast<size_t>(blockIdx.x) + b) * (static_cast<size_t>(S) * D);
-    for (int c = tid; c < D; c += kConsumers) {
-      const int h = c / hd, cc = c - h * hd;
-      const float* qc_at = qh + (cc / V) * HS * V + h * S * V + cc % V;
-      const float* gc_at = gh + (qc_at - qh);
-      float qc[SM], gc[SM], acc[SM];
+    const long long g0 = it.pos * D;
+    if (cols && groups > 0) {
+      const int w_at = (cv / hd) * SP;
+      col_tokens<F>(kt + cv, sdl + w_at, sa + w_at, gk + g0 + cv, gv + g0 + cv, D, HSP, tg,
+                    groups, count, kept, qc, gc, keep, S);
+    } else if (cols) {   // the scratch variant, a column at a time
+      for (int j = tid; j < items; j += kConsumers) {
 #pragma unroll
-      for (int s = 0; s < SM; ++s) {
-        qc[s] = s < S ? qc_at[s * V] : 0.f;
-        gc[s] = s < S ? gc_at[s * V] : 0.f;
-        acc[s] = 0.f;
+        for (int e = 0; e < F; ++e) keep[e] = 0.f;
+        item_rows(b, j, 0, qc, gc);
+        const int w_at = (j / hd) * SP;
+        col_tokens<F>(kt + j, sdl + w_at, sa + w_at, gk + g0 + j, gv + g0 + j, D, HSP, 0, 1,
+                      count, true, qc, gc, keep, S);
+        flush_col<F>(p, keep, S, D, j, !fresh);
       }
-      const float* dlr = sdl + h * SP;
-      const float* ar = sa + h * SP;
-#pragma unroll 2
-      for (int t = 0; t < count; ++t) {
-        const float x = kt[t * D + c];
-        const float4* dl4 = reinterpret_cast<const float4*>(dlr + t * HSP);
-        const float4* a4 = reinterpret_cast<const float4*>(ar + t * HSP);
-        float gkx[4] = {0.f, 0.f, 0.f, 0.f}, gvx[4] = {0.f, 0.f, 0.f, 0.f};
+    } else if (groups > 0) {   // every consumer thread (the shuffles), the kept ones live
+      const int w_at = (cv * V / hd) * SP + (sb < nsb ? sb : 0) * kSlotBlock;
+      bwd_tokens<V>(kt + cv * V, sdl + w_at, sa + w_at, gk + g0 + cv * V,
+                    gv + g0 + cv * V, D, HSP, tg < groups ? tg : 0, groups, count, kept, qc,
+                    gc, keep, sb, nl);
+    } else {
+      // the scratch variant: qc, gc and keep hold one item's rows and sums
+      // at a time; every lane of a warp goes round together
+      for (int j0 = 0; j0 < items; j0 += kConsumers) {
+        const int j = j0 + tid;
+        const bool live = j < items;
+        const int jc = live ? j / nl : 0, js = live ? j - jc * nl : 0;
 #pragma unroll
-        for (int s4 = 0; s4 < SM / 4; ++s4) {
-          if (4 * s4 < S) {
-            const float4 d = dl4[s4], f = a4[s4];
-            const float dv[4] = {d.x, d.y, d.z, d.w}, av[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              gkx[e] = fmaf(dv[e], qc[4 * s4 + e], gkx[e]);
-              gvx[e] = fmaf(av[e], gc[4 * s4 + e], gvx[e]);
-              acc[4 * s4 + e] = fmaf(dv[e], x, acc[4 * s4 + e]);
-            }
-          }
-        }
-        const long long at_t = (it.pos + t) * D + c;
-        gk[at_t] = (gkx[0] + gkx[1]) + (gkx[2] + gkx[3]);
-        gv[at_t] = (gvx[0] + gvx[1]) + (gvx[2] + gvx[3]);
+        for (int e = 0; e < F; ++e) keep[e] = 0.f;
+        item_rows(b, jc, js, qc, gc);
+        const int w_at = (jc * V / hd) * SP + (js < nsb ? js : 0) * kSlotBlock;
+        bwd_tokens<V>(kt + jc * V, sdl + w_at, sa + w_at, gk + g0 + jc * V,
+                      gv + g0 + jc * V, D, HSP, 0, 1, count, live, qc, gc, keep, js, nl);
+        if (live && js < nsb) flush_item<V, false>(p, keep, S, D, hd, jc, js, !fresh);
       }
-#pragma unroll
-      for (int s = 0; s < SM; ++s)
-        if (s < S) add_partial(p + s * D + c, acc[s], fresh);
     }
     release(&empty[st]);
+
+    if (it.ends_segment() && groups > 0) {   // this block's partial of row b
+      if (groups > 1) sum_groups<F>(keep, sdl0, region, items, item, tg, groups, kept);
+      if (kept && tg == 0 && cols) flush_col<F>(p, keep, S, D, cv, false);
+      if (kept && tg == 0 && !cols && sb < nsb)
+        flush_item<V, false>(p, keep, S, D, hd, cv, sb, false);
+#pragma unroll
+      for (int e = 0; e < F; ++e) keep[e] = 0.f;
+    }
     fresh = it.ends_segment();
   }
 }
@@ -1224,65 +1752,84 @@ bool heads_shape_ok(int B, int N, int S, int D, int H, int max_blocks) {
          D % H == 0 && max_blocks > 0;
 }
 
-// The heads kernels' tile and stages: the largest tile whose ring fits
-// (the backward with 3 stages where they fit, else 2), or T = 0.
-struct Plan {
-  int T, stages;
+// The heads kernels' plan for one shape (see the note above): the tile and
+// stages, the lanes of a logits job, the floats of a chunk, the column items
+// and their token groups (0: the scratch variant); T = 0 where nothing fits.
+struct HeadsPlan {
+  int T, stages, lanes, V, items, groups;
 };
 
-Plan heads_fwd_plan(int S, int D, int H) {
+HeadsPlan heads_plan(int S, int D, int H, bool fwd) {
+  HeadsPlan p{};
+  const int hd = D / H;
+  p.V = hd % 4 == 0 ? 4 : 1;
+  p.lanes = H * slot_blocks(S) >= 4 || hd / p.V < kNarrowHead ? kNarrowLanes : kWideLanes;
+  p.items = fwd ? D / p.V * slot_blocks(S)
+                : p.V == 4 && S > 2 * kSlotBlock ? D : D / p.V * lane_blocks(S);
+  const int fill = p.items <= kConsumers ? kConsumers / p.items : 0;
+  const int kept = fill < kMaxGroups ? fill : kMaxGroups;   // token groups
+  const int fwd_stages[] = {kHeadsFwdStages};
+  const int* stage_list = fwd ? fwd_stages : kHeadsBwdStages;
+  const int n_stages = fwd ? 1 : 2;
+  const int variants[] = {kept, 0};          // the registers variant first
   const size_t limit = smem_limit();
   for (int T : kHeadsTiles)
-    if (heads_fwd_smem_bytes(S, D, H, T, kHeadsFwdStages) <= limit)
-      return {T, kHeadsFwdStages};
-  return {0, 0};
+    for (int n = 0; n < n_stages; ++n)
+      for (int groups : variants) {
+        const int red = groups > 1 ? (groups - 1) * p.items * item_floats(p.V, fwd) : 0;
+        const size_t bytes = fwd ? heads_fwd_smem_bytes(S, D, H, T, stage_list[n], red)
+                                 : heads_bwd_smem_bytes(S, D, H, T, stage_list[n], red);
+        if (bytes <= limit) {
+          p.T = T;
+          p.stages = stage_list[n];
+          p.groups = groups;
+          return p;
+        }
+      }
+  p.T = 0;
+  return p;
 }
 
-Plan heads_bwd_plan(int S, int D, int H) {
-  const size_t limit = smem_limit();
-  for (int T : kHeadsTiles)
-    for (int stages : kHeadsBwdStages)
-      if (heads_bwd_smem_bytes(S, D, H, T, stages) <= limit) return {T, stages};
-  return {0, 0};
+size_t heads_bytes(int S, int D, int H, const HeadsPlan& p, bool fwd) {
+  const int red = p.groups > 1 ? (p.groups - 1) * p.items * item_floats(p.V, fwd) : 0;
+  return fwd ? heads_fwd_smem_bytes(S, D, H, p.T, p.stages, red)
+             : heads_bwd_smem_bytes(S, D, H, p.T, p.stages, red);
 }
 
-template <int SM, int V>
-cudaError_t launch_heads_fwd(const float* k, const float* v, const float* q, float* a,
-                             float* sa, float* av, float* scratch, int B, int N,
-                             int S, int D, int H, int max_blocks,
-                             cudaStream_t stream) {
-  const Plan plan = heads_fwd_plan(S, D, H);
-  if (plan.T == 0) return cudaErrorInvalidValue;
+template <int V, int GH>
+cudaError_t launch_heads_fwd(const HeadsPlan& plan, const float* k, const float* v,
+                             const float* q, float* a, float* sa, float* av,
+                             float* scratch, int B, int N, int S, int D, int H,
+                             int max_blocks, cudaStream_t stream) {
   const int G = blocks(B, N, plan.T, max_blocks);
-  const size_t smem = heads_fwd_smem_bytes(S, D, H, plan.T, plan.stages);
-  cudaError_t err = cudaFuncSetAttribute(heads_fwd_kernel<SM, V>,
+  const size_t smem = heads_bytes(S, D, H, plan, true);
+  cudaError_t err = cudaFuncSetAttribute(heads_fwd_kernel<V, GH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  heads_fwd_kernel<SM, V><<<G, kThreads, smem, stream>>>(k, v, q, a, scratch, B, N, S,
-                                                         D, H, plan.T, plan.stages);
+  heads_fwd_kernel<V, GH><<<G, kHeadsThreads, smem, stream>>>(
+      k, v, q, a, scratch, B, N, S, D, H, plan.T, plan.stages, plan.groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(scratch, av, sa, S * D + padded(H * S), S * D, H * S, B, N, G,
                        stream);
 }
 
-template <int SM, int V>
-cudaError_t launch_heads_bwd(const float* k, const float* v, const float* a,
-                             const float* q, const float* g_av, const float* g_a,
-                             float* gk, float* gv, float* gq, float* scratch, int B,
-                             int N, int S, int D, int H, int max_blocks,
-                             cudaStream_t stream) {
-  const Plan plan = heads_bwd_plan(S, D, H);
-  if (plan.T == 0) return cudaErrorInvalidValue;
+template <int V, int GH>
+cudaError_t launch_heads_bwd(const HeadsPlan& plan, const float* k, const float* v,
+                             const float* a, const float* q, const float* g_av,
+                             const float* g_a, float* gk, float* gv, float* gq,
+                             float* scratch, int B, int N, int S, int D, int H,
+                             int max_blocks, cudaStream_t stream) {
   const int G = blocks(B, N, plan.T, max_blocks);
-  const size_t smem = heads_bwd_smem_bytes(S, D, H, plan.T, plan.stages);
-  cudaError_t err = cudaFuncSetAttribute(heads_bwd_kernel<SM, V>,
+  const size_t smem = heads_bytes(S, D, H, plan, false);
+  cudaError_t err = cudaFuncSetAttribute(heads_bwd_kernel<V, GH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  heads_bwd_kernel<SM, V><<<G, kThreads, smem, stream>>>(
-      k, v, a, q, g_av, g_a, gk, gv, scratch, B, N, S, D, H, plan.T, plan.stages);
+  heads_bwd_kernel<V, GH><<<G, kHeadsThreads, smem, stream>>>(
+      k, v, a, q, g_av, g_a, gk, gv, scratch, B, N, S, D, H, plan.T, plan.stages,
+      plan.groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(scratch, gq, nullptr, S * D, S * D, 0, B, N, G, stream);
@@ -1290,16 +1837,16 @@ cudaError_t launch_heads_bwd(const float* k, const float* v, const float* a,
 
 }  // namespace
 
-// The heads kernels' instantiations: the bucket of S (8, 16 or 32) and V (4
-// where the head width is a multiple of 4, else 1).
-#define OCRL_HEADS_DISPATCH(FN, ...)                                         \
-  const bool v4 = (D / H) % 4 == 0;                                          \
-  if (S <= 8)                                                                \
-    return static_cast<int>(v4 ? FN<8, 4>(__VA_ARGS__) : FN<8, 1>(__VA_ARGS__)); \
-  if (S <= 16)                                                               \
-    return static_cast<int>(v4 ? FN<16, 4>(__VA_ARGS__)                      \
-                               : FN<16, 1>(__VA_ARGS__));                    \
-  return static_cast<int>(v4 ? FN<32, 4>(__VA_ARGS__) : FN<32, 1>(__VA_ARGS__))
+// The heads kernels' instantiations: V (4 where the head width is a multiple
+// of 4, else 1) and the lanes of a logits job (4 or 32), from the plan.
+#define OCRL_HEADS_DISPATCH(FN, ...)                                           \
+  if (plan.V == 4)                                                             \
+    return static_cast<int>(plan.lanes == kWideLanes                           \
+                                ? FN<4, kWideLanes>(plan, __VA_ARGS__)         \
+                                : FN<4, kNarrowLanes>(plan, __VA_ARGS__));     \
+  return static_cast<int>(plan.lanes == kWideLanes                             \
+                              ? FN<1, kWideLanes>(plan, __VA_ARGS__)           \
+                              : FN<1, kNarrowLanes>(plan, __VA_ARGS__))
 
 #define OCRL_SWEEP_CASES(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) \
@@ -1357,9 +1904,8 @@ extern "C" int slot_routing_bwd(const float* k, const float* v, const float* a,
 // D]; scratch: [min(max_blocks, B * N) + B, S * D + H S rounded up to 4].
 // All fp32, contiguous, 16-byte aligned, on the current device. k holds each
 // head's columns pre-scaled by (D / H)^-0.5. 1 <= S <= 32, H dividing D,
-// and a ring of one token that fits the card's shared memory
-// (heads_fwd_smem_bytes, heads_bwd_smem_bytes); returns the CUDA error code
-// of the launches (0 = none).
+// and a ring of one token that fits the card's shared memory (heads_plan);
+// returns the CUDA error code of the launches (0 = none).
 extern "C" int slot_routing_heads_fwd(const float* k, const float* v,
                                       const float* q, float* a, float* sa,
                                       float* av, float* scratch, int B, int N,
@@ -1367,6 +1913,8 @@ extern "C" int slot_routing_heads_fwd(const float* k, const float* v,
                                       void* stream) {
   if (!heads_shape_ok(B, N, S, D, H, max_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
+  const HeadsPlan plan = heads_plan(S, D, H, true);
+  if (plan.T == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   OCRL_HEADS_DISPATCH(launch_heads_fwd, k, v, q, a, sa, av, scratch, B, N, S, D, H,
                       max_blocks, st);
@@ -1383,7 +1931,28 @@ extern "C" int slot_routing_heads_bwd(const float* k, const float* v,
                                       int H, int max_blocks, void* stream) {
   if (!heads_shape_ok(B, N, S, D, H, max_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
+  const HeadsPlan plan = heads_plan(S, D, H, false);
+  if (plan.T == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   OCRL_HEADS_DISPATCH(launch_heads_bwd, k, v, a, q, g_av, g_a, gk, gv, gq, scratch, B,
                       N, S, D, H, max_blocks, st);
+}
+
+// The plans the heads entries choose on the current device for S slots of
+// width D in H heads: plan[0..6) tile, stages, lanes of a logits job, floats
+// of a chunk, column items and token groups (0: the scratch variant) of the
+// forward, plan[6..12) of the backward, and plan[12], plan[13] the shared
+// memory of each in bytes. Returns cudaErrorInvalidValue, writing nothing,
+// where the entries refuse the shape.
+extern "C" int slot_routing_heads_plan(int S, int D, int H, int* plan) {
+  if (!heads_shape_ok(1, 1, S, D, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const HeadsPlan fwd = heads_plan(S, D, H, true), bwd = heads_plan(S, D, H, false);
+  if (fwd.T == 0 || bwd.T == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int i = 0;
+  for (const HeadsPlan& p : {fwd, bwd}) {
+    for (int x : {p.T, p.stages, p.lanes, p.V, p.items, p.groups}) plan[i++] = x;
+  }
+  plan[12] = static_cast<int>(heads_bytes(S, D, H, fwd, true));
+  plan[13] = static_cast<int>(heads_bytes(S, D, H, bwd, false));
+  return 0;
 }

@@ -21,14 +21,16 @@ gradient is autograd's. Two C entries of the same source compute it:
 up to 256 (the path of every config in configs/), and
 ``slot_routing_heads_fwd`` for the rest, ``sweep_supports``: 1 <= S <= 32,
 H dividing D, and a ring of one token that fits the card's shared memory
-(``needed_bytes``: every H <= 8 and D <= 512 fits). Each entry computes all
+(``needed_bytes``: every H <= 8 and D <= 1536 fits). Each entry computes all
 three outputs itself: a persistent grid of at most one block per SM cuts
 the B * N tokens into equal contiguous ranges and walks each in tiles (the
-C entry chooses the tile, from the shared memory it needs); every block
-keeps one partial of ``S_a`` and ``A_v`` per batch row it touches, in a
-scratch slot that the wrapper allocates (``scratch_rows``), and a second
-kernel of the same C entry sums each row's slots in block order (no
-atomics: bitwise equal from run to run). On CUDA the gradient is the
+C entry chooses the tile, from the shared memory it needs, and for the
+heads kernels the rest of its plan: ``heads_plan`` mirrors it, and
+``card_plans`` asks the C entry); every block keeps one partial of ``S_a``
+and ``A_v`` per batch row it touches, in a scratch slot that the wrapper
+allocates (``scratch_rows``), and a second kernel of the same C entry sums
+each row's slots in block order (no atomics: bitwise equal from run to
+run). On CUDA the gradient is the
 backward kernel of the same entry's pair (``slot_routing_bwd`` /
 ``slot_routing_heads_bwd``), as ``torch.autograd.Function``: it takes the
 saved (k, v, q, a) and the cotangents, with that of ``S_a`` folded into that
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -69,18 +72,52 @@ KERNEL = "slot_routing_fwd"
 BWD_KERNEL = "slot_routing_bwd"
 HEADS_KERNEL = "slot_routing_heads_fwd"
 HEADS_BWD_KERNEL = "slot_routing_heads_bwd"
+HEADS_PLAN = "slot_routing_heads_plan"
 FAST_SLOTS, FAST_WIDTH = 16, 256   # one head: one feature column per consumer thread
-MAX_SLOTS = 32                     # the heads kernels: a column's S slots in registers
-# The heads kernels' tiles and stages (csrc/slot_routing.cu kHeadsTiles,
-# kHeadsFwdStages, kHeadsBwdStages) and the shared memory a block may use on
-# Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+MAX_SLOTS = 32                     # the heads kernels: up to 4 blocks of 8 slots
+# The heads kernels' plan (csrc/slot_routing.cu heads_plan): tiles, stages,
+# slots of a logits job and of a column item, the lanes of a logits job, and
+# the shared memory a block may use on Hopper
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
 HEADS_TILES = (64, 48, 32, 24, 16, 8, 4, 2, 1)
 HEADS_FWD_STAGES, HEADS_BWD_STAGES = 2, (3, 2)
+SLOT_BLOCK = 8
+NARROW_LANES, WIDE_LANES, NARROW_HEAD = 4, 32, 16
+CONSUMERS, MAX_GROUPS = 256, 16
 SMEM_LIMIT = 232448
+
+
+class HeadsPlan(NamedTuple):
+    """What a heads C entry chooses for a shape: tokens a tile, tiles in the
+    ring, lanes of a logits job (4: 4 tokens a job; 32: 8 in the forward,
+    4 in the backward), floats a chunk (4 where the head width is a multiple
+    of 4), column items (chunks x slot blocks, the backward's padded to 1, 2
+    or 4 lanes) and their token groups: 0 is the scratch variant (items
+    looped, partials added in the scratch each tile), else the registers
+    variant (partials kept in registers across tiles)."""
+    T: int
+    stages: int
+    lanes: int
+    V: int
+    items: int
+    groups: int
 
 
 def _padded(S: int) -> int:
     return -(-S // 4) * 4
+
+
+def _padded8(S: int) -> int:
+    return -(-S // SLOT_BLOCK) * SLOT_BLOCK
+
+
+def _slot_blocks(S: int) -> int:
+    return -(-S // SLOT_BLOCK)
+
+
+def _lane_blocks(S: int) -> int:
+    n = _slot_blocks(S)
+    return 1 if n == 1 else 2 if n == 2 else 4
 
 
 def _span(T: int, X: int) -> int:
@@ -89,21 +126,62 @@ def _span(T: int, X: int) -> int:
     return (T * X + 6 + 3) & ~3
 
 
-def heads_fwd_bytes(S: int, D: int, H: int, T: int, stages: int = HEADS_FWD_STAGES) -> int:
-    """Shared memory of a heads forward block (csrc: heads_fwd_smem_bytes)."""
-    return 128 + 4 * (stages * 2 * _span(T, D) + _padded(S * D) + 2 * T * H * _padded(S))
+def heads_fwd_bytes(S: int, D: int, H: int, T: int, stages: int = HEADS_FWD_STAGES,
+                    red: int = 0) -> int:
+    """Shared memory of a heads forward block (csrc: heads_fwd_smem_bytes):
+    the ring of k and v, q of the row, and two [T, H, S rounded up to 8]
+    logits buffers, whose region the token groups' ``red`` floats share."""
+    return 128 + 4 * (stages * 2 * _span(T, D) + _padded(S * D)
+                      + max(2 * T * H * _padded8(S), red))
 
 
-def heads_bwd_bytes(S: int, D: int, H: int, T: int, stages: int) -> int:
-    """Shared memory of a heads backward block (csrc: heads_bwd_smem_bytes)."""
-    return 128 + 4 * (stages * (2 * _span(T, D) + 2 * _span(T, H * S)) + 2 * _padded(S * D)
-                      + 4 * T * H * _padded(S))
+def heads_bwd_bytes(S: int, D: int, H: int, T: int, stages: int, red: int = 0) -> int:
+    """Shared memory of a heads backward block (csrc: heads_bwd_smem_bytes):
+    the ring of k, v, a and g_a, g_av of the row, and four buffers of dl and
+    a, whose region the token groups' ``red`` floats share."""
+    return 128 + 4 * (stages * (2 * _span(T, D) + 2 * _span(T, H * S)) + _padded(S * D)
+                      + max(4 * T * H * _padded8(S), red))
+
+
+def heads_plan(S: int, D: int, H: int, fwd: bool = True) -> HeadsPlan | None:
+    """The plan of the heads forward (or backward) C entry, as
+    csrc/slot_routing.cu heads_plan chooses it, or None where it refuses the
+    shape: the largest tile whose ring fits (the backward with 3 stages where
+    they fit), the registers variant where its token groups' buffer fits too,
+    else the scratch variant."""
+    hd = D // H
+    V = 4 if hd % 4 == 0 else 1
+    lanes = NARROW_LANES if H * _slot_blocks(S) >= 4 or hd // V < NARROW_HEAD \
+        else WIDE_LANES
+    columns = V == 4 and S > 2 * SLOT_BLOCK   # the backward's column layout
+    items = D // V * _slot_blocks(S) if fwd else D if columns else D // V * _lane_blocks(S)
+    kept = min(CONSUMERS // items, MAX_GROUPS) if items <= CONSUMERS else 0
+    per_item = SLOT_BLOCK * V + (SLOT_BLOCK if fwd else 0)
+    size = heads_fwd_bytes if fwd else heads_bwd_bytes
+    for T in HEADS_TILES:
+        for stages in (HEADS_FWD_STAGES,) if fwd else HEADS_BWD_STAGES:
+            for groups in (kept, 0):
+                red = (groups - 1) * items * per_item if groups > 1 else 0
+                if size(S, D, H, T, stages, red) <= SMEM_LIMIT:
+                    return HeadsPlan(T, stages, lanes, V, items, groups)
+    return None
+
+
+# Shapes (S, H, D) whose plans between them take every tile, stage count,
+# chunk width, lane count, variant and backward layout that heads_plan
+# chooses over slots 1-32, heads 1-8 and widths up to 2100
+# (tests/test_torch_ops.py holds the claim; tests/test_torch_cuda.py
+# launches each on the card).
+PLAN_SHAPES = ((1, 1, 1), (1, 1, 17), (1, 1, 68), (1, 2, 888), (1, 3, 441), (1, 4, 128),
+               (1, 4, 1744), (1, 8, 200), (1, 8, 272), (1, 8, 576), (3, 8, 2096), (8, 3, 246),
+               (12, 1, 2072), (16, 8, 1984), (17, 1, 64), (17, 1, 132), (17, 1, 868),
+               (24, 4, 32), (24, 8, 1792), (24, 8, 1872), (25, 8, 8), (25, 8, 160))
 
 
 def needed_bytes(S: int, D: int, H: int) -> int:
     """The shared memory the heads kernels need at their smallest ring (one
-    token, two stages): the C entries refuse a shape over SMEM_LIMIT and
-    otherwise choose the largest tile of HEADS_TILES that fits."""
+    token, two stages, the scratch variant): the C entries refuse a shape
+    over SMEM_LIMIT and otherwise plan it (heads_plan)."""
     return max(heads_fwd_bytes(S, D, H, 1), heads_bwd_bytes(S, D, H, 1, 2))
 
 
@@ -197,6 +275,7 @@ _ARGTYPES = {   # pointers, then B, N, S, D (and H), max_blocks, then the stream
     BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     HEADS_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     HEADS_BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    HEADS_PLAN: [ctypes.c_int] * 3 + [ctypes.c_void_p],   # S, D, H, the 14 ints out
 }
 
 
@@ -208,6 +287,18 @@ def _entry(name: str):
 @functools.cache
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_plans(S: int, D: int, H: int, device: torch.device | None = None):
+    """(forward plan, backward plan, their shared memory in bytes) that the
+    heads C entries choose on ``device``'s card for S slots of width D in H
+    heads (csrc: slot_routing_heads_plan); raises where they refuse it."""
+    out = (ctypes.c_int * 14)()
+    with torch.cuda.device(device):
+        err = _entry(HEADS_PLAN)(S, D, H, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"route_sweep: the heads kernels refuse S={S}, D={D}, heads={H}")
+    return HeadsPlan(*out[:6]), HeadsPlan(*out[6:12]), out[12], out[13]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

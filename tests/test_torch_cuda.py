@@ -21,7 +21,8 @@ CPU, end to end and frozen. With ``ocr.amp=bf16`` the conv blocks output
 bf16 on the card and one step is held against the CPU's bf16 and fp32
 steps (chip_smoke.check_amp_step). The heads kernels take every head count
 up to 8, every S up to 32 and D of 21, 100 and 512, under torch.func.vmap
-too, and SlotAttention's three routes behave on the card as on the CPU."""
+too, every tile and variant of their plan (ops.slot_routing.PLAN_SHAPES),
+and SlotAttention's three routes behave on the card as on the CPU."""
 
 import math
 
@@ -259,6 +260,40 @@ def test_heads_kernels_are_deterministic_on_the_card(cuda, shape):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
     assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,D", tsr.PLAN_SHAPES)
+def test_heads_plans_launch_every_tile_and_variant_on_the_card(cuda, S, H, D):
+    """PLAN_SHAPES take between them every tile, stage count, chunk width,
+    lane count and variant of the heads plan. At each, the plans the C
+    entries choose on the card equal the wrapper's mirror, and B3' and B4'
+    over 2 rows of 2 T + 5 tokens (tiles and rows that end off 16-byte
+    boundaries, blocks that meet two rows) match the plain sweep and its
+    autograd within 1e-5 of each output's largest entry, and a second
+    launch gives bitwise the same outputs."""
+    fwd, bwd, _, _ = tsr.card_plans(S, D, H)
+    assert (fwd, bwd) == (tsr.heads_plan(S, D, H, True), tsr.heads_plan(S, D, H, False))
+    B, N = 2, 2 * max(fwd.T, bwd.T) + 5
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k, v, q = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, N, D), (B, N, D), (B, S, D)))
+    k = k * (D // H) ** -0.5
+    cot = [torch.randn(s, device="cuda", generator=gen)
+           for s in ((B, H * S), (B, S, D), (B, N, H * S))]
+    reset_launches()
+    outs = tsr.route_sweep(k, v, q, H)
+    g_a = (cot[2] + cot[0][:, None, :]).contiguous()
+    grads = tsr._sweep_bwd(k, v, q, outs[2], cot[1], g_a, H)
+    assert LAUNCHES == {tsr.HEADS_KERNEL: 1, tsr.HEADS_BWD_KERNEL: 1}
+    plain = [x.clone().requires_grad_() for x in (k, v, q)]
+    want_outs = tsr.route_sweep_reference(*plain, H)
+    want = torch.autograd.grad(want_outs, plain, cot)
+    again = (*tsr.route_sweep(k, v, q, H), *tsr._sweep_bwd(k, v, q, outs[2], cot[1], g_a, H))
+    torch.cuda.synchronize()
+    for g, w, y in zip((*outs, *grads), (*want_outs, *want), again):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+        assert torch.equal(g, y)
 
 
 @pytest.mark.cuda

@@ -137,24 +137,25 @@ def test_plan_covers_any_n(B, N, num_sms):
 
 
 def heads_plan(S: int, D: int, H: int):
-    """The tile of the heads forward and (tile, stages) of the heads
-    backward that the C entries choose (csrc/slot_routing.cu heads_fwd_plan,
-    heads_bwd_plan): the largest tile whose ring fits, the backward with 3
-    stages where they fit."""
-    fits = [(T, n) for T in tsr.HEADS_TILES for n in tsr.HEADS_BWD_STAGES
-            if tsr.heads_bwd_bytes(S, D, H, T, n) <= tsr.SMEM_LIMIT]
-    return next(T for T in tsr.HEADS_TILES
-                if tsr.heads_fwd_bytes(S, D, H, T) <= tsr.SMEM_LIMIT), fits[0]
+    """(tile, stages) of the heads forward and of the heads backward that
+    the C entries choose (csrc/slot_routing.cu heads_plan, mirrored by
+    ops.slot_routing.heads_plan)."""
+    f, b = tsr.heads_plan(S, D, H, True), tsr.heads_plan(S, D, H, False)
+    return (f.T, f.stages), (b.T, b.stages)
 
 
 def test_sweep_supports_and_tiles():
     """The single-head kernels take 1 <= S <= 16 and D a multiple of 32 up
     to 256 (fast_path); the heads kernels take the rest of 1 <= S <= 32 with
     H dividing D where their smallest ring fits a Hopper block's shared
-    memory: everywhere with H <= 8 and D <= 512 (each C entry then chooses
+    memory: everywhere with H <= 8 and D <= 1536 (each C entry then chooses
     a tile that fits: the card-only tests launch every S at the narrowest
-    and widest D, and H up to 8 at D = 21, 100 and 512); route_sweep rejects
-    the rest before any launch, naming the bytes a shape needs."""
+    and widest D, H up to 8 at D = 21, 100 and 512, and every plan of
+    PLAN_SHAPES); route_sweep rejects the rest before any launch, naming the
+    bytes a shape needs. Each plan is the largest tile whose ring fits (the
+    backward with 3 stages where they fit), in the registers variant where
+    the column items fill at most 256 threads and their token groups' buffer
+    fits too."""
     for S in range(0, 35):
         for H in (1, 2, 3, 4, 8, 16):
             for D in range(1, 600, 1 if S in (1, 17, 32) else 7):
@@ -162,22 +163,100 @@ def test_sweep_supports_and_tiles():
                 heads = 1 <= S <= 32 and D % H == 0
                 assert tsr.fast_path(S, D, H) == fast, (S, D, H)
                 assert tsr.sweep_supports(S, D, H) == (fast or heads), (S, D, H)
-    for S, D, H, fits in [(32, 512, 8, True), (32, 768, 8, True), (32, 1024, 8, False),
-                          (16, 1024, 8, True), (5, 4096, 1, True), (5, 8192, 1, False),
-                          (1, 4096, 64, True)]:
+    for S, D, H, fits in [(32, 512, 8, True), (32, 1536, 8, True), (32, 2048, 8, False),
+                          (16, 1024, 8, True), (16, 4096, 8, False), (5, 4096, 1, True),
+                          (5, 8192, 1, False), (1, 4096, 64, True)]:
         assert tsr.sweep_supports(S, D, H) == fits, (S, D, H)
         assert (tsr.needed_bytes(S, D, H) <= tsr.SMEM_LIMIT) == fits, (S, D, H)
     # the tiles the C entries choose where they have room, and at the corner
-    assert heads_plan(5, 192, 4) == (64, (48, 2))
-    assert heads_plan(24, 256, 1) == (48, (32, 2))
-    assert heads_plan(32, 512, 8) == (16, (4, 3))
-    with pytest.raises(ValueError, match="needs 565632 bytes"):
+    assert heads_plan(5, 192, 4) == ((64, 2), (48, 2))
+    assert heads_plan(24, 256, 1) == ((48, 2), (32, 2))
+    assert heads_plan(7, 100, 1) == ((64, 2), (64, 3))
+    assert heads_plan(32, 512, 8) == ((16, 2), (8, 2))
+    # and the rest of each plan: lanes of a logits job, floats of a chunk,
+    # column items and token groups (0: the scratch variant)
+    P = tsr.HeadsPlan
+    assert tsr.heads_plan(5, 192, 4) == P(64, 2, 4, 4, 48, 5)
+    assert tsr.heads_plan(24, 256, 1, False) == P(32, 2, 32, 4, 256, 1)   # one column a thread
+    assert tsr.heads_plan(7, 100, 1) == P(64, 2, 32, 4, 25, 10)
+    assert tsr.heads_plan(32, 512, 8) == P(16, 2, 4, 4, 512, 0)
+    assert tsr.heads_plan(5, 21, 3, False) == P(64, 3, 4, 1, 21, 12)
+    for S, D, H in [(5, 192, 4), (24, 256, 1), (32, 512, 8), (5, 21, 3), (1, 4, 1)]:
+        for fwd, size in ((True, tsr.heads_fwd_bytes), (False, tsr.heads_bwd_bytes)):
+            p = tsr.heads_plan(S, D, H, fwd)
+            red = (p.groups - 1) * p.items * (8 * p.V + 8 * fwd) if p.groups > 1 else 0
+            assert size(S, D, H, p.T, p.stages, red) <= tsr.SMEM_LIMIT
+            bigger = [T for T in tsr.HEADS_TILES if T > p.T]
+            assert all(size(S, D, H, T, 2) > tsr.SMEM_LIMIT for T in bigger), (S, D, H)
+            assert 1 <= p.groups <= 16 if p.items <= 256 else p.groups == 0
+    with pytest.raises(ValueError, match="needs 303488 bytes"):
         tsr.route_sweep(torch.zeros(1, 3, 2048), torch.zeros(1, 3, 2048),
                         torch.zeros(1, 32, 2048), 8)
     k, v, q = torch.zeros(1, 3, 512), torch.zeros(1, 3, 512), torch.zeros(1, 32, 512)
     sa, av, a = tsr.route_sweep(k, v, q, 8)    # the corner of the range, on the CPU
     assert sa.shape == (1, 256) and av.shape == (1, 32, 512) and a.shape == (1, 3, 256)
     torch.testing.assert_close(sa, torch.full((1, 256), 3 / 256))
+
+
+def first_design_bytes(S: int, D: int, H: int) -> int:
+    """The shared memory the first heads kernels needed at their
+    smallest ring, kept as the record of the shapes they took: one token,
+    two stages, q and g_av of the row both in shared memory, logits at S
+    rounded up to 4."""
+    def span(T, X):
+        return (T * X + 9) & ~3
+
+    def pad4(x):
+        return -(-x // 4) * 4
+    HSP = H * pad4(S)
+    fwd = 128 + 4 * (2 * 2 * span(1, D) + pad4(S * D) + 2 * HSP)
+    bwd = 128 + 4 * (2 * (2 * span(1, D) + 2 * span(1, H * S)) + 2 * pad4(S * D) + 4 * HSP)
+    return max(fwd, bwd)
+
+
+def test_heads_kernels_take_every_shape_the_first_design_took():
+    """No shape the first heads kernels took is refused now: every S up to
+    32, H dividing D, at every D up to the largest the first design fitted
+    (each H of 1-8, 12, 16, 64, all D at its edge), and every H <= 8, S <=
+    32, D <= 512."""
+    for S in range(1, 33):
+        for H in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 64):
+            D = H
+            while first_design_bytes(S, D + H, H) <= tsr.SMEM_LIMIT:
+                D += H
+            edge = range(max(H, D - 8 * H), D + 1, H)
+            for d in (*range(H, D + 1, H * 37), *edge):
+                assert first_design_bytes(S, d, H) <= tsr.SMEM_LIMIT
+                assert tsr.sweep_supports(S, d, H), (S, d, H)
+                assert tsr.heads_plan(S, d, H, True) and tsr.heads_plan(S, d, H, False)
+            if H <= 8:
+                for d in range(H, 513, H):
+                    assert tsr.sweep_supports(S, d, H), (S, d, H)
+
+
+def test_plan_shapes_cover_every_choice_of_the_plan():
+    """PLAN_SHAPES, which the card-only tests launch, take between them every
+    forward tile, backward (tile, stages), and (chunk floats, lanes,
+    variant) of each kernel that the plan chooses over S in 1-32, H in
+    1-8 and D up to 2100 (the variant: scratch, registers with one token
+    group, registers with more; the backward's layout too: slot blocks, or
+    past 16 slots at V = 4 one column with all its slots a thread)."""
+    def choices(S, D, H):
+        f, b = tsr.heads_plan(S, D, H, True), tsr.heads_plan(S, D, H, False)
+        kind = [("scratch", "one", "groups")[min(p.groups, 2)] for p in (f, b)]
+        layout = "columns" if b.V == 4 and S > 2 * tsr.SLOT_BLOCK else "slot blocks"
+        return {("fwd", f.V, f.lanes, kind[0]), ("bwd", b.V, b.lanes, kind[1], layout),
+                ("fwd", f.T, f.stages), ("bwd", b.T, b.stages)}
+
+    every = set()
+    for S in (1, 3, 5, 8, 9, 12, 16, 17, 24, 25, 32):
+        for H in (1, 2, 3, 4, 8):
+            for D in range(H, 2100, H):
+                if not tsr.fast_path(S, D, H) and tsr.sweep_supports(S, D, H):
+                    every |= choices(S, D, H)
+    covered = set().union(*(choices(S, D, H) for S, H, D in tsr.PLAN_SHAPES))
+    assert covered == every, every - covered
+    assert {k[1] for k in every if k[0] == "fwd" and len(k) == 3} == set(tsr.HEADS_TILES)
 
 
 _CTYPE_OF = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
@@ -199,6 +278,8 @@ def _c_signatures(source: str) -> dict[str, list[str]]:
 
 @pytest.mark.parametrize("module,source,name", [
     (tsr, "slot_routing.cu", tsr.KERNEL), (tsr, "slot_routing.cu", tsr.BWD_KERNEL),
+    (tsr, "slot_routing.cu", tsr.HEADS_KERNEL), (tsr, "slot_routing.cu", tsr.HEADS_BWD_KERNEL),
+    (tsr, "slot_routing.cu", tsr.HEADS_PLAN),
     (tgumbel, "gumbel.cu", tgumbel.SOFT_KERNEL), (tgumbel, "gumbel.cu", tgumbel.IDS_KERNEL)])
 def test_ctypes_argtypes_match_the_c_signatures(module, source, name):
     """A wrong ctypes argtype shows only on the card (a pointer cut to 32

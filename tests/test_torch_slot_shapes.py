@@ -335,7 +335,8 @@ def test_past_the_kernels_range():
 
 def test_source_constants_match_the_wrapper():
     """ops.slot_routing mirrors the C entries' rules: the tiles, stage
-    counts and limits of csrc/slot_routing.cu's heads kernels."""
+    counts, slot blocks, lanes, token groups and limits of
+    csrc/slot_routing.cu's heads kernels and their plan."""
     text = (Path(tsr.__file__).parent / "csrc" / "slot_routing.cu").read_text()
 
     def const(name):
@@ -345,6 +346,12 @@ def test_source_constants_match_the_wrapper():
     assert int(const("kHeadsFwdStages")) == tsr.HEADS_FWD_STAGES
     assert const("kHeadsBwdStages") == "{" + ", ".join(map(str, tsr.HEADS_BWD_STAGES)) + "}"
     assert int(const("kHeadsMaxSlots")) == tsr.MAX_SLOTS
+    assert int(const("kSlotBlock")) == tsr.SLOT_BLOCK
+    assert int(const("kNarrowLanes")) == tsr.NARROW_LANES
+    assert int(const("kWideLanes")) == tsr.WIDE_LANES
+    assert int(const("kNarrowHead")) == tsr.NARROW_HEAD
+    assert int(const("kMaxGroups")) == tsr.MAX_GROUPS
+    assert int(const("kConsumers")) == tsr.CONSUMERS
     assert const("kFwdTiles") == "{64, 48, 32, 24, 16, 8}"
     assert int(const("kHeaderBytes")) == 128
 
