@@ -28,7 +28,11 @@ Phases, each printing its own line with its seconds:
    version with its bound and a second launch bitwise equal, after the plan
    each C entry chooses there (tile, stages, lanes, chunk, column items and
    token groups or the scratch variant; slot_routing_heads_plan), which
-   must equal the wrapper's mirror;
+   must equal the wrapper's mirror; the streamed plan (B3'' and B4'' for
+   every shape the heads kernels refuse: slot_routing_wide_fwd / _bwd) at
+   WIDE_SHAPES, each against its plain version with its bound and a second
+   launch bitwise equal, and forced at WIDE_FORCED against the heads
+   entries;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -220,18 +224,21 @@ Phases, each printing its own line with its seconds:
    them;
 18. slot-shapes: train_ocr ocr=slate past the single-head kernels' range,
    at full width on eval-gzip.h5 (N = 4096), batch 24, superbatch 4, 8 steps
-   with the final evaluation, in two configurations (SLOT_SHAPES):
+   with the final evaluation, in three configurations (SLOT_SHAPES):
    slate-heads4 (ocr.slotattr.num_slot_heads=4: 5 slots in 4 heads of 48)
-   and slate-slots24 (24 slots of 256, mlp_hidden_size 256); for each one
-   update against the same update through the plain versions (check_step),
-   ms a step and images/s over the last superbatch, launches exactly B1 and
-   B2 once a step and a validation batch (B1 a sample pass too), the heads
-   forward 3 and backward 3 a step and the forward 3 a validation batch and
-   a sample pass; for slate-heads4 also get_ari_mse's command line on its
-   checkpoint over one batch of 32 (B1 1, B2 1, heads forward 6) and one
-   slot-attention forward at 24 through fused=never (JAX's einsum route, no
-   launch) against the kernel route, within NEVER_TOL, each route's device
-   ms beside the other's.
+   and slate-slots24 (24 slots of 256, mlp_hidden_size 256) through the
+   heads entries, slate-slots64 (64 slots of SLATE's 192) through the
+   streamed plan; for each one update against the same update through the
+   plain versions (check_step), ms a step and images/s over the last
+   superbatch, launches exactly B1 and B2 once a step and a validation batch
+   (B1 a sample pass too), the configuration's routing forward 3 and
+   backward 3 a step and the forward 3 a validation batch and a sample pass
+   (no launch of another routing entry); for slate-heads4 also get_ari_mse's
+   command line on its checkpoint over one batch of 32 (B1 1, B2 1, heads
+   forward 6); for slate-heads4 and slate-slots64 one slot-attention forward
+   at 24 through fused=never (JAX's einsum route, no launch) against the
+   kernel route, within NEVER_TOL, each route's device ms beside the
+   other's.
 
 Then one JSON line of the kernels and, last, the contract line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -503,10 +510,19 @@ HDF5_VAL, HDF5_SMALL_VAL, HDF5_RATE_REPS, HDF5_TRAIN_STEPS = 256, 32, 5, 8
 # another order through three GRU iterations: POLICY_TOL's 1e-4).
 SLOT_SHAPES = {"slate-heads4": ["ocr.slotattr.num_slot_heads=4"],
                "slate-slots24": ["ocr.slotattr.num_slots=24", "ocr.slotattr.slot_size=256",
-                                 "ocr.slotattr.mlp_hidden_size=256"]}
+                                 "ocr.slotattr.mlp_hidden_size=256"],
+               "slate-slots64": ["ocr.slotattr.num_slots=64"]}
 SLOT_STEPS, NEVER_TOL = 8, 1e-4
 HEADS_SHAPES = [(24, 4096, 5, 4, 192), (24, 4096, 24, 1, 256), (24, 4096, 7, 1, 100),
                 (2, 333, 32, 8, 512), (3, 37, 5, 3, 21)]
+# The streamed plan's shapes [B, N, S, H, D]: slate-slots64 first (its
+# numbers go to the kernels line), 33 slots, what the heads kernels refuse
+# for shared memory (303,488 bytes at one token; one head of 8192), odd
+# widths past 64 slots; and a heads shape the streamed entries are forced
+# at, held against the heads entries.
+WIDE_SHAPES = [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192), (2, 333, 32, 8, 2048),
+               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35)]
+WIDE_FORCED = (24, 4096, 5, 4, 192)
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -604,35 +620,44 @@ def sweep_bound_ms(B: int, N: int, S: int, D: int, bw: float, flops: float, H: i
 
 def kernel_profile(fn, kernel_name: str, counter: str, reps: int = 20):
     """(device ms per call of all of ``fn``'s kernels, of those whose name
-    holds ``kernel_name``, the records of that kernel in the profile, the
-    launches its wrapper counted under ``counter`` while the profile ran),
-    by torch.profiler. A profile whose records fall short of the launches
-    has lost some (11 of 20 for B3 at B = 256 after the earlier phases);
-    its device times are then too low."""
+    holds one of the " + "-separated parts of ``kernel_name``, the fewest
+    records of one part in the profile, the launches its wrapper counted
+    under ``counter`` while the profile ran, each part's device ms), by
+    torch.profiler; each part names a kernel that runs once a launch. A profile whose records fall
+    short of the launches has lost some (11 of 20 for B3 at B = 256 after
+    the earlier phases); its device times are then too low."""
     from torch.autograd import DeviceType
 
     first = LAUNCHES.get(counter, 0) + 1        # profiled() calls fn once before its profile
     _, averages = profiled(fn, reps)
     launched = LAUNCHES.get(counter, 0) - first
-    records = sum(e.count for e in averages
-                  if e.device_type == DeviceType.CUDA and kernel_name in e.key)
-    ms, alone_ms = ((device_ms(averages, part) or 0.0) / reps for part in ("", kernel_name))
-    return ms, alone_ms, records, launched
+    parts = kernel_name.split(" + ")
+    records = min(sum(e.count for e in averages
+                      if e.device_type == DeviceType.CUDA and part in e.key) for part in parts)
+    ms = (device_ms(averages) or 0.0) / reps
+    split = {part: (device_ms(averages, part) or 0.0) / reps for part in parts}
+    return ms, sum(split.values()), records, launched, split
 
 
 def sweep_times(kernel_fn, plain_fn, kernel_name: str, counter: str):
     """(device ms per call of a sweep wrapper, of its kernel alone, of the
-    plain version; the wrapper's wall ms per call between CUDA events).
+    plain version; the wrapper's wall ms per call between CUDA events),
+    after a line of each kernel's device ms where the entry runs several.
     The device times come from torch.profiler where the wrapper's profile
     holds a record of every launch its counter saw (a profile is taken twice
     at most). Else all come from CUDA events, which hold every kernel of a
     call and the gaps between them, and the kernel alone is not measured."""
     call_ms = wall_ms(kernel_fn)
     for _ in range(2):
-        ms, alone_ms, records, launched = kernel_profile(kernel_fn, kernel_name, counter)
+        ms, alone_ms, records, launched, split = kernel_profile(kernel_fn, kernel_name,
+                                                                counter)
         print(f"    the profile holds {records} kernel records for {launched} launches: "
               f"{'complete' if records == launched else 'INCOMPLETE'}", flush=True)
         if records == launched:
+            if len(split) > 1:
+                print("    device ms of each kernel: " + ", ".join(
+                    f"{part} {part_ms:.4f}" for part, part_ms in split.items())
+                    + f", the rest (row sums) {ms - alone_ms:.4f}", flush=True)
             plain_ms, = per_call_ms(plain_fn)
             return ms, alone_ms, plain_ms, call_ms
     print("    (device ms of the wrapper and of the plain version from CUDA events)",
@@ -661,14 +686,22 @@ def sweep_shape(shape) -> tuple[int, int, int, int, int, str]:
     return B, N, S, H, D, f"B={B} N={N} S={S} D={D}" + (f" H={H}" if len(shape) == 5 else "")
 
 
+# (B3's counter, its kernels' names, B4's counter, its kernels' names) of
+# each plan's C entry pair, the row sums aside (kernel_profile)
+SWEEP_KERNELS = {
+    "fast": (slot_routing.KERNEL, "sweep_fwd_kernel", slot_routing.BWD_KERNEL,
+             "sweep_bwd_kernel"),
+    "heads": (slot_routing.HEADS_KERNEL, "heads_fwd_kernel", slot_routing.HEADS_BWD_KERNEL,
+              "heads_bwd_kernel"),
+    "wide": (slot_routing.WIDE_KERNEL,
+             "wide_pairs_kernel + wide_softmax_kernel + wide_sums_kernel",
+             slot_routing.WIDE_BWD_KERNEL,
+             "wide_pairs_kernel + wide_dl_kernel + wide_tokens_kernel + wide_sums_kernel")}
+
+
 def sweep_kernels(S: int, D: int, H: int) -> tuple[str, str, str, str]:
-    """(B3's counter, its kernel's name, B4's counter, its kernel's name) of
-    the C entry pair that takes the shape."""
-    if slot_routing.fast_path(S, D, H):
-        return slot_routing.KERNEL, "sweep_fwd_kernel", slot_routing.BWD_KERNEL, \
-            "sweep_bwd_kernel"
-    return slot_routing.HEADS_KERNEL, "heads_fwd_kernel", slot_routing.HEADS_BWD_KERNEL, \
-        "heads_bwd_kernel"
+    """SWEEP_KERNELS of the C entry pair that takes the shape."""
+    return SWEEP_KERNELS[slot_routing.sweep_plan(S, D, H)]
 
 
 def plan_text(p) -> str:
@@ -717,11 +750,45 @@ def check_sweep(shape, bw, flops, gen):
     bound_ms, bound_by = sweep_bound_ms(B, N, S, D, bw, flops, H)
     print(f"    device ms: route_sweep {ms:.4f} ({kernel_name} alone "
           f"{alone(kernel_alone_ms)}), plain {plain_ms:.4f}, bound {bound_ms:.4f} "
-          f"({bound_by}), {100 * bound_ms / ms:.1f} % of it, "
+          f"({bound_by}; bytes {1e3 * sweep_bytes(B, N, S, D, H) / bw:.4f}), "
+          f"{100 * bound_ms / ms:.1f} % of it, "
           f"{sweep_bytes(B, N, S, D, H) / ms / 1e9:.3f} TB/s; wall per call {call_ms:.4f} ms",
           flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def check_forced_wide(shape, gen) -> None:
+    """The streamed entries forced at a shape the heads (or single-head)
+    entries take: outputs and gradients within SWEEP_TOL of those entries'
+    largest entries and of the plain version's, and a second launch of
+    each streamed entry bitwise equal."""
+    B, N, S, H, D, named = sweep_shape(shape)
+    k = torch.randn(B, N, D, device="cuda", generator=gen) * (D // H) ** -0.5
+    v = torch.randn(B, N, D, device="cuda", generator=gen)
+    q = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_av = torch.randn(B, S, D, device="cuda", generator=gen)
+    g_a = torch.randn(B, N, H * S, device="cuda", generator=gen)
+
+    def run(plan):
+        sa, av, a = slot_routing._sweep_fwd(k, v, q, H, plan=plan)
+        return (sa, av, a, *slot_routing._sweep_bwd(k, v, q, a, g_av, g_a, H, plan=plan))
+
+    wide, other = run("wide"), run(None)
+    check_repeatable("streamed entries", lambda: run("wide"), wide)
+    leaves = [x.clone().requires_grad_() for x in (k, v, q)]
+    outs = slot_routing.route_sweep_reference(*leaves, H)
+    plain = (*outs, *torch.autograd.grad(outs[1:], leaves, (g_av, g_a)))
+    torch.cuda.synchronize()
+    errs = [max((w - o).abs().max().item(), (w - p).abs().max().item()) / p.abs().max().item()
+            for w, o, p in zip(wide, other, plain)]
+    ok = max(errs) <= SWEEP_TOL
+    print(f"  streamed entries forced at {named} ({slot_routing.sweep_plan(S, D, H)} plan's "
+          f"shape): S_a, A_v, a, gk, gv, gq against that plan's entries and the plain "
+          f"version, worst {max(errs):.2e} of the largest entry, tolerance {SWEEP_TOL} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit(f"the streamed entries disagree with the others at {shape}")
 
 
 def gumbel_bytes(R: int, V: int, soft: bool) -> int:
@@ -962,7 +1029,8 @@ def check_sweep_bwd(shape, bw, flops, gen):
                                                          counter)
     bound_ms, bound_by = sweep_bwd_bound_ms(B, N, S, D, bw, flops, H)
     print(f"    device ms: backward {ms:.4f} ({kernel_name} alone {alone(kernel_alone_ms)}), "
-          f"plain (autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
+          f"plain (autograd) {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}; bytes "
+          f"{1e3 * sweep_bwd_bytes(B, N, S, D, H) / bw:.4f}), "
           f"{100 * bound_ms / ms:.1f} % of it, "
           f"{sweep_bwd_bytes(B, N, S, D, H) / ms / 1e9:.3f} TB/s; wall per call "
           f"{call_ms:.4f} ms", flush=True)
@@ -2434,8 +2502,9 @@ def slot_routes(card: str, ocr, B: int) -> None:
     sa.fused = "auto"
     errs = [((n - k).abs().max() / k.abs().max()).item()
             for n, k in zip(out["never"], out["auto"])]
+    route = sweep_kernels(sa.num_slots, sa.slot_size, sa.num_heads)[0]
     ok = max(errs) <= NEVER_TOL and launches["never"] == {} and \
-        launches["auto"] == {slot_routing.HEADS_KERNEL: sa.num_iterations}
+        launches["auto"] == {route: sa.num_iterations}
     print(f"  {card}: slot attention at {B} x 4096 tokens, {sa.num_slots} slots of "
           f"{sa.slot_size} in {sa.num_heads} heads: fused=never against the kernel route: "
           f"slots {errs[0]:.2e}, attention {errs[1]:.2e} of their largest entry (tolerance "
@@ -2492,10 +2561,11 @@ def slot_shapes_phase(card: str, workdir) -> dict:
             steps = sorted(r["_step"] for r in records if "train/loss" in r)
             finite = all(np.isfinite(v) for r in records for k, v in r.items()
                          if k.startswith(("train/", "val/")))
+            fwd, _, bwd, _ = sweep_kernels(sa.num_slots, sa.slot_size, sa.num_slot_heads)
             want = {gumbel.SOFT_KERNEL: SLOT_STEPS + val_batches + samples,
                     gumbel.IDS_KERNEL: SLOT_STEPS + val_batches,
-                    slot_routing.HEADS_KERNEL: iters * (SLOT_STEPS + val_batches + samples),
-                    slot_routing.HEADS_BWD_KERNEL: iters * SLOT_STEPS}
+                    fwd: iters * (SLOT_STEPS + val_batches + samples),
+                    bwd: iters * SLOT_STEPS}
             k, seconds = calls[-1]           # the last superbatch: past the warm-up
             print(f"  {card}: {name}: train_ocr.main to step {trained['step']} at batch "
                   f"{TRAIN_BATCH}: {1e3 * seconds / k:.3f} ms/step, "
@@ -2516,6 +2586,7 @@ def slot_shapes_phase(card: str, workdir) -> dict:
                         f"run_dir={Path(tmp) / 'eval'}"],
                     {gumbel.SOFT_KERNEL: 1, gumbel.IDS_KERNEL: 1,
                      slot_routing.HEADS_KERNEL: 2 * iters}, HDF5_SMALL_VAL)["launches"])
+            if name in ("slate-heads4", "slate-slots64"):
                 slot_routes(card, trained["model"], TRAIN_BATCH)
     return dict(launches=tuple(runs))
 
@@ -3974,6 +4045,11 @@ def main() -> int:
         check_heads_plans()
         heads = [(check_sweep(shape, bw, flops, gen), check_sweep_bwd(shape, bw, flops, gen))
                  for shape in HEADS_SHAPES]
+        # the streamed plan: slate-slots64 first, then the shapes the heads
+        # kernels refuse, and forced where the heads entries run
+        wide = [(check_sweep(shape, bw, flops, gen), check_sweep_bwd(shape, bw, flops, gen))
+                for shape in WIDE_SHAPES]
+        check_forced_wide(WIDE_FORCED, gen)
         soft_ids = check_gumbel(tokens, ocr_cfg.dvae.vocab_size, bw, flops, gen)
         check_gumbel(EVAL_BATCH * (env_cfg.obs_size // 4) ** 2, ocr_cfg.dvae.vocab_size,
                      bw, flops, gen)
@@ -4180,6 +4256,9 @@ def main() -> int:
         row(slot_routing.HEADS_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:79", heads[0][0]),
         row(slot_routing.HEADS_BWD_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:86",
             heads[0][1]),
+        row(slot_routing.WIDE_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:79", wide[0][0]),
+        row(slot_routing.WIDE_BWD_KERNEL, routing, "ocrl_tpu/ops/slot_routing.py:86",
+            wide[0][1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,8 +35,8 @@ directory. ``compose`` applies the
 ``key=value`` overrides of the entry points.
 
 One value differs from the YAML on purpose: ``slotattr.fused`` is
-``"auto"``, so the routing sweep takes the CUDA kernel whenever it is
-eligible. The YAML's ``never`` rests on a measurement on a TPU, which says
+``"auto"``, so the routing sweep takes the CUDA kernels at every slot
+shape. The YAML's ``never`` rests on a measurement on a TPU, which says
 nothing about this card.
 """
 

@@ -5,11 +5,11 @@ slots), then renormalised over the inputs with an epsilon, as in JAX.
 
 Two routes compute the same function:
 
-- the sweep (``ops.route_sweep``), for every head count H dividing the slot
-  size D and 1 <= S <= 32 slots, wherever the kernels' ring fits the card's
-  shared memory (``ops.sweep_supports``: every H <= 8 and D <= 512 does).
-  On a CUDA tensor it is the hand-written kernels; on the CPU their plain
-  version. The renormalisation is then done per head from the sweep's sums:
+- the sweep (``ops.route_sweep``), for every slot count and every head
+  count H dividing the slot size D. On a CUDA tensor it is the hand-written
+  kernels (one of three plans, chosen by the shape: ``ops.slot_routing.
+  sweep_plan``); on the CPU their plain version. The renormalisation is then
+  done per head from the sweep's sums:
   ``upd[b, s, c] = (A_v[b, s, c] + eps * sum_n v[b, n, c]) /
   (S_a[b, h(c) S + s] + N * eps)``, h(c) the head of column c; the
   attention returned is ``a`` summed over the heads, as JAX's
@@ -19,10 +19,8 @@ Two routes compute the same function:
 
 ``fused`` keeps JAX's three values:
 
-- ``auto`` (the port's default) takes the sweep wherever the kernels take
-  the shape; outside it, on the CPU the einsum route and on a CUDA tensor
-  ``NotImplementedError`` naming the shape (no silent second route on the
-  card);
+- ``auto`` (the port's default) takes the sweep at every shape, on any
+  device;
 - ``always`` raises ``ValueError`` exactly where JAX's does (more than one
   head, or no power-of-two chunk from 8 to 512 dividing N:
   ocrl_tpu/models/slot_attention.py:71-77) and takes the sweep elsewhere;
@@ -71,23 +69,15 @@ class SlotAttention(nn.Module):
             linear(mlp_hidden_size, slot_size),
         )
 
-    def _use_sweep(self, device: torch.device, N: int) -> bool:
-        S, D, H = self.num_slots, self.slot_size, self.num_heads
+    def _use_sweep(self, N: int) -> bool:
+        H = self.num_heads
         if self.fused == "never":
             return False
         if self.fused == "always" and (H != 1 or slot_routing.pick_chunk(N) == 0):
             raise ValueError(
                 f"fused=always but routing is ineligible (heads={H}, N={N}, "
                 f"chunk={slot_routing.pick_chunk(N)})")
-        if slot_routing.sweep_supports(S, D, H):
-            return True
-        if device.type == "cuda" or self.fused == "always":
-            raise NotImplementedError(
-                f"heads={H}, slots={S}, slot_size={D}: the routing kernels take 1 <= "
-                f"slots <= {slot_routing.MAX_SLOTS} and need "
-                f"{slot_routing.needed_bytes(S, D, H)} bytes of shared memory a block "
-                f"(the card has {slot_routing.SMEM_LIMIT})")
-        return False
+        return True
 
     def forward(self, inputs: torch.Tensor, slots: torch.Tensor):
         """inputs [B, N, D_in], slots [B, S, D] -> (slots [B, S, D],
@@ -95,7 +85,7 @@ class SlotAttention(nn.Module):
         B, N, _ = inputs.shape
         S, H = self.num_slots, self.num_heads
         hd = self.slot_size // H
-        use_sweep = self._use_sweep(inputs.device, N)
+        use_sweep = self._use_sweep(N)
 
         inputs = self.norm_inputs(inputs)
         k = self.project_k(inputs) * hd ** -0.5          # [B, N, H*hd]

@@ -57,6 +57,13 @@
 //   slots of each row in block order and writes S_a and A_v (B3) or gq (B4).
 //   No atomics: the result is bitwise the same from run to run.
 // PERF.md has the times against the bound and how the counts were chosen.
+//
+// Three plans share this file, each a pair of C entries at the end of it:
+// the single-head kernels (slot_routing_fwd / _bwd, the design above), the
+// heads kernels (slot_routing_heads_fwd / _bwd: any head count, up to 32
+// slots, a ring of one token within shared memory) and the streamed plan
+// (slot_routing_wide_fwd / _bwd: every other shape). The wrapper picks one
+// by shape (ops/slot_routing.py sweep_plan); each section has its note.
 
 #include <cuda_runtime.h>
 
@@ -1835,6 +1842,337 @@ cudaError_t launch_heads_bwd(const HeadsPlan& plan, const float* k, const float*
   return launch_reduce(scratch, gq, nullptr, S * D, S * D, 0, B, N, G, stream);
 }
 
+// -- The streamed plan (B3'' and B4''): every S >= 1, H dividing D, any D --
+//
+// The same function as the heads kernels, for the shapes they refuse: more
+// than 32 slots, or a ring of one token over the card's shared memory (32
+// slots of 2048 in 8 heads, one head of 8192). It replaces the same TPU
+// kernels, ocrl_tpu/ops/slot_routing.py::_sweep_fwd_kernel and
+// ::_sweep_bwd_kernel, which take any S and D (only the tokens are cut into
+// chunks there, and JAX's fused=auto and always take them at one head), and
+// the sums of JAX's einsum route for more heads. The entries take the other
+// plans' shapes too, so the card tests can hold the three plans against one
+// another.
+// What bounds it: at 64 slots of 192 (SLATE with num_slots=64: B = 24, N =
+// 4096) the forward reads k and v (75.5 MB each) and writes a (25.2 MB),
+// 176 MB, 53 us at 3.35 TB/s; its two products are 2.4 G fp32 FMAs, 72 us
+// at 67 TFLOP/s outside the tensor cores. So past 32 slots the FMAs bound
+// it, not the bytes (the backward: four products, 145 us, against 302 MB,
+// 90 us). TF32 tensor cores would break the fp32 parity with the JAX
+// package: the products run as fp32 FMAs on the CUDA cores.
+// Design, simple before fast: each product is tiled into 64 x 64 outputs a
+// block (256 threads, 4 x 4 a thread, float4 reads of shared memory), its
+// operands staged in slabs of 32 along the summed axis, so that nothing in
+// shared memory grows with S or D (two or four static slabs of 8.7 KB):
+//   forward  1. a[n, h S + s] = k[n, head h] . q[s, head h]: tiles of
+//               tokens x slots of one (batch row, head), D in slabs;
+//            2. the softmax of each token's H S logits, in place, a warp a
+//               token (the row is read three times; it stays in L2);
+//            3. A_v = a^T v and S_a = sum_n a: tiles of slots x columns of one
+//               (batch row, head, segment of tokens) write the segment's
+//               partial to its scratch slot (S_a from the head's first column
+//               tile), then reduce_segments sums a row's segments in order;
+//   backward 1. da = v . g_av + g_a into the workspace (step 1's kernel);
+//            2. dl = a (da - sum_j da_j a_j) in place, a warp a token;
+//            3. gv = a g_av and gk = dl q, one pass: tiles of tokens x
+//               columns, two accumulators, summed over the slots in slabs;
+//            4. gq = dl^T k by segments, as A_v.
+// Every sum runs in a fixed order, with no atomics: two launches on the
+// same inputs give bitwise equal outputs. The wrapper cuts each batch row's
+// tokens into `segments` equal pieces, enough blocks to fill the card
+// (ops/slot_routing.py wide_segments), and sizes the scratch for them.
+
+constexpr int kWideTile = 64;                 // rows and columns of an output tile
+constexpr int kWideSlab = 32;                 // depth of a staged slab
+constexpr int kWideRow = kWideTile + 4;       // floats of a slab's row (16-byte rows)
+constexpr int kWideThreads = 256;             // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kWideRowsPerBlock = kWideThreads / 32;   // the row kernels: a warp a token
+constexpr long long kMaxGrid = 2147483647LL;
+
+using WideSlab = float[kWideSlab][kWideRow];
+
+__host__ __device__ inline int wide_tiles(int n) {
+  return static_cast<int>((static_cast<long long>(n) + kWideTile - 1) / kWideTile);
+}
+
+// Stages element (m, kk) of a matrix whose kk axis is contiguous, src[m ld +
+// kk], at dst[kk][m]: a warp reads 32 consecutive floats of one row. Rows
+// from `rows` on and depths from `depth` on are 0.
+__device__ __forceinline__ void stage_across(WideSlab& dst, const float* src, long long ld,
+                                             int rows, int depth) {
+  for (int i = threadIdx.x; i < kWideSlab * kWideTile; i += kWideThreads) {
+    const int kk = i % kWideSlab, m = i / kWideSlab;
+    dst[kk][m] = m < rows && kk < depth ? src[m * ld + kk] : 0.f;
+  }
+}
+
+// Stages element (m, kk) of a matrix whose m axis is contiguous, src[kk ld +
+// m], at dst[kk][m], with the same zeros.
+__device__ __forceinline__ void stage_along(WideSlab& dst, const float* src, long long ld,
+                                            int rows, int depth) {
+  for (int i = threadIdx.x; i < kWideSlab * kWideTile; i += kWideThreads) {
+    const int m = i % kWideTile, kk = i / kWideTile;
+    dst[kk][m] = m < rows && kk < depth ? src[kk * ld + m] : 0.f;
+  }
+}
+
+// acc[i][j] += x[kk][4 ty + i] y[kk][4 tx + j] over the slab, in kk order.
+__device__ __forceinline__ void slab_product(const WideSlab& x, const WideSlab& y,
+                                             float (&acc)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int kk = 0; kk < kWideSlab; ++kk) {
+    const float4 a = *reinterpret_cast<const float4*>(&x[kk][4 * ty]);
+    const float4 b = *reinterpret_cast<const float4*>(&y[kk][4 * tx]);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// out[b, n, h S + s] = sum over head h's columns c of x[b, n, c] y[b, s, c],
+// plus add[b, n, h S + s] where kAdd: the forward's logits (x = k, y = q) and
+// the backward's da (x = v, y = g_av, add = g_a). A block: 64 tokens x 64
+// slots of one (batch row, head).
+template <int kAdd>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_pairs_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ add, float* __restrict__ out, int N, int S,
+                  int D, int H) {
+  __shared__ __align__(16) WideSlab xs;
+  __shared__ __align__(16) WideSlab ys;
+  const int token_tiles = wide_tiles(N), slot_tiles = wide_tiles(S);
+  int t = blockIdx.x;
+  const int n0 = t % token_tiles * kWideTile;
+  t /= token_tiles;
+  const int s0 = t % slot_tiles * kWideTile;
+  t /= slot_tiles;
+  const int h = t % H, b = t / H;
+  const int hd = D / H, HS = H * S;
+  const long long row0 = static_cast<long long>(b) * N + n0;
+  const float* xb = x + row0 * D + h * hd;
+  const float* yb = y + (static_cast<long long>(b) * S + s0) * D + h * hd;
+  const int rows_x = min(kWideTile, N - n0), rows_y = min(kWideTile, S - s0);
+  float acc[4][4] = {};
+  for (int c0 = 0; c0 < hd; c0 += kWideSlab) {
+    const int depth = min(kWideSlab, hd - c0);
+    stage_across(xs, xb + c0, D, rows_x, depth);
+    stage_across(ys, yb + c0, D, rows_y, depth);
+    __syncthreads();
+    slab_product(xs, ys, acc);
+    __syncthreads();
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * ty + i >= rows_x) break;
+    const long long at = (row0 + 4 * ty + i) * HS + h * S + s0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * tx + j;
+      if (s < rows_y) out[at + s] = kAdd ? acc[i][j] + add[at + s] : acc[i][j];
+    }
+  }
+}
+
+// The softmax of each of `rows` rows of HS logits, in place; a warp a row.
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_softmax_kernel(float* __restrict__ a, long long rows, int HS) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWideRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float* p = a + row * HS;
+  float m = neg_inf();
+  for (int j = lane; j < HS; j += 32) m = fmaxf(m, p[j]);
+  m = warp_max(m);
+  float sum = 0.f;
+  for (int j = lane; j < HS; j += 32) sum += expf(p[j] - m);
+  sum = warp_sum(sum);
+  for (int j = lane; j < HS; j += 32) p[j] = expf(p[j] - m) / sum;
+}
+
+// dl = a (da - sum_j da_j a_j) over each of `rows` rows of HS, in place of
+// da; a warp a row.
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_dl_kernel(const float* __restrict__ a, float* __restrict__ da, long long rows, int HS) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWideRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const float* p = a + row * HS;
+  float* d = da + row * HS;
+  float inner = 0.f;
+  for (int j = lane; j < HS; j += 32) inner = fmaf(d[j], p[j], inner);
+  inner = warp_sum(inner);
+  for (int j = lane; j < HS; j += 32) d[j] = p[j] * (d[j] - inner);
+}
+
+// partial[(b segments + g) width + s D + h hd + c] = sum over the tokens n
+// of segment g of w[b, n, h S + s] x[b, n, h hd + c]: A_v (w = a, x = v) and
+// gq (w = dl, x = k) by segments. Where kSa, the blocks of the head's first
+// column tile also write partial[... + S D + h S + s] = sum over the
+// segment of w[b, n, h S + s] (S_a). A block: 64 slots x 64 columns of one
+// (batch row, segment, head).
+template <int kSa>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_sums_kernel(const float* __restrict__ w, const float* __restrict__ x,
+                 float* __restrict__ partial, int N, int S, int D, int H, int segments,
+                 int width) {
+  __shared__ __align__(16) WideSlab ws;
+  __shared__ __align__(16) WideSlab xs;
+  const int hd = D / H, HS = H * S;
+  const int col_tiles = wide_tiles(hd), slot_tiles = wide_tiles(S);
+  int t = blockIdx.x;
+  const int c0 = t % col_tiles * kWideTile;
+  t /= col_tiles;
+  const int s0 = t % slot_tiles * kWideTile;
+  t /= slot_tiles;
+  const int h = t % H;
+  t /= H;
+  const int g = t % segments, b = t / segments;
+  const long long seg = (static_cast<long long>(N) + segments - 1) / segments;
+  const int n_begin = static_cast<int>(min(static_cast<long long>(N), g * seg));
+  const int n_end = static_cast<int>(min(static_cast<long long>(N), n_begin + seg));
+  const float* wb = w + static_cast<long long>(b) * N * HS + h * S + s0;
+  const float* xb = x + static_cast<long long>(b) * N * D + h * hd + c0;
+  const int rows_w = min(kWideTile, S - s0), rows_x = min(kWideTile, hd - c0);
+  const bool sums = kSa && c0 == 0 && threadIdx.x < kWideTile;
+  float acc[4][4] = {};
+  float sa = 0.f;
+  for (int n0 = n_begin; n0 < n_end; n0 += kWideSlab) {
+    const int depth = min(kWideSlab, n_end - n0);
+    stage_along(ws, wb + static_cast<long long>(n0) * HS, HS, rows_w, depth);
+    stage_along(xs, xb + static_cast<long long>(n0) * D, D, rows_x, depth);
+    __syncthreads();
+    slab_product(ws, xs, acc);
+    if (sums) {
+      for (int kk = 0; kk < kWideSlab; ++kk) sa += ws[kk][threadIdx.x];
+    }
+    __syncthreads();
+  }
+  float* pb = partial + (static_cast<long long>(b) * segments + g) * width;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = 4 * ty + i;
+    if (s >= rows_w) break;
+    float* row = pb + static_cast<long long>(s0 + s) * D + h * hd + c0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * tx + j < rows_x) row[4 * tx + j] = acc[i][j];
+  }
+  if (sums && static_cast<int>(threadIdx.x) < rows_w)
+    pb[static_cast<long long>(S) * D + h * S + s0 + threadIdx.x] = sa;
+}
+
+// gv[b, n, h hd + c] = sum_s a[b, n, h S + s] g_av[b, s, h hd + c] and
+// gk[b, n, h hd + c] = sum_s dl[b, n, h S + s] q[b, s, h hd + c], in one
+// pass. A block: 64 tokens x 64 columns of one (batch row, head).
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_tokens_kernel(const float* __restrict__ a, const float* __restrict__ g_av,
+                   const float* __restrict__ dl, const float* __restrict__ q,
+                   float* __restrict__ gv, float* __restrict__ gk, int N, int S, int D,
+                   int H) {
+  __shared__ __align__(16) WideSlab as;
+  __shared__ __align__(16) WideSlab gs;
+  __shared__ __align__(16) WideSlab ds;
+  __shared__ __align__(16) WideSlab qs;
+  const int hd = D / H, HS = H * S;
+  const int token_tiles = wide_tiles(N), col_tiles = wide_tiles(hd);
+  int t = blockIdx.x;
+  const int n0 = t % token_tiles * kWideTile;
+  t /= token_tiles;
+  const int c0 = t % col_tiles * kWideTile;
+  t /= col_tiles;
+  const int h = t % H, b = t / H;
+  const long long row0 = static_cast<long long>(b) * N + n0;
+  const float* ab = a + row0 * HS + h * S;
+  const float* db = dl + row0 * HS + h * S;
+  const long long col = static_cast<long long>(b) * S * D + h * hd + c0;
+  const float* gb = g_av + col;
+  const float* qb = q + col;
+  const int rows_n = min(kWideTile, N - n0), rows_c = min(kWideTile, hd - c0);
+  float acc_v[4][4] = {}, acc_k[4][4] = {};
+  for (int s0 = 0; s0 < S; s0 += kWideSlab) {
+    const int depth = min(kWideSlab, S - s0);
+    stage_across(as, ab + s0, HS, rows_n, depth);
+    stage_across(ds, db + s0, HS, rows_n, depth);
+    stage_along(gs, gb + static_cast<long long>(s0) * D, D, rows_c, depth);
+    stage_along(qs, qb + static_cast<long long>(s0) * D, D, rows_c, depth);
+    __syncthreads();
+    slab_product(as, gs, acc_v);
+    slab_product(ds, qs, acc_k);
+    __syncthreads();
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * ty + i >= rows_n) break;
+    const long long at = (row0 + 4 * ty + i) * D + h * hd + c0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * tx + j < rows_c) {
+        gv[at + 4 * tx + j] = acc_v[i][j];
+        gk[at + 4 * tx + j] = acc_k[i][j];
+      }
+    }
+  }
+}
+
+// Sums each batch row's segments in order: out[b][e] = sum over g of
+// partial[(b segments + g) width + e]; a slot's first `split` floats go to
+// out0[b], the next `rest` to out1[b].
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_segments(const float* __restrict__ partial, float* __restrict__ out0,
+                float* __restrict__ out1, int width, int split, int rest, int segments) {
+  const int b = blockIdx.y;
+  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (e >= split + rest) return;
+  const float* p = partial + static_cast<long long>(b) * segments * width + e;
+  float sum = 0.f;
+  for (int g = 0; g < segments; ++g) sum += p[static_cast<long long>(g) * width];
+  if (e < split)
+    out0[static_cast<long long>(b) * split + e] = sum;
+  else
+    out1[static_cast<long long>(b) * rest + e - split] = sum;
+}
+
+// The streamed plan's shapes: any S >= 1, H dividing D, a batch within the
+// reduction's grid, and scratch rows (S D + H S floats) an int can index.
+bool wide_shape_ok(int B, int N, int S, int D, int H, int segments) {
+  return B > 0 && B <= 65535 && N > 0 && S >= 1 && H >= 1 && D > 0 && D % H == 0 &&
+         segments >= 1 &&
+         static_cast<long long>(S) * D + static_cast<long long>(H) * S < kMaxGrid;
+}
+
+// Blocks of the tiled kernels and of the row kernels for one shape, or
+// false where one of them passes the grid's limit.
+struct WideGrid {
+  long long pairs, sums, tokens, rows;
+  WideGrid(int B, int N, int S, int D, int H, int segments) {
+    const long long hd_tiles = wide_tiles(D / H), slot_tiles = wide_tiles(S);
+    pairs = static_cast<long long>(B) * H * wide_tiles(N) * slot_tiles;
+    sums = static_cast<long long>(B) * segments * H * slot_tiles * hd_tiles;
+    tokens = static_cast<long long>(B) * H * wide_tiles(N) * hd_tiles;
+    rows = (static_cast<long long>(B) * N + kWideRowsPerBlock - 1) / kWideRowsPerBlock;
+  }
+  bool ok() const {
+    return pairs <= kMaxGrid && sums <= kMaxGrid && tokens <= kMaxGrid && rows <= kMaxGrid;
+  }
+};
+
+cudaError_t launch_segments(const float* partial, float* out0, float* out1, int width,
+                            int split, int rest, int B, int segments,
+                            cudaStream_t stream) {
+  const dim3 grid((split + rest + kReduceThreads - 1) / kReduceThreads, B);
+  reduce_segments<<<grid, kReduceThreads, 0, stream>>>(partial, out0, out1, width, split,
+                                                       rest, segments);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The heads kernels' instantiations: V (4 where the head width is a multiple
@@ -1955,4 +2293,69 @@ extern "C" int slot_routing_heads_plan(int S, int D, int H, int* plan) {
   plan[12] = static_cast<int>(heads_bytes(S, D, H, fwd, true));
   plan[13] = static_cast<int>(heads_bytes(S, D, H, bwd, false));
   return 0;
+}
+
+// The streamed plan's forward: k, v: [B, N, D]; q: [B, S, D]; a: [B, N, H
+// S]; sa: [B, H S]; av: [B, S, D]; scratch: [B * segments, S * D + H S]. All
+// fp32, contiguous, on the current device (no alignment needed). k holds
+// each head's columns pre-scaled by (D / H)^-0.5. Any S >= 1, H dividing D,
+// segments >= 1 (each batch row's tokens cut into that many pieces); returns
+// the CUDA error code of the launches (0 = none).
+extern "C" int slot_routing_wide_fwd(const float* k, const float* v, const float* q,
+                                     float* a, float* sa, float* av, float* scratch,
+                                     int B, int N, int S, int D, int H, int segments,
+                                     void* stream) {
+  if (!wide_shape_ok(B, N, S, D, H, segments))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WideGrid grid(B, N, S, D, H, segments);
+  if (!grid.ok()) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int HS = H * S, width = S * D + HS;
+  wide_pairs_kernel<0><<<static_cast<unsigned>(grid.pairs), kWideThreads, 0, st>>>(
+      k, q, nullptr, a, N, S, D, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_softmax_kernel<<<static_cast<unsigned>(grid.rows), kWideThreads, 0, st>>>(
+      a, static_cast<long long>(B) * N, HS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_sums_kernel<1><<<static_cast<unsigned>(grid.sums), kWideThreads, 0, st>>>(
+      a, v, scratch, N, S, D, H, segments, width);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_segments(scratch, av, sa, width, S * D, HS, B, segments, st));
+}
+
+// The streamed plan's backward: k, v: [B, N, D]; a, g_a: [B, N, H S]; q,
+// g_av: [B, S, D]; gk, gv: [B, N, D]; gq: [B, S, D]; scratch: [B *
+// segments, S * D]; work: [B, N, H S] (da, then dl). As the streamed
+// forward for the rest; returns the CUDA error code of the launches.
+extern "C" int slot_routing_wide_bwd(const float* k, const float* v, const float* a,
+                                     const float* q, const float* g_av, const float* g_a,
+                                     float* gk, float* gv, float* gq, float* scratch,
+                                     float* work, int B, int N, int S, int D, int H,
+                                     int segments, void* stream) {
+  if (!wide_shape_ok(B, N, S, D, H, segments))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WideGrid grid(B, N, S, D, H, segments);
+  if (!grid.ok()) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  wide_pairs_kernel<1><<<static_cast<unsigned>(grid.pairs), kWideThreads, 0, st>>>(
+      v, g_av, g_a, work, N, S, D, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_dl_kernel<<<static_cast<unsigned>(grid.rows), kWideThreads, 0, st>>>(
+      a, work, static_cast<long long>(B) * N, H * S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_tokens_kernel<<<static_cast<unsigned>(grid.tokens), kWideThreads, 0, st>>>(
+      a, g_av, work, q, gv, gk, N, S, D, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_sums_kernel<0><<<static_cast<unsigned>(grid.sums), kWideThreads, 0, st>>>(
+      work, k, scratch, N, S, D, H, segments, S * D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_segments(scratch, gq, nullptr, S * D, S * D, 0, B,
+                                          segments, st));
 }

@@ -13,29 +13,37 @@ a [B, N, S]); with more heads, the sums of JAX's einsum route
 (ocrl_tpu/models/slot_attention.py:97-103), which JAX runs instead of its
 kernel there.
 
-``route_sweep(k, v, q, heads)`` launches a hand-written CUDA kernel
-(``csrc/slot_routing.cu``) on a CUDA tensor and raises when it cannot; on a
-CPU tensor it runs ``route_sweep_reference``, the plain version, whose
-gradient is autograd's. Two C entries of the same source compute it:
-``slot_routing_fwd`` for one head, at most 16 slots and D a multiple of 32
-up to 256 (the path of every config in configs/), and
-``slot_routing_heads_fwd`` for the rest, ``sweep_supports``: 1 <= S <= 32,
-H dividing D, and a ring of one token that fits the card's shared memory
-(``needed_bytes``: every H <= 8 and D <= 1536 fits). Each entry computes all
-three outputs itself: a persistent grid of at most one block per SM cuts
-the B * N tokens into equal contiguous ranges and walks each in tiles (the
-C entry chooses the tile, from the shared memory it needs, and for the
-heads kernels the rest of its plan: ``heads_plan`` mirrors it, and
-``card_plans`` asks the C entry); every block keeps one partial of ``S_a``
-and ``A_v`` per batch row it touches, in a scratch slot that the wrapper
-allocates (``scratch_rows``), and a second kernel of the same C entry sums
-each row's slots in block order (no atomics: bitwise equal from run to
-run). On CUDA the gradient is the
-backward kernel of the same entry's pair (``slot_routing_bwd`` /
-``slot_routing_heads_bwd``), as ``torch.autograd.Function``: it takes the
-saved (k, v, q, a) and the cotangents, with that of ``S_a`` folded into that
-of ``a`` first, and writes gk, gv and gq the same way
-(ocrl_tpu/ops/slot_routing.py:142-164).
+``route_sweep(k, v, q, heads)`` launches hand-written CUDA kernels
+(``csrc/slot_routing.cu``) on a CUDA tensor and raises when a launch fails;
+on a CPU tensor it runs ``route_sweep_reference``, the plain version, whose
+gradient is autograd's. It takes every S >= 1 and every H dividing D, as
+JAX's kernel takes every S and D. Three pairs of C entries of the same
+source compute it, one plan each (``sweep_plan`` mirrors the choice):
+
+- ``fast``: ``slot_routing_fwd`` / ``_bwd`` for one head, at most 16 slots
+  and D a multiple of 32 up to 256 (the path of every config in configs/);
+- ``heads``: ``slot_routing_heads_fwd`` / ``_bwd`` for the rest of 1 <= S
+  <= 32 wherever their ring of one token fits the card's shared memory
+  (``needed_bytes``: every H <= 8 and D <= 1536 fits);
+- ``wide``: ``slot_routing_wide_fwd`` / ``_bwd``, the streamed plan, for
+  every other shape: more slots, or wider rows.
+
+The first two compute all three outputs in one sweep: a persistent grid of
+at most one block per SM cuts the B * N tokens into equal contiguous ranges
+and walks each in tiles (the C entry chooses the tile, from the shared
+memory it needs, and for the heads kernels the rest of its plan:
+``heads_plan`` mirrors it, and ``card_plans`` asks the C entry); every block
+keeps one partial of ``S_a`` and ``A_v`` per batch row it touches, in a
+scratch slot that the wrapper allocates (``scratch_rows``), and a second
+kernel of the same C entry sums each row's slots in block order. The
+streamed plan runs each step as its own tiled kernel (logits, softmax, the
+token sums by segments of tokens, ``wide_segments``, in a scratch the
+wrapper allocates, and their sum in segment order), so nothing in its
+shared memory grows with S or D. No plan uses atomics: bitwise equal from
+run to run. On CUDA the gradient is the backward kernel of the same plan,
+as ``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
+cotangents, with that of ``S_a`` folded into that of ``a`` first, and writes
+gk, gv and gq the same way (ocrl_tpu/ops/slot_routing.py:142-164).
 
 ``route_sweep`` also runs under ``torch.func``: ``vmap``, ``grad`` and
 ``vmap(grad(...))``, as the multi-seed policy calls it (JAX gets this from
@@ -73,6 +81,8 @@ BWD_KERNEL = "slot_routing_bwd"
 HEADS_KERNEL = "slot_routing_heads_fwd"
 HEADS_BWD_KERNEL = "slot_routing_heads_bwd"
 HEADS_PLAN = "slot_routing_heads_plan"
+WIDE_KERNEL = "slot_routing_wide_fwd"
+WIDE_BWD_KERNEL = "slot_routing_wide_bwd"
 FAST_SLOTS, FAST_WIDTH = 16, 256   # one head: one feature column per consumer thread
 MAX_SLOTS = 32                     # the heads kernels: up to 4 blocks of 8 slots
 # The heads kernels' plan (csrc/slot_routing.cu heads_plan): tiles, stages,
@@ -85,6 +95,10 @@ SLOT_BLOCK = 8
 NARROW_LANES, WIDE_LANES, NARROW_HEAD = 4, 32, 16
 CONSUMERS, MAX_GROUPS = 256, 16
 SMEM_LIMIT = 232448
+# The streamed plan (csrc/slot_routing.cu, kWideTile): 64 x 64 outputs a
+# block; its token sums cut each batch row into segments of at least
+# WIDE_MIN_SEGMENT tokens, about WIDE_BLOCKS_PER_SM blocks an SM in all.
+WIDE_TILE, WIDE_MIN_SEGMENT, WIDE_BLOCKS_PER_SM = 64, 256, 4
 
 
 class HeadsPlan(NamedTuple):
@@ -216,13 +230,30 @@ def _heads_shape(S: int, D: int, H: int) -> bool:
 
 
 def sweep_supports(S: int, D: int, heads: int = 1) -> bool:
-    """Whether the kernels take S slots of width D in ``heads`` heads: the
-    single-head kernels' shapes (``fast_path``), and else 1 <= S <= 32, the
-    heads dividing D, and the heads kernels' smallest ring within the card's
-    shared memory (``needed_bytes``), as the C entries' rules. Everything
-    with at most 8 heads and D <= 512 fits; D = 2048 at 32 slots does not."""
-    return fast_path(S, D, heads) or (
-        _heads_shape(S, D, heads) and needed_bytes(S, D, heads) <= SMEM_LIMIT)
+    """Whether the kernels take S slots of width D in ``heads`` heads: every
+    S >= 1 with the heads dividing D (JAX's kernel takes every S and D)."""
+    return S >= 1 and heads >= 1 and D > 0 and D % heads == 0
+
+
+def sweep_plan(S: int, D: int, H: int = 1) -> str:
+    """The pair of C entries that takes a shape ``sweep_supports`` takes:
+    "fast" (``fast_path``: B3 / B4), "heads" (1 <= S <= 32 and the heads
+    kernels' smallest ring within the card's shared memory, ``needed_bytes``:
+    B3' / B4'), else "wide" (the streamed plan: B3'' / B4'')."""
+    if fast_path(S, D, H):
+        return "fast"
+    if _heads_shape(S, D, H) and needed_bytes(S, D, H) <= SMEM_LIMIT:
+        return "heads"
+    return "wide"
+
+
+def wide_segments(B: int, N: int, S: int, D: int, H: int, sms: int) -> int:
+    """Segments of each batch row's tokens in the streamed plan's token sums:
+    enough (row, head, slot tile, column tile, segment) blocks for about
+    WIDE_BLOCKS_PER_SM an SM, with segments of at least WIDE_MIN_SEGMENT
+    tokens; the scratch holds B x segments partials of S D + H S floats."""
+    tiles = B * H * -(-S // WIDE_TILE) * -(-(D // H) // WIDE_TILE)
+    return max(1, min(-(-WIDE_BLOCKS_PER_SM * sms // tiles), -(-N // WIDE_MIN_SEGMENT)))
 
 
 def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, heads: int) -> None:
@@ -236,23 +267,14 @@ def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, heads: int) -> Non
         if t.device != k.device:
             raise ValueError("route_sweep: k, v and q must be on one device")
     B, N, D = k.shape
-    S = q.shape[1]
     if v.shape != k.shape:
         raise ValueError(f"route_sweep: v {tuple(v.shape)} != k {tuple(k.shape)}")
     if q.shape[0] != B or q.shape[2] != D:
         raise ValueError(f"route_sweep: q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if N < 1:
-        raise ValueError("route_sweep: needs at least one token")
+    if N < 1 or q.shape[1] < 1:
+        raise ValueError("route_sweep: needs at least one token and one slot")
     if not isinstance(heads, int) or heads < 1 or D % heads:
         raise ValueError(f"route_sweep: heads={heads} must be a positive int dividing D={D}")
-    if not _heads_shape(S, D, heads) and not fast_path(S, D, heads):
-        raise ValueError(
-            f"route_sweep: the kernels take 1 <= S <= {MAX_SLOTS} slots (got S={S}, "
-            f"D={D}, heads={heads})")
-    if not sweep_supports(S, D, heads):
-        raise ValueError(
-            f"route_sweep: S={S}, D={D}, heads={heads} needs {needed_bytes(S, D, heads)} "
-            f"bytes of shared memory a block, over the card's {SMEM_LIMIT}")
 
 
 def route_sweep_reference(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
@@ -276,6 +298,9 @@ _ARGTYPES = {   # pointers, then B, N, S, D (and H), max_blocks, then the stream
     HEADS_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     HEADS_BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     HEADS_PLAN: [ctypes.c_int] * 3 + [ctypes.c_void_p],   # S, D, H, the 14 ints out
+    # pointers (the backward's last the workspace), B, N, S, D, H, segments
+    WIDE_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    WIDE_BWD_KERNEL: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -313,20 +338,32 @@ def _check_aligned(**tensors) -> None:
                              "(the kernel reads it with bulk copies)")
 
 
-def _sweep_fwd(k, v, q, heads=1):
-    _check_aligned(k=k, v=v, q=q)
+def _sweep_fwd(k, v, q, heads=1, plan=None):
+    """B3's launch on the entry pair of ``plan`` (by default
+    ``sweep_plan``'s; the card checks force "wide" to hold the streamed plan
+    against the others)."""
     B, N, D = k.shape
     S = q.shape[1]
     HS = heads * S
+    plan = plan or sweep_plan(S, D, heads)
     sms = _num_sms(k.device.index)
     a = torch.empty((B, N, HS), dtype=torch.float32, device=k.device)
     sa = torch.empty((B, HS), dtype=torch.float32, device=k.device)
     av = torch.empty((B, S, D), dtype=torch.float32, device=k.device)
+    if plan == "wide":
+        segments = wide_segments(B, N, S, D, heads, sms)
+        scratch = torch.empty((B * segments, S * D + HS), dtype=torch.float32,
+                              device=k.device)
+        _build.launch_on(k.device, WIDE_KERNEL, _entry(WIDE_KERNEL), k.data_ptr(),
+                         v.data_ptr(), q.data_ptr(), a.data_ptr(), sa.data_ptr(),
+                         av.data_ptr(), scratch.data_ptr(), B, N, S, D, heads, segments)
+        return sa, av, a
+    _check_aligned(k=k, v=v, q=q)
     scratch = torch.empty((scratch_rows(B, N, sms), S * D + _padded(HS)),
                           dtype=torch.float32, device=k.device)
     pointers = (k.data_ptr(), v.data_ptr(), q.data_ptr(), a.data_ptr(), sa.data_ptr(),
                 av.data_ptr(), scratch.data_ptr())
-    if fast_path(S, D, heads):
+    if plan == "fast":
         _build.launch_on(k.device, KERNEL, _entry(KERNEL), *pointers, B, N, S, D, sms)
     else:
         _build.launch_on(k.device, HEADS_KERNEL, _entry(HEADS_KERNEL), *pointers,
@@ -334,26 +371,34 @@ def _sweep_fwd(k, v, q, heads=1):
     return sa, av, a
 
 
-def _sweep_bwd(k, v, q, a, g_av, g_a, heads=1):
-    _check_aligned(k=k, v=v, q=q, a=a)
+def _sweep_bwd(k, v, q, a, g_av, g_a, heads=1, plan=None):
+    """B4's launch, as ``_sweep_fwd``."""
     B, N, D = k.shape
     S = q.shape[1]
+    plan = plan or sweep_plan(S, D, heads)
     sms = _num_sms(k.device.index)
     g_av, g_a = _aligned(g_av), _aligned(g_a)
     gk = torch.empty_like(k)
     gv = torch.empty_like(v)
     gq = torch.empty_like(q)
+    pointers = (k.data_ptr(), v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
+                g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr())
+    if plan == "wide":
+        segments = wide_segments(B, N, S, D, heads, sms)
+        scratch = torch.empty((B * segments, S * D), dtype=torch.float32, device=k.device)
+        work = torch.empty_like(a)     # da, then dl
+        _build.launch_on(k.device, WIDE_BWD_KERNEL, _entry(WIDE_BWD_KERNEL), *pointers,
+                         scratch.data_ptr(), work.data_ptr(), B, N, S, D, heads, segments)
+        return gk, gv, gq
+    _check_aligned(k=k, v=v, q=q, a=a)
     scratch = torch.empty((scratch_rows(B, N, sms), S * D), dtype=torch.float32,
                           device=k.device)
-    pointers = (k.data_ptr(), v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
-                g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr(),
-                scratch.data_ptr())
-    if fast_path(S, D, heads):
-        _build.launch_on(k.device, BWD_KERNEL, _entry(BWD_KERNEL), *pointers, B, N, S, D,
-                         sms)
+    if plan == "fast":
+        _build.launch_on(k.device, BWD_KERNEL, _entry(BWD_KERNEL), *pointers,
+                         scratch.data_ptr(), B, N, S, D, sms)
     else:
         _build.launch_on(k.device, HEADS_BWD_KERNEL, _entry(HEADS_BWD_KERNEL), *pointers,
-                         B, N, S, D, heads, sms)
+                         scratch.data_ptr(), B, N, S, D, heads, sms)
     return gk, gv, gq
 
 

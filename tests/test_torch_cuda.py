@@ -21,8 +21,10 @@ CPU, end to end and frozen. With ``ocr.amp=bf16`` the conv blocks output
 bf16 on the card and one step is held against the CPU's bf16 and fp32
 steps (chip_smoke.check_amp_step). The heads kernels take every head count
 up to 8, every S up to 32 and D of 21, 100 and 512, under torch.func.vmap
-too, every tile and variant of their plan (ops.slot_routing.PLAN_SHAPES),
-and SlotAttention's three routes behave on the card as on the CPU."""
+too, every tile and variant of their plan (ops.slot_routing.PLAN_SHAPES);
+the streamed plan takes chip_smoke.WIDE_SHAPES (past 32 slots, past shared
+memory) and agrees with the other two plans where they run; SlotAttention's
+three routes behave on the card as on the CPU, past 32 slots too."""
 
 import math
 
@@ -206,9 +208,9 @@ def test_sweep_takes_every_slot_count_on_the_card(cuda, D):
 
 def _entries(S, D, H):
     """The launch counters of the C entry pair that takes the shape."""
-    if tsr.fast_path(S, D, H):
-        return tsr.KERNEL, tsr.BWD_KERNEL
-    return tsr.HEADS_KERNEL, tsr.HEADS_BWD_KERNEL
+    return {"fast": (tsr.KERNEL, tsr.BWD_KERNEL),
+            "heads": (tsr.HEADS_KERNEL, tsr.HEADS_BWD_KERNEL),
+            "wide": (tsr.WIDE_KERNEL, tsr.WIDE_BWD_KERNEL)}[tsr.sweep_plan(S, D, H)]
 
 
 @pytest.mark.cuda
@@ -296,12 +298,80 @@ def test_heads_plans_launch_every_tile_and_variant_on_the_card(cuda, S, H, D):
         assert torch.equal(g, y)
 
 
+# chip_smoke.WIDE_SHAPES, [B, N, S, H, D]: past 32 slots, past shared memory
+WIDE_SHAPES = [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192), (2, 333, 32, 8, 2048),
+               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35)]
+
+
+def _sweep_inputs(shape, seed):
+    B, N, S, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k, v, q = (torch.randn(s, device="cuda", generator=gen)
+               for s in ((B, N, D), (B, N, D), (B, S, D)))
+    cot = [torch.randn(s, device="cuda", generator=gen)
+           for s in ((B, H * S), (B, S, D), (B, N, H * S))]
+    return (k * (D // H) ** -0.5, v, q), cot
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 16, 4096, 5, 4, 192), (2, 3, 37, 24, 1, 256)])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_streamed_plan_matches_plain_on_the_card(cuda, shape):
+    """The streamed plan at WIDE_SHAPES: route_sweep and its gradient launch
+    slot_routing_wide_fwd and _bwd once each and match the plain sweep and
+    its autograd within 1e-5 of each output's largest entry; a second launch
+    of each gives bitwise the same outputs (segments summed in order, no
+    atomics)."""
+    B, N, S, H, D = shape
+    assert tsr.sweep_plan(S, D, H) == "wide"
+    inputs, cot = _sweep_inputs(shape, 13)
+    leaves = [x.clone().requires_grad_() for x in inputs]
+    reset_launches()
+    outs = tsr.route_sweep(*leaves, H)
+    got = torch.autograd.grad(outs, leaves, cot)
+    assert LAUNCHES == {tsr.WIDE_KERNEL: 1, tsr.WIDE_BWD_KERNEL: 1}
+    plain = [x.clone().requires_grad_() for x in inputs]
+    want_outs = tsr.route_sweep_reference(*plain, H)
+    want = torch.autograd.grad(want_outs, plain, cot)
+    g_a = (cot[2] + cot[0][:, None, :]).contiguous()
+    again = (*tsr.route_sweep(*inputs, H),
+             *tsr._sweep_bwd(*inputs, outs[2].detach(), cot[1], g_a, H))
+    torch.cuda.synchronize()
+    for g, w, y in zip((*outs, *got), (*want_outs, *want), again):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+        assert torch.equal(g, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 4096, 5, 4, 192), (24, 4096, 5, 1, 192),
+                                   (3, 37, 24, 1, 256)])
+def test_streamed_plan_agrees_with_the_other_plans_on_the_card(cuda, shape):
+    """The streamed entries forced at shapes the single-head or the heads
+    entries take hold to those entries' outputs and gradients within 1e-5
+    of each output's largest entry."""
+    B, N, S, H, D = shape
+    inputs, cot = _sweep_inputs(shape, 14)
+    g_a = (cot[2] + cot[0][:, None, :]).contiguous()
+    reset_launches()
+    wide = tsr._sweep_fwd(*inputs, H, plan="wide")
+    wide_grads = tsr._sweep_bwd(*inputs, wide[2], cot[1], g_a, H, plan="wide")
+    other = tsr._sweep_fwd(*inputs, H)
+    other_grads = tsr._sweep_bwd(*inputs, other[2], cot[1], g_a, H)
+    fwd, bwd = _entries(S, D, H)
+    assert LAUNCHES == {tsr.WIDE_KERNEL: 1, tsr.WIDE_BWD_KERNEL: 1, fwd: 1, bwd: 1}
+    assert fwd != tsr.WIDE_KERNEL
+    torch.cuda.synchronize()
+    for g, w in zip((*wide, *wide_grads), (*other, *other_grads)):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 4096, 5, 4, 192), (2, 3, 37, 24, 1, 256),
+                                   (3, 2, 37, 33, 1, 64)])
 def test_sweep_vmap_rule_with_heads_launches_once(cuda, shape):
-    """torch.func.vmap, and vmap of a vjp, of the sweep with heads over V
-    seeds launch one B3 (and one B4) at V * B rows, within 1e-5 of each
-    output's largest entry from V separate launches."""
+    """torch.func.vmap, and vmap of a vjp, of the sweep with heads (or past 32
+    slots: the streamed plan) over V seeds launch one B3 (and one B4) of the
+    shape's entry pair at V * B rows, within 1e-5 of each output's largest
+    entry from V separate launches."""
     from torch.func import vjp, vmap
 
     V, B, N, S, H, D = shape
@@ -333,7 +403,8 @@ def test_slot_attention_routes_on_the_card(cuda):
     """SlotAttention with 4 heads on the card: auto launches the heads
     forward once an iteration, never launches nothing and lies within the
     kernel route's tolerance of it (chip_smoke.NEVER_TOL), always raises as
-    JAX's does; past the kernels' range auto raises NotImplementedError."""
+    JAX's does; at 33 slots auto launches the streamed forward once an
+    iteration, within NEVER_TOL of never."""
     from chip_smoke import NEVER_TOL
 
     from ocrl_tpu_torch.models.slot_attention import SlotAttention
@@ -353,8 +424,16 @@ def test_slot_attention_routes_on_the_card(cuda):
         assert (got - want).abs().max() <= NEVER_TOL * want.abs().max()
     with pytest.raises(ValueError, match="ineligible"):
         SlotAttention(1, 5, 64, 192, 192, 4, fused="always").cuda()(x, s)
-    with pytest.raises(NotImplementedError, match="slots=33"):
-        SlotAttention(1, 33, 64, 64, 64, 1).cuda()(x, torch.randn(2, 33, 64, device="cuda"))
+    wide = {f: SlotAttention(3, 33, 64, 64, 64, 1, fused=f).cuda() for f in ("auto", "never")}
+    wide["never"].load_state_dict(wide["auto"].state_dict())
+    s33 = torch.randn(2, 33, 64, device="cuda")
+    for fused, module in wide.items():
+        reset_launches()
+        with torch.no_grad():
+            out[fused] = module(x, s33)
+        assert LAUNCHES == ({tsr.WIDE_KERNEL: 3} if fused == "auto" else {})
+    for got, want in zip(out["never"], out["auto"]):
+        assert (got - want).abs().max() <= NEVER_TOL * want.abs().max()
 
 
 @pytest.mark.cuda

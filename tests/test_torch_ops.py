@@ -58,13 +58,13 @@ def test_sweep_ragged_n_matches_jax_reference():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "rank", "v_shape", "q_width",
-                                 "slots", "width", "too_wide", "layout", "smem"])
+@pytest.mark.parametrize("bad", ["dtype", "rank", "v_shape", "q_width", "no_slots",
+                                 "width", "layout"])
 def test_sweep_rejects_what_the_kernel_does_not_take(bad):
-    """route_sweep refuses, before any launch, what no kernel takes: more
-    than 32 slots, a head count that does not divide D, a shape whose ring
-    of one token does not fit a block's shared memory (D = 8192, or 32 slots
-    of 2048), and malformed inputs."""
+    """route_sweep refuses, before any launch, malformed inputs: another
+    dtype or rank, v unlike k, q of another width, no slot, a head count that
+    does not divide D, a tensor that is not contiguous. Every well-formed
+    shape is taken (test_sweep_takes_what_the_heads_kernels_refused)."""
     k, v, q = (torch.from_numpy(x) for x in _inputs(2, 40, 5, 32, seed=0))
     heads = 1
     if bad == "dtype":
@@ -75,20 +75,116 @@ def test_sweep_rejects_what_the_kernel_does_not_take(bad):
         v, exc = v[:, :30].contiguous(), ValueError
     elif bad == "q_width":
         q, exc = torch.zeros(2, 5, 64), ValueError
-    elif bad == "slots":
-        q, exc = torch.zeros(2, 33, 32), ValueError
+    elif bad == "no_slots":
+        q, exc = torch.zeros(2, 0, 32), ValueError
     elif bad == "width":        # 3 heads do not divide 32 columns
         heads, exc = 3, ValueError
-    elif bad == "too_wide":     # k and v tiles and q over 227 KB
-        k, v, q, exc = torch.zeros(2, 40, 8192), torch.zeros(2, 40, 8192), \
-            torch.zeros(2, 5, 8192), ValueError
-    elif bad == "smem":         # 32 slots of 2048: q and g_av alone 512 KB
-        k, v, q, heads, exc = torch.zeros(2, 40, 2048), torch.zeros(2, 40, 2048), \
-            torch.zeros(2, 32, 2048), 8, ValueError
     else:
         k, exc = k.transpose(0, 1).contiguous().transpose(0, 1), ValueError
     with pytest.raises(exc):
         tsr.route_sweep(k, v, q, heads)
+
+
+def definition_sweep(k, v, q, H):
+    """S_a, A_v and a from their definition in float64, head by head."""
+    k, v, q = (x.astype(np.float64) for x in (k, v, q))
+    B, N, D = k.shape
+    S, hd = q.shape[1], D // H
+    logits = np.concatenate([np.einsum("bnc,bsc->bns", k[..., h * hd:(h + 1) * hd],
+                                       q[..., h * hd:(h + 1) * hd]) for h in range(H)], -1)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    a = e / e.sum(-1, keepdims=True)
+    av = np.concatenate([np.einsum("bns,bnc->bsc", a[..., h * S:(h + 1) * S],
+                                   v[..., h * hd:(h + 1) * hd]) for h in range(H)], -1)
+    return a.sum(1), av, a
+
+
+@pytest.mark.parametrize("case", ["slots", "too_wide", "smem"])
+def test_sweep_takes_what_the_heads_kernels_refused(case):
+    """Shapes the heads kernels refuse go to the streamed plan ("wide"), and
+    route_sweep takes them and matches the definition in float64 within
+    1e-5 of each output's largest entry (the card checks' rule): 33 slots; D = 8192 at one head (k and v tiles and q
+    over 227 KB); 32 slots of 2048 in 8 heads (303,488 bytes at one token)."""
+    S, D, H = {"slots": (33, 32, 1), "too_wide": (5, 8192, 1), "smem": (32, 2048, 8)}[case]
+    assert tsr.sweep_plan(S, D, H) == "wide" and tsr.sweep_supports(S, D, H)
+    k, v, q = _inputs(2, 40, S, D, seed=S)
+    k = (k * (D / (D // H)) ** 0.5).astype(np.float32)   # pre-scaled by (D / H)^-0.5
+    got = tsr.route_sweep(*map(torch.from_numpy, (k, v, q)), H)
+    for name, g, w in zip(("S_a", "A_v", "a"), got, definition_sweep(k, v, q, H)):
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("D", [21, 40])
+@pytest.mark.parametrize("S", [33, 64, 65])
+def test_sweep_past_32_slots_matches_jax(S, D):
+    """The op at one head past the heads kernels' 32 slots (the streamed
+    plan's shapes) against JAX's route_sweep in interpret mode over 4
+    chunks, its outputs and the VJP of all three, within 1e-5."""
+    B, N = 2, 64
+    assert tsr.sweep_plan(S, D) == "wide"
+    k, v, q = _inputs(B, N, S, D, seed=S * 100 + D)
+    rng = np.random.default_rng(S + D)
+    cots = [rng.standard_normal(s).astype(np.float32) for s in ((B, S), (B, S, D), (B, N, S))]
+
+    @jax.jit
+    def jax_side(k, v, q, cots):
+        want, vjp = jax.vjp(lambda *x: jsr.route_sweep(jsr.pick_chunk(N, target=16), *x),
+                            k, v, q)
+        return want, vjp(cots)
+
+    with jax.default_matmul_precision("highest"):
+        want, want_grads = jax_side(k, v, q, tuple(cots))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (k, v, q)]
+    got = tsr.route_sweep(*leaves)
+    grads = torch.autograd.grad(got, leaves, [torch.from_numpy(c) for c in cots])
+    for name, g, w in zip(("S_a", "A_v", "a", "gk", "gv", "gq"), (*got, *grads),
+                          (*want, *want_grads)):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+def test_sweep_plan_mirrors_the_entries():
+    """sweep_plan names the C entry pair that takes each shape: "fast" where
+    fast_path holds, "heads" where the heads entries plan it (1 <= S <= 32
+    and both heads plans found within the card's shared memory), "wide"
+    everywhere else; and every S >= 1 with H dividing D is supported."""
+    seen = set()
+    for S in (1, 5, 16, 17, 32, 33, 64, 65, 200):
+        for H in (1, 2, 3, 8, 16):
+            for D in (H, 21 * H, 32, 96, 192, 256, 512, 1536, 2048, 2100, 4096, 8192):
+                if D % H:
+                    assert not tsr.sweep_supports(S, D, H)
+                    continue
+                assert tsr.sweep_supports(S, D, H)
+                heads = S <= tsr.MAX_SLOTS and tsr.heads_plan(S, D, H, True) is not None \
+                    and tsr.heads_plan(S, D, H, False) is not None
+                want = "fast" if tsr.fast_path(S, D, H) else "heads" if heads else "wide"
+                assert tsr.sweep_plan(S, D, H) == want, (S, D, H)
+                seen.add(want)
+    assert seen == {"fast", "heads", "wide"}
+    assert not tsr.sweep_supports(0, 32, 1)
+    assert [tsr.sweep_plan(*x) for x in ((5, 192, 1), (5, 192, 4), (24, 256, 1), (64, 192, 1),
+                                         (33, 192, 1), (32, 2048, 8), (5, 8192, 1))] == \
+        ["fast", "heads", "heads", "wide", "wide", "wide", "wide"]
+
+
+@pytest.mark.parametrize("B,N,S,H,D", [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192),
+                                       (2, 333, 32, 8, 2048), (2, 40, 5, 1, 8192),
+                                       (3, 37, 65, 5, 35), (1, 5, 1, 1, 1)])
+def test_wide_segments_fill_the_card(B, N, S, H, D):
+    """The streamed plan's token sums: between one segment and one per
+    WIDE_MIN_SEGMENT tokens, at least WIDE_BLOCKS_PER_SM blocks an SM
+    where the rows allow it, and every token in exactly one segment (csrc:
+    wide_sums_kernel cuts a row into pieces of ceil(N / segments))."""
+    sms = 132
+    segments = tsr.wide_segments(B, N, S, D, H, sms)
+    tiles = B * H * -(-S // tsr.WIDE_TILE) * -(-(D // H) // tsr.WIDE_TILE)
+    most = max(1, -(-N // tsr.WIDE_MIN_SEGMENT))
+    assert 1 <= segments <= most
+    assert tiles * segments >= tsr.WIDE_BLOCKS_PER_SM * sms or segments == most
+    seg = -(-N // segments)
+    covered = [t for g in range(segments) for t in range(min(N, g * seg), min(N, g * seg + seg))]
+    assert covered == list(range(N))
 
 
 def block_range(g: int, G: int, BN: int) -> tuple[int, int]:
@@ -151,8 +247,7 @@ def test_sweep_supports_and_tiles():
     memory: everywhere with H <= 8 and D <= 1536 (each C entry then chooses
     a tile that fits: the card-only tests launch every S at the narrowest
     and widest D, H up to 8 at D = 21, 100 and 512, and every plan of
-    PLAN_SHAPES); route_sweep rejects the rest before any launch, naming the
-    bytes a shape needs. Each plan is the largest tile whose ring fits (the
+    PLAN_SHAPES); the streamed plan takes the rest (sweep_plan). Each plan is the largest tile whose ring fits (the
     backward with 3 stages where they fit), in the registers variant where
     the column items fill at most 256 threads and their token groups' buffer
     fits too."""
@@ -162,11 +257,18 @@ def test_sweep_supports_and_tiles():
                 fast = H == 1 and 1 <= S <= 16 and D % 32 == 0 and D <= 256
                 heads = 1 <= S <= 32 and D % H == 0
                 assert tsr.fast_path(S, D, H) == fast, (S, D, H)
-                assert tsr.sweep_supports(S, D, H) == (fast or heads), (S, D, H)
+                assert tsr.sweep_supports(S, D, H) == (S >= 1 and D % H == 0), (S, D, H)
+                # 33 slots, or a ring of one token over shared memory: streamed
+                fits = heads and tsr.needed_bytes(S, D, H) <= tsr.SMEM_LIMIT
+                want = "fast" if fast else "heads" if fits else "wide"
+                assert fits or not heads or H > 8, (S, D, H)   # H <= 8, D < 600 fit
+                if tsr.sweep_supports(S, D, H):
+                    assert tsr.sweep_plan(S, D, H) == want, (S, D, H)
     for S, D, H, fits in [(32, 512, 8, True), (32, 1536, 8, True), (32, 2048, 8, False),
                           (16, 1024, 8, True), (16, 4096, 8, False), (5, 4096, 1, True),
                           (5, 8192, 1, False), (1, 4096, 64, True)]:
-        assert tsr.sweep_supports(S, D, H) == fits, (S, D, H)
+        assert tsr.sweep_supports(S, D, H), (S, D, H)     # the streamed plan takes the rest
+        assert (tsr.sweep_plan(S, D, H) == "heads") == fits, (S, D, H)
         assert (tsr.needed_bytes(S, D, H) <= tsr.SMEM_LIMIT) == fits, (S, D, H)
     # the tiles the C entries choose where they have room, and at the corner
     assert heads_plan(5, 192, 4) == ((64, 2), (48, 2))
@@ -189,9 +291,10 @@ def test_sweep_supports_and_tiles():
             bigger = [T for T in tsr.HEADS_TILES if T > p.T]
             assert all(size(S, D, H, T, 2) > tsr.SMEM_LIMIT for T in bigger), (S, D, H)
             assert 1 <= p.groups <= 16 if p.items <= 256 else p.groups == 0
-    with pytest.raises(ValueError, match="needs 303488 bytes"):
-        tsr.route_sweep(torch.zeros(1, 3, 2048), torch.zeros(1, 3, 2048),
-                        torch.zeros(1, 32, 2048), 8)
+    assert tsr.needed_bytes(32, 2048, 8) == 303488      # past the heads kernels: streamed
+    sa, _, _ = tsr.route_sweep(torch.zeros(1, 3, 2048), torch.zeros(1, 3, 2048),
+                               torch.zeros(1, 32, 2048), 8)
+    torch.testing.assert_close(sa, torch.full((1, 256), 3 / 256))
     k, v, q = torch.zeros(1, 3, 512), torch.zeros(1, 3, 512), torch.zeros(1, 32, 512)
     sa, av, a = tsr.route_sweep(k, v, q, 8)    # the corner of the range, on the CPU
     assert sa.shape == (1, 256) and av.shape == (1, 32, 512) and a.shape == (1, 3, 256)
@@ -227,11 +330,11 @@ def test_heads_kernels_take_every_shape_the_first_design_took():
             edge = range(max(H, D - 8 * H), D + 1, H)
             for d in (*range(H, D + 1, H * 37), *edge):
                 assert first_design_bytes(S, d, H) <= tsr.SMEM_LIMIT
-                assert tsr.sweep_supports(S, d, H), (S, d, H)
+                assert tsr.sweep_plan(S, d, H) != "wide", (S, d, H)
                 assert tsr.heads_plan(S, d, H, True) and tsr.heads_plan(S, d, H, False)
             if H <= 8:
                 for d in range(H, 513, H):
-                    assert tsr.sweep_supports(S, d, H), (S, d, H)
+                    assert tsr.sweep_plan(S, d, H) != "wide", (S, d, H)
 
 
 def test_plan_shapes_cover_every_choice_of_the_plan():
@@ -252,7 +355,7 @@ def test_plan_shapes_cover_every_choice_of_the_plan():
     for S in (1, 3, 5, 8, 9, 12, 16, 17, 24, 25, 32):
         for H in (1, 2, 3, 4, 8):
             for D in range(H, 2100, H):
-                if not tsr.fast_path(S, D, H) and tsr.sweep_supports(S, D, H):
+                if tsr.sweep_plan(S, D, H) == "heads" and D % H == 0:
                     every |= choices(S, D, H)
     covered = set().union(*(choices(S, D, H) for S, H, D in tsr.PLAN_SHAPES))
     assert covered == every, every - covered
@@ -279,7 +382,8 @@ def _c_signatures(source: str) -> dict[str, list[str]]:
 @pytest.mark.parametrize("module,source,name", [
     (tsr, "slot_routing.cu", tsr.KERNEL), (tsr, "slot_routing.cu", tsr.BWD_KERNEL),
     (tsr, "slot_routing.cu", tsr.HEADS_KERNEL), (tsr, "slot_routing.cu", tsr.HEADS_BWD_KERNEL),
-    (tsr, "slot_routing.cu", tsr.HEADS_PLAN),
+    (tsr, "slot_routing.cu", tsr.HEADS_PLAN), (tsr, "slot_routing.cu", tsr.WIDE_KERNEL),
+    (tsr, "slot_routing.cu", tsr.WIDE_BWD_KERNEL),
     (tgumbel, "gumbel.cu", tgumbel.SOFT_KERNEL), (tgumbel, "gumbel.cu", tgumbel.IDS_KERNEL)])
 def test_ctypes_argtypes_match_the_c_signatures(module, source, name):
     """A wrong ctypes argtype shows only on the card (a pointer cut to 32

@@ -5,20 +5,22 @@ card: tests/test_torch_cuda.py, chip_smoke.py).
 
 (i) the sweep at one head with S in {17, 24, 32} and D in {21, 40, 100}
     against JAX's ``route_sweep`` in interpret mode, its outputs and its
-    custom VJP;
+    custom VJP (past 32 slots: tests/test_torch_ops.py);
 (ii) ``SlotAttention`` with 2, 3 and 4 heads (a head width of 7 included)
-    against JAX's einsum route, and with 20 slots at odd widths against
-    JAX's ``fused=always`` (the Pallas sweep in interpret mode): slots,
-    attention and every parameter's gradient of a loss of the slots;
+    and with 40 slots in 2 heads against JAX's einsum route, and with 20, 33
+    and 64 slots at odd widths against JAX's ``fused=always`` (the Pallas
+    sweep in interpret mode): slots, attention and every parameter's
+    gradient of a loss of the slots;
 (iii) one SLATE ``OCR.update`` with ``num_slot_heads=2`` and one with
     ``num_slots=20`` at small width against JAX's step, from the same
     weights and draws;
 (iv) the port's ``fused=always`` raising exactly where JAX's raises, and a
     JAX tree with heads carried by ``utils/convert.py`` as it stands.
 Besides: the plain sweep with heads against a float64 loop over the
-definition, ``torch.func.vmap`` of it, what ``auto`` and ``never`` do past
-the kernels' range, and the C source's constants that ``ops.slot_routing``
-mirrors.
+definition, ``torch.func.vmap`` of it, the vmap rules with heads and with
+the streamed plan's entries (host twins of the C entries), every route past
+the heads kernels' range, and the C source's constants that
+``ops.slot_routing`` mirrors.
 
 Tolerance STACK (rtol 1e-4, atol 1e-5, as tests/test_torch_models.py): the
 two frameworks sum the dot products and the token sums in other orders, and
@@ -28,6 +30,7 @@ tests/test_torch_train.py's rules (metrics 1e-5 relative, each gradient to
 their change over the lr to 1e-2).
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -49,7 +52,8 @@ from ocrl_tpu.ops import slot_routing as jsr
 from ocrl_tpu_torch import config as tcfg
 from ocrl_tpu_torch.models import create_ocr
 from ocrl_tpu_torch.models.slate import GROUP_OF
-from ocrl_tpu_torch.models.slot_attention import SlotAttention
+from ocrl_tpu_torch.models.slot_attention import FUSED_MODES, SlotAttention
+from ocrl_tpu_torch.ops import LAUNCHES, _build, reset_launches
 from ocrl_tpu_torch.ops import slot_routing as tsr
 from ocrl_tpu_torch.utils.convert import attention_heads, from_flax, ocr_from_flax, ocr_to_flax
 
@@ -195,6 +199,75 @@ def test_vmap_rules_pass_the_heads_through(monkeypatch):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
+def _host(ptr: int, shape) -> torch.Tensor:
+    """The float32 tensor of ``shape`` at a host address (a CPU tensor's
+    data_ptr), sharing its memory."""
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+                            .reshape(shape))
+
+
+def test_vmap_rules_serve_the_streamed_plan(monkeypatch):
+    """The vmap rules fold the seeds into the batch for the streamed plan's
+    C entries as for the others: at 33 slots in 3 heads, vmap over V seeds
+    launches slot_routing_wide_fwd once at V * B rows, vmap(grad) one
+    forward and one backward, each given the segments wide_segments chooses
+    for V * B rows, with the plain sweep's values. The entries are host
+    twins that read and write the wrapper's CPU tensors through the
+    pointers, ints and argument order the wrapper passes."""
+    from torch.func import grad, vmap
+
+    seen = []
+
+    def wide_fwd(k, v, q, a, sa, av, scratch, B, N, S, D, H, segments, stream):
+        seen.append(("fwd", B, segments))
+        want = tsr.route_sweep_reference(*(_host(p, s) for p, s in (
+            (k, (B, N, D)), (v, (B, N, D)), (q, (B, S, D)))), H)
+        for p, shape, w in zip((sa, av, a), ((B, H * S), (B, S, D), (B, N, H * S)), want):
+            _host(p, shape).copy_(w)
+        return 0
+
+    def wide_bwd(k, v, a, q, g_av, g_a, gk, gv, gq, scratch, work, B, N, S, D, H, segments,
+                 stream):
+        seen.append(("bwd", B, segments))
+        shapes = ((B, N, D), (B, N, D), (B, S, D))
+        leaves = [_host(p, s).clone().requires_grad_() for p, s in zip((k, v, q), shapes)]
+        with torch.enable_grad():
+            _, av, a2 = tsr.route_sweep_reference(*leaves, H)
+            grads = torch.autograd.grad((av, a2), leaves,
+                                        (_host(g_av, (B, S, D)), _host(g_a, (B, N, H * S))))
+        for p, shape, g in zip((gk, gv, gq), shapes, grads):
+            _host(p, shape).copy_(g)
+        return 0
+
+    entries = {tsr.WIDE_KERNEL: wide_fwd, tsr.WIDE_BWD_KERNEL: wide_bwd}
+    monkeypatch.setattr(tsr, "_entry", entries.__getitem__)
+    monkeypatch.setattr(tsr, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(tsr._build, "launch_on",
+                        lambda device, kernel, fn, *args: _build.launch(kernel, fn, *args, None))
+    V, B, N, S, H, D = 3, 2, 10, 33, 3, 21
+    assert tsr.sweep_plan(S, D, H) == "wide"
+    segments = tsr.wide_segments(V * B, N, S, D, H, 132)
+    k, v = (torch.from_numpy(rand(V, B, N, D, seed=s)) for s in (11, 12))
+    q = torch.from_numpy(rand(V, B, S, D, seed=13))
+
+    def loss(sweep):
+        return lambda k, v, q: sum(x.square().sum() for x in sweep(k, v, q, H))
+
+    reset_launches()
+    outs = vmap(tsr._RouteSweep.apply, in_dims=(0, 0, 0, None))(k, v, q, H)
+    assert LAUNCHES == {tsr.WIDE_KERNEL: 1} and seen == [("fwd", V * B, segments)]
+    reset_launches()
+    seen.clear()
+    grads = vmap(grad(loss(tsr._RouteSweep.apply), argnums=(0, 1, 2)))(k, v, q)
+    assert LAUNCHES == {tsr.WIDE_KERNEL: 1, tsr.WIDE_BWD_KERNEL: 1}
+    assert seen == [("fwd", V * B, segments), ("bwd", V * B, segments)]
+    want = vmap(lambda k, v, q: tsr.route_sweep_reference(k, v, q, H))(k, v, q)
+    want_grads = vmap(grad(loss(tsr.route_sweep_reference), argnums=(0, 1, 2)))(k, v, q)
+    for g, w in zip((*outs, *grads), (*want, *want_grads)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
 # -- (ii) SlotAttention against JAX ------------------------------------------
 
 _JAX_SIDES = {}
@@ -258,6 +331,21 @@ def test_twenty_slots_match_jax_always(D):
     _check_forward_and_gradients(*_slot_attention_pair(20, D, 1, "always", "auto"))
 
 
+@pytest.mark.parametrize("S,port_fused", [(33, "always"), (33, "auto"), (64, "auto")])
+def test_past_32_slots_match_jax_always(S, port_fused):
+    """Past the heads kernels' 32 slots (the streamed plan on the card): JAX's
+    fused=always (the Pallas sweep in interpret mode, N = 64 in chunks)
+    against the port's always and auto, at a width of 21."""
+    _check_forward_and_gradients(*_slot_attention_pair(S, 21, 1, "always", port_fused))
+
+
+def test_forty_slots_in_two_heads_match_jax():
+    """40 slots in 2 heads of 16: JAX's einsum route (its auto, more than one
+    head) against the port's auto, the sweep (the streamed plan on the
+    card)."""
+    _check_forward_and_gradients(*_slot_attention_pair(40, 32, 2, "auto", "auto"))
+
+
 # -- (iv) where fused=always raises, and the routes past the kernels' range ----
 
 @pytest.mark.parametrize("H,N", [(1, 64), (1, 24), (1, 12), (1, 4), (1, 50), (2, 64),
@@ -316,21 +404,28 @@ def test_a_jax_tree_with_heads_converts():
 
 
 def test_past_the_kernels_range():
-    """Past the kernels' range (33 slots): auto takes the einsum route on the
-    CPU, never does anywhere, always raises NotImplementedError naming the
-    shape (and auto does too on a CUDA tensor: no silent second route)."""
+    """Past the heads kernels' range (33 slots) every route runs, as in JAX:
+    auto and always take the sweep once an iteration (the streamed plan on
+    the card, sweep_plan), never takes the einsum route, and all three
+    agree (STACK); no route raises."""
     x, s = torch.from_numpy(rand(1, 16, 8)), torch.from_numpy(rand(1, 33, 32))
-    for fused in ("auto", "never"):
-        out, attn = SlotAttention(1, 33, 8, 32, 32, 1, fused=fused)(x, s)
-        assert out.shape == (1, 33, 32) and attn.shape == (1, 16, 33)
-    with pytest.raises(NotImplementedError, match="slots=33"):
-        SlotAttention(1, 33, 8, 32, 32, 1, fused="always")(x, s)
-    assert SlotAttention(1, 33, 8, 32, 32, 1)._use_sweep(torch.device("cpu"), 16) is False
-    with pytest.raises(NotImplementedError, match="slots=33"):
-        SlotAttention(1, 33, 8, 32, 32, 1)._use_sweep(torch.device("cuda"), 16)
-    assert SlotAttention(1, 32, 8, 512, 32, 8)._use_sweep(torch.device("cuda"), 16)
-    assert not SlotAttention(1, 32, 8, 512, 32, 8, fused="never")._use_sweep(
-        torch.device("cuda"), 16)
+    assert tsr.sweep_plan(33, 32, 1) == "wide"
+    state = SlotAttention(2, 33, 8, 32, 32, 1).state_dict()
+    out = {}
+    for fused in FUSED_MODES:
+        module = SlotAttention(2, 33, 8, 32, 32, 1, fused=fused)
+        module.load_state_dict(state)
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tsr, "route_sweep",
+                       lambda *a: calls.append(a) or tsr.route_sweep_reference(*a))
+            out[fused] = module(x, s)
+        assert out[fused][0].shape == (1, 33, 32) and out[fused][1].shape == (1, 16, 33)
+        assert len(calls) == (0 if fused == "never" else 2), fused
+        assert module._use_sweep(16) == (fused != "never")
+    for fused in ("auto", "always"):
+        for got, want in zip(out[fused], out["never"]):
+            close(got, want.detach().numpy())
 
 
 def test_source_constants_match_the_wrapper():
@@ -354,6 +449,7 @@ def test_source_constants_match_the_wrapper():
     assert int(const("kConsumers")) == tsr.CONSUMERS
     assert const("kFwdTiles") == "{64, 48, 32, 24, 16, 8}"
     assert int(const("kHeaderBytes")) == 128
+    assert int(const("kWideTile")) == tsr.WIDE_TILE
 
 
 # -- (iii) one SLATE update with heads, and with 20 slots ----------------------
