@@ -30,9 +30,13 @@ Phases, each printing its own line with its seconds:
    token groups or the scratch variant; slot_routing_heads_plan), which
    must equal the wrapper's mirror; the streamed plan (B3'' and B4'' for
    every shape the heads kernels refuse: slot_routing_wide_fwd / _bwd) at
-   WIDE_SHAPES, each against its plain version with its bound and a second
-   launch bitwise equal, and forced at WIDE_FORCED against the heads
-   entries;
+   WIDE_SHAPES, after the plan their C entries choose there (tile extents,
+   the softmax / dl in the logits' epilogue or a row kernel, pieces of the
+   columns, token tiles, segments, blocks an SM; slot_routing_wide_plan),
+   which must equal the wrapper's mirror, with the card's occupancy at
+   least the blocks an SM the plan assumes; each against its plain version
+   with its bound and a second launch bitwise equal, and forced at
+   WIDE_FORCED against the heads entries;
 4. serving: the full-width slate-transformer policy (seed 0) answers
    PPO.predict requests at 16 and at 64 observations; the launch counts are
    reset just before and read just after, and two requests are checked
@@ -172,7 +176,10 @@ Phases, each printing its own line with its seconds:
    and Adam moments), one classifier step at 128 (the parameters held to
    PROBE_TOL where a float64 replay of the CPU step makes an entry sure, the
    rest to Adam's bound; at most MOVED_SHARE of a leaf may leave the fp32
-   rule's sure entries: sure_entries), and one aux-loss Pooling
+   rule's sure entries: sure_entries; the property head's entries that
+   depend on which side of a leaky ReLU's kink fp32 rounding put an input
+   within KINK_TOL of it are held to Adam's bound and not counted as
+   moved), and one aux-loss Pooling
    call at 24 (dropout 0; B1's and B2's fields replayed from their seeds by
    ops.gumbel.replay_field for the CPU); B3 at B = 128 against the plain
    sweep, bitwise repeatable, timed beside its bound. --profile adds the
@@ -459,6 +466,13 @@ PROBE_ENV, PROBE_TRAIN, PROBE_VAL, PROBE_TIMED, PROBE_TOL = \
 # The probes' first Adam steps: the float64 rule of sure entries may move at
 # most this share of a leaf's entries out of the fp32 rule's sure ones.
 MOVED_SHARE = 0.01
+# The property head's leaky-ReLU inputs: one within KINK_TOL of its scale
+# sum |w x| + |b| (float64) may lie on either side of the kink in an fp32
+# run, which changes its row's gradient through it by 99 %. KINK_TOL is
+# over ten times the largest error of these inputs, on the card and on the
+# CPU, that scripts/probe_kinks.py measures. HEAD_LEAK is the head's slope
+# below the kink (utils/property_predictor.py Head).
+KINK_TOL, HEAD_LEAK = 1e-5, 0.01
 PROBE_PP_ARGV = ["ocr=slate", f"dataset={PROBE_ENV}", "batch_size=24", "max_epochs=1"]
 PROBE_CL_ARGV = ["ocr=slate", "pooling=transformer", f"dataset={PROBE_ENV}",
                  "batch_size=128", "max_epochs=1"]
@@ -518,10 +532,13 @@ HEADS_SHAPES = [(24, 4096, 5, 4, 192), (24, 4096, 24, 1, 256), (24, 4096, 7, 1, 
 # The streamed plan's shapes [B, N, S, H, D]: slate-slots64 first (its
 # numbers go to the kernels line), 33 slots, what the heads kernels refuse
 # for shared memory (303,488 bytes at one token; one head of 8192), odd
-# widths past 64 slots; and a heads shape the streamed entries are forced
-# at, held against the heads entries.
+# widths past 64 slots; the widest H S whose softmax / dl the logits'
+# epilogue takes (128), one past it (the row kernels), a slot extent of 96;
+# and a heads shape the streamed entries are forced at, held against the
+# heads entries.
 WIDE_SHAPES = [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192), (2, 333, 32, 8, 2048),
-               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35)]
+               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35), (24, 4096, 128, 1, 192),
+               (24, 4096, 129, 1, 192), (24, 4096, 96, 1, 192)]
 WIDE_FORCED = (24, 4096, 5, 4, 192)
 
 # Published rates (NVIDIA data sheets, dense, at the full power limit):
@@ -687,21 +704,32 @@ def sweep_shape(shape) -> tuple[int, int, int, int, int, str]:
 
 
 # (B3's counter, its kernels' names, B4's counter, its kernels' names) of
-# each plan's C entry pair, the row sums aside (kernel_profile)
+# each plan's C entry pair, the row sums aside (kernel_profile); the
+# streamed plan's where the logits' epilogue takes the softmax / dl, and
+# WIDE_ROWS beside them where it does not
 SWEEP_KERNELS = {
     "fast": (slot_routing.KERNEL, "sweep_fwd_kernel", slot_routing.BWD_KERNEL,
              "sweep_bwd_kernel"),
     "heads": (slot_routing.HEADS_KERNEL, "heads_fwd_kernel", slot_routing.HEADS_BWD_KERNEL,
               "heads_bwd_kernel"),
-    "wide": (slot_routing.WIDE_KERNEL,
-             "wide_pairs_kernel + wide_softmax_kernel + wide_sums_kernel",
+    "wide": (slot_routing.WIDE_KERNEL, "wide_pairs_kernel + wide_sums_kernel",
              slot_routing.WIDE_BWD_KERNEL,
-             "wide_pairs_kernel + wide_dl_kernel + wide_tokens_kernel + wide_sums_kernel")}
+             "wide_pairs_kernel + wide_tokens_kernel + wide_sums_kernel")}
+WIDE_ROWS = "wide_rows_kernel"
 
 
-def sweep_kernels(S: int, D: int, H: int) -> tuple[str, str, str, str]:
-    """SWEEP_KERNELS of the C entry pair that takes the shape."""
-    return SWEEP_KERNELS[slot_routing.sweep_plan(S, D, H)]
+def sweep_kernels(S: int, D: int, H: int, B: int = 1, N: int = 1) -> tuple[str, str, str, str]:
+    """SWEEP_KERNELS of the C entry pair that takes the shape (at B rows of
+    N tokens, which the streamed plan's choice of kernels depends on)."""
+    plan = slot_routing.sweep_plan(S, D, H)
+    fwd, fwd_names, bwd, bwd_names = SWEEP_KERNELS[plan]
+    if plan == "wide" and not slot_routing.wide_plan(
+            B, N, S, D, H, slot_routing._num_sms(torch.cuda.current_device())).fused:
+        first, rest = fwd_names.split(" + ", 1)
+        fwd_names = f"{first} + {WIDE_ROWS} + {rest}"
+        first, rest = bwd_names.split(" + ", 1)
+        bwd_names = f"{first} + {WIDE_ROWS} + {rest}"
+    return fwd, fwd_names, bwd, bwd_names
 
 
 def plan_text(p) -> str:
@@ -725,9 +753,34 @@ def check_heads_plans() -> None:
             raise SystemExit(f"the heads plan at S={S} D={D} H={H} differs from its mirror")
 
 
+def check_wide_plans() -> None:
+    """The plans the streamed C entries choose on this card at WIDE_SHAPES
+    and WIDE_FORCED, printed; each must equal the wrapper's mirror
+    (slot_routing.wide_plan), and the card's occupancy calculator must give
+    each kernel at least the blocks an SM the plan assumes."""
+    sms = slot_routing._num_sms(torch.cuda.current_device())
+    for B, N, S, H, D in WIDE_SHAPES + [WIDE_FORCED]:
+        plan, occupancy = slot_routing.card_wide_plan(B, N, S, D, H)
+        mirror = slot_routing.wide_plan(B, N, S, D, H, sms)
+        assumed = (plan.pairs_blocks, plan.tokens_blocks, plan.sums_blocks)
+        ok = plan == mirror and all(o >= a for o, a in zip(occupancy, assumed))
+        print(f"  streamed plan B={B} N={N} S={S} D={D} H={H}: slots {plan.slot_extent}, "
+              f"columns {plan.col_extent} a tile; logits {plan.pairs_tokens} tokens a tile, "
+              + ("softmax / dl in their epilogue" if plan.fused else "the row kernels")
+              + f", {plan.pieces} pieces of {plan.per} slabs; gv / gk {plan.tokens_tokens} "
+              f"tokens x {plan.tokens_cols} columns a tile; {plan.segments} segments; blocks "
+              f"an SM assumed {assumed}, the "
+              f"card's occupancy {occupancy}; "
+              f"{'as the wrapper mirrors it' if ok else 'NOT AS THE WRAPPER MIRRORS IT'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"the streamed plan at {(B, N, S, H, D)} differs from its mirror "
+                             f"or the card holds fewer blocks than it assumes")
+
+
 def check_sweep(shape, bw, flops, gen):
     B, N, S, H, D, named = sweep_shape(shape)
-    counter, kernel_name = sweep_kernels(S, D, H)[:2]
+    counter, kernel_name = sweep_kernels(S, D, H, B, N)[:2]
     k = torch.randn(B, N, D, device="cuda", generator=gen) * (D // H) ** -0.5
     v = torch.randn(B, N, D, device="cuda", generator=gen)
     q = torch.randn(B, S, D, device="cuda", generator=gen)
@@ -998,7 +1051,7 @@ def report_ptxas(names: list[str]) -> None:
 def check_sweep_bwd(shape, bw, flops, gen):
     """B4 against autograd of the plain sweep, given the same cotangents."""
     B, N, S, H, D, named = sweep_shape(shape)
-    counter, kernel_name = sweep_kernels(S, D, H)[2:]
+    counter, kernel_name = sweep_kernels(S, D, H, B, N)[2:]
     k = torch.randn(B, N, D, device="cuda", generator=gen) * (D // H) ** -0.5
     v = torch.randn(B, N, D, device="cuda", generator=gen)
     q = torch.randn(B, S, D, device="cuda", generator=gen)
@@ -1883,26 +1936,41 @@ def pretraining_noise(ocr_cfg, env_cfg, B: int, rng) -> dict:
                                         ocr_cfg.slot_size)).astype(np.float32)}
 
 
-def sure_entries(grads: dict, grads64: dict | None = None) -> tuple[dict, dict]:
+def sure_entries(grads: dict, grads64: dict | None = None,
+                 kinks: tuple | list = ()) -> tuple[dict, dict]:
     """Which entries of a first step's gradient (numpy by name) are sure, by
     name: where the gradient exceeds PRETRAIN_SURE of its leaf's largest and
     STEP_GRAD_FLOOR of the model's. With ``grads64``, the same step's
     gradient from a float64 run, an entry is sure only where the float64
     gradient clears both and the fp32 one lies within half of it: only then
-    do the data, and not rounding, set its sign and size. Returns (the
-    masks, the count of entries of each leaf that the float64 rule moved out
-    of the fp32 rule's sure ones)."""
+    do the data, and not rounding, set its sign and size. ``kinks``: the
+    float64 gradient again with one activation input that lies within
+    rounding of its kink taken on the kink's other side, one dict each
+    (``property_grads64``); an entry is sure only where every one of them
+    keeps it too. Returns (the masks, the count of entries of each leaf that
+    the float64 rule moved out of the fp32 rule's sure ones and that neither
+    the float64 gradient nor any of ``kinks`` keeps: an entry that some
+    kink's side keeps is set by where fp32 rounding put that input, not
+    moved)."""
     def rule(gs: dict) -> dict:
         top = max(float(np.abs(g).max(initial=0.0)) for g in gs.values())
         return {n: (np.abs(g) > PRETRAIN_SURE * np.abs(g).max(initial=0.0))
                 & (np.abs(g) > STEP_GRAD_FLOOR * top) for n, g in gs.items()}
+
+    def keeps(gs: dict) -> dict:
+        ruled = rule(gs)
+        return {n: ruled[n] & (np.abs(grads[n] - gs[n]) <= 0.5 * np.abs(gs[n])) for n in grads}
+
     sure = rule(grads)
     if grads64 is None:
         return sure, {}
-    sure64 = rule(grads64)
-    kept = {n: sure64[n] & (np.abs(grads[n] - grads64[n]) <= 0.5 * np.abs(grads64[n]))
-            for n in grads}
-    return kept, {n: int((sure[n] & ~kept[n]).sum()) for n in grads}
+    kept = keeps(grads64)
+    some = dict(kept)
+    for variant in kinks:
+        by = keeps(variant)
+        kept = {n: kept[n] & by[n] for n in grads}
+        some = {n: some[n] | by[n] for n in grads}
+    return kept, {n: int((sure[n] & ~some[n]).sum()) for n in grads}
 
 
 def first_step_gap(grads: dict, start: dict, card: dict, cpu: dict, groups: dict,
@@ -3311,14 +3379,16 @@ def adam_side(named, optimizer) -> dict:
 
 
 def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float, grads64: dict,
-                        b1: float = 0.9) -> tuple[float, int, bool, str, dict]:
+                        kinks: tuple | list = (), b1: float = 0.9
+                        ) -> tuple[float, int, bool, str, dict, int]:
     """Two sides' first Adam step (``adam_side``) from the same ``init``:
     (the worst deviation over max(|x|, 1) of the moments, and of the
     parameters under ``first_step_gap``'s rule, the CPU's gradient being
     its mu / (1 - b1) and the sure entries decided with ``grads64``, the
-    step's float64 gradient (``sure_entries``); the count of the entries
-    held to Adam's bound lr; whether all are; the worst leaf; by leaf, the
-    entries the float64 rule moved out of the sure ones)."""
+    step's float64 gradient, and ``kinks`` (``sure_entries``); the count of
+    the entries held to Adam's bound lr; whether all are; the worst leaf; by
+    leaf, the entries the float64 rule moved out of the sure ones; the
+    entries that ``kinks`` alone took out of them)."""
     worst, worst_name = 0.0, ""
     for key in ("mu", "nu"):
         for name, want in cpu[key].items():
@@ -3326,12 +3396,14 @@ def first_adam_step_gap(card: dict, cpu: dict, init: dict, lr: float, grads64: d
             if err > worst:
                 worst, worst_name = err, f"{key} of {name}"
     grads = {n: m / (1 - b1) for n, m in cpu["mu"].items()}
-    sure, moved = sure_entries(grads, grads64)
+    sure, moved = sure_entries(grads, grads64, kinks)
+    fp32 = sure_entries(grads)[0]
+    at_kinks = sum(int((fp32[n] & ~sure[n]).sum()) for n in grads) - sum(moved.values())
     param, where, noisy, bound_ok = first_step_gap(grads, init, card["params"], cpu["params"],
                                                    {n: (lr, 0.0) for n in grads}, 1.0, sure)
     if param > worst:
         worst, worst_name = param, where
-    return worst, noisy, bound_ok, worst_name, moved
+    return worst, noisy, bound_ok, worst_name, moved, at_kinks
 
 
 def moved_line(moved: dict, sizes: dict) -> tuple[str, bool]:
@@ -3345,27 +3417,49 @@ def moved_line(moved: dict, sizes: dict) -> tuple[str, bool]:
 
 
 def property_grads64(probe, start: dict, batch: dict, noise: np.ndarray,
-                     matched: np.ndarray) -> dict:
+                     matched: np.ndarray, kinks: list | None = None) -> dict:
     """A property update's gradient of every head parameter in float64 on
     the CPU: the same batch, slot noise and encoder features (the OCR in
     fp32, as the update runs it) and the same matched columns, the head
-    (its parameters ``start``) and the loss in float64."""
+    (its parameters ``start``) and the loss in float64. ``kinks``, a list,
+    receives the same gradient once for each leaky-ReLU input of the head
+    that lies within KINK_TOL of its scale, with that input's slope taken
+    from the kink's other side (fp32 rounding may put it on either)."""
     head = copy.deepcopy(probe.head).double()
     obs, target = probe._batch(batch)
     with torch.no_grad():
         for n, p in head.named_parameters():
             p.copy_(torch.from_numpy(start[n]))
         rep = probe._ocr.rep(obs, noise={"rep": torch.from_numpy(noise)}).double()
-    B, S = rep.shape[:2]
-    if probe._num_pseudo is None:
-        output = head(rep.reshape(B * S, -1)).reshape(B, S, probe._per_slot_size)
-    else:
-        output = head(rep).reshape(B, probe._num_pseudo, probe._per_slot_size)
-    cost = probe._pairwise_cost(output, target.double())
-    loss = cost.gather(2, torch.from_numpy(matched)[..., None])[..., 0].sum()
+    B = rep.shape[0]
+    rows = rep.reshape(B * rep.shape[1], -1) if probe._num_pseudo is None else rep
     names = [n for n, _ in head.named_parameters()]
-    grads = torch.autograd.grad(loss, list(head.parameters()))
-    return {n: g.numpy() for n, g in zip(names, grads)}
+    near = []
+
+    def grads(flip: tuple | None = None) -> dict:
+        x = rows
+        for i, layer in enumerate(head.dense[:-1]):
+            pre = layer(x)
+            # F.leaky_relu(pre, HEAD_LEAK) and its derivative, one slope an input
+            slope = torch.where(pre > 0, torch.ones_like(pre), torch.full_like(pre, HEAD_LEAK))
+            if flip is None:
+                with torch.no_grad():
+                    scale = x.abs() @ layer.weight.abs().T + layer.bias.abs()
+                    near.extend((i, r, u) for r, u in
+                                (pre.abs() <= KINK_TOL * scale).nonzero().tolist())
+            elif flip[0] == i:
+                slope[flip[1], flip[2]] = 1.0 + HEAD_LEAK - slope[flip[1], flip[2]]
+            x = pre * slope
+        output = head.dense[-1](x).reshape(B, -1, probe._per_slot_size)
+        cost = probe._pairwise_cost(output, target.double())
+        loss = cost.gather(2, torch.from_numpy(matched)[..., None])[..., 0].sum()
+        return {n: g.numpy() for n, g in
+                zip(names, torch.autograd.grad(loss, list(head.parameters())))}
+
+    found = grads()
+    if kinks is not None:
+        kinks.extend(grads(flip) for flip in near)
+    return found
 
 
 def classifier_grads64(classifier, start: dict, batch: dict, noise: np.ndarray) -> dict:
@@ -3408,10 +3502,11 @@ def check_property_step(encoder, batch: dict) -> float:
         sides[device] = (metrics, matched[0],
                          adam_side(list(probe.head.named_parameters()), probe.optimizer))
         if device == "cpu":
-            grads64 = property_grads64(probe, init, batch, noise, matched[0])
+            kinks = []
+            grads64 = property_grads64(probe, init, batch, noise, matched[0], kinks)
     (card, card_cols, card_adam), (cpu, cpu_cols, cpu_adam) = sides["cuda"], sides["cpu"]
-    gap, noisy, bound_ok, where, moved = first_adam_step_gap(
-        card_adam, cpu_adam, init, cfg.property_predictor.learning.lr, grads64)
+    gap, noisy, bound_ok, where, moved, at_kinks = first_adam_step_gap(
+        card_adam, cpu_adam, init, cfg.property_predictor.learning.lr, grads64, kinks)
     moved_text, moved_ok = moved_line(moved, {n: v.size for n, v in init.items()})
     worst = max(worst_value(card, cpu), gap)
     same_cols = np.array_equal(card_cols, cpu_cols)
@@ -3420,8 +3515,9 @@ def check_property_step(encoder, batch: dict) -> float:
           f"{'equal' if same_cols else 'DIFFER'}; metrics {worst_value(card, cpu):.3e}, head "
           f"and Adam moments {gap:.3e} ({where}) of max(|x|, 1) (tolerance {PROBE_TOL}), "
           f"{noisy} entries under Adam's bound: {'ok' if bound_ok else 'OUT'}; {moved_text} "
-          f"(at most {MOVED_SHARE:.0%} of a leaf) {'ok' if moved_ok else 'TOO MANY'}; the "
-          f"card's metrics {card}", flush=True)
+          f"(at most {MOVED_SHARE:.0%} of a leaf) {'ok' if moved_ok else 'TOO MANY'}; "
+          f"{len(kinks)} leaky-ReLU inputs within {KINK_TOL} of their scale took {at_kinks} "
+          f"more out; the card's metrics {card}", flush=True)
     if not (same_cols and finite and worst <= PROBE_TOL and bound_ok and moved_ok):
         raise SystemExit("the property update disagrees between card and CPU")
     return worst
@@ -3452,7 +3548,7 @@ def check_classifier_step(encoder, batch: dict) -> float:
         if device == "cpu":
             grads64 = classifier_grads64(classifier, init, batch, noise)
     (card, card_adam), (cpu, cpu_adam) = sides["cuda"], sides["cpu"]
-    gap, noisy, bound_ok, where, moved = first_adam_step_gap(
+    gap, noisy, bound_ok, where, moved, _ = first_adam_step_gap(
         card_adam, cpu_adam, init, cfg.classifier.learning.lr, grads64)
     moved_text, moved_ok = moved_line(moved, {n: v.size for n, v in init.items()})
     worst = max(worst_value(card, cpu), gap)
@@ -4047,6 +4143,7 @@ def main() -> int:
                  for shape in HEADS_SHAPES]
         # the streamed plan: slate-slots64 first, then the shapes the heads
         # kernels refuse, and forced where the heads entries run
+        check_wide_plans()
         wide = [(check_sweep(shape, bw, flops, gen), check_sweep_bwd(shape, bw, flops, gen))
                 for shape in WIDE_SHAPES]
         check_forced_wide(WIDE_FORCED, gen)

@@ -1859,265 +1859,643 @@ cudaError_t launch_heads_bwd(const HeadsPlan& plan, const float* k, const float*
 // at 67 TFLOP/s outside the tensor cores. So past 32 slots the FMAs bound
 // it, not the bytes (the backward: four products, 145 us, against 302 MB,
 // 90 us). TF32 tensor cores would break the fp32 parity with the JAX
-// package: the products run as fp32 FMAs on the CUDA cores.
-// Design, simple before fast: each product is tiled into 64 x 64 outputs a
-// block (256 threads, 4 x 4 a thread, float4 reads of shared memory), its
-// operands staged in slabs of 32 along the summed axis, so that nothing in
-// shared memory grows with S or D (two or four static slabs of 8.7 KB):
-//   forward  1. a[n, h S + s] = k[n, head h] . q[s, head h]: tiles of
-//               tokens x slots of one (batch row, head), D in slabs;
-//            2. the softmax of each token's H S logits, in place, a warp a
-//               token (the row is read three times; it stays in L2);
-//            3. A_v = a^T v and S_a = sum_n a: tiles of slots x columns of one
-//               (batch row, head, segment of tokens) write the segment's
-//               partial to its scratch slot (S_a from the head's first column
-//               tile), then reduce_segments sums a row's segments in order;
-//   backward 1. da = v . g_av + g_a into the workspace (step 1's kernel);
-//            2. dl = a (da - sum_j da_j a_j) in place, a warp a token;
-//            3. gv = a g_av and gk = dl q, one pass: tiles of tokens x
-//               columns, two accumulators, summed over the slots in slabs;
+// package: the products run as fp32 FMAs on the CUDA cores. Those FMAs take
+// their operands from shared memory, whose one port an SM shares with every
+// copy into it: an 8 x 8 outer product a thread (two float4 reads an
+// operand a step) keeps that port about as busy as the FMA pipes (53 of 67
+// TFLOP/s with nothing else in the loop), and a copy that goes thread by
+// thread through it (cp.async, 4 or 16 bytes a thread) stalls every warp
+// that issues one behind the FMAs' reads.
+// Design: every product is one tiled kernel of the same skeleton
+// (wide_stream): a block computes an em x en tile, 8 x 8 outputs a thread,
+// from two stages of slabs of kWideBK along the summed axis in dynamic
+// shared memory, each operand staged as [kk][m] rows that the FMAs read as
+// two float4 a step. The next slab comes into registers (float4 loads of
+// 16-byte runs that ask L2 for their whole 128-byte line, so that the
+// slabs after it along a row find it there; plain loads at ragged or
+// unaligned edges) while the FMAs of this one run, and goes to shared
+// memory before the next: one float4 store a run for an operand contiguous
+// along m (a, v, k, g_av as A_v, gq, gv and gk read them), four scalar
+// stores that transpose it for one contiguous along kk (k, q, v, g_av in
+// the logits and da, a and dl in gv and gk). One barrier a slab. The logits and
+// gv / gk kernels take kWideRegs registers a thread (128 spilled), the
+// token sums 128. Tile extents are runtime values chosen by the C entry
+// (wide_plan, mirrored by ops/slot_routing.py wide_plan):
+//   - slots: from kWideExtents, the extent covering S (a head's slots) at
+//     the least cost ceil(S / e) (e + kWideTileCost), so 33 slots take 48;
+//     columns of a head the same (gv / gk at most kWideTokensCols); tokens
+//     128, or 64 where 128 would not fill the card's first wave at the
+//     blocks an SM the kernel reaches;
+//   - at one head and S <= 128 one tile holds all of a token's logits: the
+//     softmax (forward) and dl = a (da - sum_j da_j a_j) (backward) run in
+//     the logits kernel's epilogue, from the tile staged in shared memory, a
+//     warp a token: a and dl are written once and never read back there;
+//   - otherwise the logits (da) are written raw and wide_rows_kernel forms
+//     the softmax (dl) a warp a token;
+//   - where the (token tile, slot tile) blocks are fewer than the SMs (few
+//     tokens, deep rows), the logits (da) cut the head's columns into pieces
+//     over blocks, each writing its partial to the scratch, summed in piece
+//     order by wide_rows_kernel;
+//   - the token sums (A_v and S_a, gq) cut each batch row's tokens into the
+//     segments that bring their grid closest to whole waves, each writing
+//     its partial to the scratch, summed in order by reduce_segments.
+//   forward  1. a[n, h S + s] = k[n, head h] . q[s, head h] (+ softmax);
+//            2. (otherwise) the softmax of each token's H S logits;
+//            3. A_v = a^T v and S_a = sum_n a by segments, then their sum;
+//   backward 1. da = v . g_av + g_a (+ dl) into the workspace;
+//            2. (otherwise) dl in place;
+//            3. gv = a g_av and gk = dl q: tiles of tokens x columns, one
+//               product a block;
 //            4. gq = dl^T k by segments, as A_v.
 // Every sum runs in a fixed order, with no atomics: two launches on the
-// same inputs give bitwise equal outputs. The wrapper cuts each batch row's
-// tokens into `segments` equal pieces, enough blocks to fill the card
-// (ops/slot_routing.py wide_segments), and sizes the scratch for them.
+// same inputs give bitwise equal outputs.
 
-constexpr int kWideTile = 64;                 // rows and columns of an output tile
-constexpr int kWideSlab = 32;                 // depth of a staged slab
-constexpr int kWideRow = kWideTile + 4;       // floats of a slab's row (16-byte rows)
-constexpr int kWideThreads = 256;             // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kWideRowsPerBlock = kWideThreads / 32;   // the row kernels: a warp a token
+constexpr int kWideBK = 8;                   // depth of a slab
+constexpr int kWideStages = 2;               // slabs in shared memory
+constexpr int kWideRuns = 2;                 // 4-float runs of an operand a thread stages
+constexpr int kWideMaxThreads = 256;         // the largest tile, 128 x 128
+constexpr int kWideMinThreads = 128;         // so that kWideRuns cover an operand's slab
+constexpr int kWideMinBlocks = 2;            // the token sums: at most 128 registers a thread
+constexpr int kWideSumsRegs = 65536 / (kWideMaxThreads * kWideMinBlocks);
+constexpr int kWideRegs = 168;               // the logits and gv / gk (__maxnreg__)
+constexpr int kWideExtents[] = {16, 32, 48, 64, 96, 128};
+constexpr int kWideTokenExtents[] = {128, 64};
+constexpr int kWideFusedMax = 128;           // the widest S an epilogue takes
+constexpr int kWideTokensCols = 64;          // the widest column tile of gv / gk
+constexpr int kWideTileCost = 32;            // a tile's fixed cost, in slots
+constexpr int kWideMinSegment = 64;          // tokens
+constexpr int kWideSmemPerSM = 233472;       // an SM's shared memory (228 KB)
+constexpr int kWideSmemReserved = 1024;      // what the system takes of it a block
+constexpr int kWideRowsPerBlock = 8;         // the row kernels: a warp a token
 constexpr long long kMaxGrid = 2147483647LL;
 
-using WideSlab = float[kWideSlab][kWideRow];
+__host__ __device__ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-__host__ __device__ inline int wide_tiles(int n) {
-  return static_cast<int>((static_cast<long long>(n) + kWideTile - 1) / kWideTile);
-}
-
-// Stages element (m, kk) of a matrix whose kk axis is contiguous, src[m ld +
-// kk], at dst[kk][m]: a warp reads 32 consecutive floats of one row. Rows
-// from `rows` on and depths from `depth` on are 0.
-__device__ __forceinline__ void stage_across(WideSlab& dst, const float* src, long long ld,
-                                             int rows, int depth) {
-  for (int i = threadIdx.x; i < kWideSlab * kWideTile; i += kWideThreads) {
-    const int kk = i % kWideSlab, m = i / kWideSlab;
-    dst[kk][m] = m < rows && kk < depth ? src[m * ld + kk] : 0.f;
+// The extent of kWideExtents that covers n at the least cost (the larger
+// on a tie).
+inline int wide_extent(int n) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int e : kWideExtents) {
+    const long long cost = cdiv(n, e) * (e + kWideTileCost);
+    if (best == 0 || cost <= best_cost) best = e, best_cost = cost;
   }
+  return best;
 }
 
-// Stages element (m, kk) of a matrix whose m axis is contiguous, src[kk ld +
-// m], at dst[kk][m], with the same zeros.
-__device__ __forceinline__ void stage_along(WideSlab& dst, const float* src, long long ld,
-                                            int rows, int depth) {
-  for (int i = threadIdx.x; i < kWideSlab * kWideTile; i += kWideThreads) {
-    const int m = i % kWideTile, kk = i / kWideTile;
-    dst[kk][m] = m < rows && kk < depth ? src[kk * ld + m] : 0.f;
+// Threads of an em x en tile: one a tile's 8 x 8 outputs, at least
+// kWideMinThreads (the others only stage slabs).
+inline int wide_threads(int em, int en) {
+  const int t = em * en / 64;
+  return t > kWideMinThreads ? t : kWideMinThreads;
+}
+
+// Shared memory of the two stages of [kWideBK][em + 4] and [kWideBK][en + 4].
+inline long long wide_ring_bytes(int em, int en) {
+  return 4LL * kWideStages * kWideBK * (em + 4 + en + 4);
+}
+
+// The logits kernel with its epilogue: the stages, or the [em][en + 4] tile
+// it stages in the same memory, whichever is larger.
+inline long long wide_fused_bytes(int em, int en) {
+  const long long tile = 4LL * em * (en + 4);
+  return tile > wide_ring_bytes(em, en) ? tile : wide_ring_bytes(em, en);
+}
+
+// Blocks an SM holds of a kernel of `threads` threads, `regs` registers a
+// thread (what its __maxnreg__ or __launch_bounds__ allows) and `smem`
+// bytes.
+inline int wide_blocks_per_sm(int threads, int regs, long long smem) {
+  long long n = 32;
+  n = n < 2048 / threads ? n : 2048 / threads;
+  n = n < 65536 / (threads * regs) ? n : 65536 / (threads * regs);
+  const long long by_smem = kWideSmemPerSM / (smem + kWideSmemReserved);
+  n = n < by_smem ? n : by_smem;
+  return n > 1 ? static_cast<int>(n) : 1;
+}
+
+// Whether `blocks` on `cap` places fill their last wave better than
+// `best` (exactly, in integers).
+inline bool wide_fuller(long long blocks, long long cap, long long best, long long best_cap) {
+  return blocks * (cdiv(best, best_cap) * best_cap) > best * (cdiv(blocks, cap) * cap);
+}
+
+struct WidePlan {
+  int se, ce;                 // slots of a head, columns of a head a tile
+  int fused;                  // softmax / dl in the logits kernel's epilogue
+  int pieces, per;            // the head's columns cut into pieces of per slabs
+  int pairs_te, tokens_te;    // tokens a tile of the logits and of gv / gk
+  int tokens_ce;              // columns a tile of gv / gk
+  int segments;               // of each batch row's tokens in the token sums
+  int pairs_bps, tokens_bps, sums_bps;   // blocks an SM assumed
+  long long scratch_fwd, scratch_bwd;    // floats
+};
+
+// The token extent of a grid of `other` x ceil(N / te) blocks: 128, or 64
+// where 128 leaves the card's first wave short (its blocks an SM in *bps).
+inline int wide_token_extent(int N, long long other, int en, long long (*bytes)(int, int),
+                             int sms, int* bps) {
+  for (int te : kWideTokenExtents) {
+    *bps = wide_blocks_per_sm(wide_threads(te, en), kWideRegs, bytes(te, en));
+    if (other * cdiv(N, te) >= static_cast<long long>(*bps) * sms) return te;
   }
+  return kWideTokenExtents[sizeof(kWideTokenExtents) / sizeof(int) - 1];
 }
 
-// acc[i][j] += x[kk][4 ty + i] y[kk][4 tx + j] over the slab, in kk order.
-__device__ __forceinline__ void slab_product(const WideSlab& x, const WideSlab& y,
-                                             float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int kk = 0; kk < kWideSlab; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(&x[kk][4 * ty]);
-    const float4 b = *reinterpret_cast<const float4*>(&y[kk][4 * tx]);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[b, n, h S + s] = sum over head h's columns c of x[b, n, c] y[b, s, c],
-// plus add[b, n, h S + s] where kAdd: the forward's logits (x = k, y = q) and
-// the backward's da (x = v, y = g_av, add = g_a). A block: 64 tokens x 64
-// slots of one (batch row, head).
-template <int kAdd>
-__global__ void __launch_bounds__(kWideThreads, 1)
-wide_pairs_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ add, float* __restrict__ out, int N, int S,
-                  int D, int H) {
-  __shared__ __align__(16) WideSlab xs;
-  __shared__ __align__(16) WideSlab ys;
-  const int token_tiles = wide_tiles(N), slot_tiles = wide_tiles(S);
-  int t = blockIdx.x;
-  const int n0 = t % token_tiles * kWideTile;
-  t /= token_tiles;
-  const int s0 = t % slot_tiles * kWideTile;
-  t /= slot_tiles;
-  const int h = t % H, b = t / H;
+WidePlan wide_plan(int B, int N, int S, int D, int H, int sms) {
+  WidePlan p{};
   const int hd = D / H, HS = H * S;
-  const long long row0 = static_cast<long long>(b) * N + n0;
-  const float* xb = x + row0 * D + h * hd;
-  const float* yb = y + (static_cast<long long>(b) * S + s0) * D + h * hd;
-  const int rows_x = min(kWideTile, N - n0), rows_y = min(kWideTile, S - s0);
-  float acc[4][4] = {};
-  for (int c0 = 0; c0 < hd; c0 += kWideSlab) {
-    const int depth = min(kWideSlab, hd - c0);
-    stage_across(xs, xb + c0, D, rows_x, depth);
-    stage_across(ys, yb + c0, D, rows_y, depth);
-    __syncthreads();
-    slab_product(xs, ys, acc);
+  p.se = wide_extent(S);
+  p.ce = wide_extent(hd);
+  // pieces of the head's columns where the logits' blocks are too few
+  const long long slabs = cdiv(hd, kWideBK);
+  const long long tiles = static_cast<long long>(B) * cdiv(N, 128) * H * cdiv(S, p.se);
+  long long pieces = 1;
+  if (tiles < sms) {
+    pieces = cdiv(sms, tiles);
+    const long long most = 4LL * D / HS;   // partials within 4 x the size of k
+    pieces = pieces < most ? pieces : most;
+    pieces = pieces < slabs ? pieces : slabs;
+    pieces = pieces > 1 ? pieces : 1;
+  }
+  p.per = static_cast<int>(cdiv(slabs, pieces));
+  p.pieces = static_cast<int>(cdiv(slabs, p.per));
+  p.fused = H == 1 && S <= kWideFusedMax && p.pieces == 1;
+  p.pairs_te = wide_token_extent(N, static_cast<long long>(B) * H * cdiv(S, p.se) * p.pieces,
+                                 p.se, p.fused ? wide_fused_bytes : wide_ring_bytes, sms,
+                                 &p.pairs_bps);
+  p.tokens_ce = p.ce < kWideTokensCols ? p.ce : kWideTokensCols;
+  p.tokens_te = wide_token_extent(N, 2LL * B * H * cdiv(hd, p.tokens_ce), p.tokens_ce,
+                                  wide_ring_bytes, sms, &p.tokens_bps);
+  // segments: the fewest whose grid fills 90 % of its last wave, else the
+  // fullest; a segment of at least kWideMinSegment tokens, and the partials
+  // no larger than the rows they sum
+  p.sums_bps =
+      wide_blocks_per_sm(wide_threads(p.se, p.ce), kWideSumsRegs, wide_ring_bytes(p.se, p.ce));
+  const long long cap = static_cast<long long>(p.sums_bps) * sms;
+  const long long sum_tiles = static_cast<long long>(B) * H * cdiv(S, p.se) * cdiv(hd, p.ce);
+  const long long width = static_cast<long long>(S) * D + HS;
+  long long most = cdiv(N, kWideMinSegment);
+  const long long by_size = static_cast<long long>(N) * (HS + D) / width;
+  most = most < by_size ? most : by_size;
+  most = most > 1 ? most : 1;
+  long long best = 1;
+  for (long long g = 1; g <= most; ++g) {
+    const long long blocks = sum_tiles * g;
+    if (10 * blocks >= 9 * cdiv(blocks, cap) * cap) {
+      best = g;
+      break;
+    }
+    if (wide_fuller(blocks, cap, sum_tiles * best, cap)) best = g;
+  }
+  p.segments = static_cast<int>(best);
+  // the scratch: the pieces' partials, then (reused) the segments'
+  const long long parts = p.pieces > 1 ? static_cast<long long>(p.pieces) * B * N * HS : 0;
+  const long long fwd = static_cast<long long>(B) * p.segments * width;
+  const long long bwd = static_cast<long long>(B) * p.segments * S * D;
+  p.scratch_fwd = parts > fwd ? parts : fwd;
+  p.scratch_bwd = parts > bwd ? parts : bwd;
+  return p;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// An operand of a tile: element (m, kk) of the slab at depth k0 is p[m ld +
+// k0 + kk] (an operand contiguous along the summed axis, `across`) or p[(k0
+// + kk) ld + m]; rows m < hi are valid; `vec` where p and ld keep every
+// 4-float run 16-byte aligned.
+struct Operand {
+  const float* p;
+  long long ld;
+  int hi;
+  bool vec;
+};
+
+// A thread's share of an operand's slab: runs of 4 floats along its
+// contiguous axis, run i the (threadIdx.x + i blockDim.x)-th of the slab's
+// E x kWideBK / 4 (kAcross: kWideBK / 4 a row m; else E / 4 a step kk,
+// whose m + (kk << 16) is worked out once, the same in every slab; -1:
+// none).
+template <bool kAcross>
+struct Staged {
+  float4 v[kWideRuns];
+  int at_[kAcross ? 1 : kWideRuns];
+
+  __device__ __forceinline__ explicit Staged(int E) {
+    if (!kAcross) {
+#pragma unroll
+      for (int i = 0; i < kWideRuns; ++i) {
+        const int q = threadIdx.x + i * blockDim.x, kk = q / (E >> 2);
+        at_[kAcross ? 0 : i] = q < E * kWideBK / 4 ? (q - kk * (E >> 2)) * 4 + (kk << 16) : -1;
+      }
+    }
+  }
+
+  // Run i's row m and step kk, false where the thread has no run i.
+  __device__ __forceinline__ bool at(int i, int E, int& mi, int& ki) const {
+    const int q = threadIdx.x + i * blockDim.x;
+    if (kAcross) {
+      mi = q / (kWideBK / 4);
+      ki = q % (kWideBK / 4) * 4;
+      return q < E * kWideBK / 4;
+    }
+    mi = at_[kAcross ? 0 : i] & 0xffff;
+    ki = at_[kAcross ? 0 : i] >> 16;
+    return at_[kAcross ? 0 : i] >= 0;
+  }
+
+  // Loads the slab at depth k0 (of `depth` valid steps), a whole aligned
+  // run with one float4 load that asks L2 for its 128-byte line; zeros
+  // outside the operand.
+  __device__ __forceinline__ void load(const Operand& o, int E, int k0, int depth) {
+#pragma unroll
+    for (int i = 0; i < kWideRuns; ++i) {
+      float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+      int mi, ki;
+      if (at(i, E, mi, ki)) {
+        const float* src = kAcross ? o.p + mi * o.ld + k0 + ki : o.p + (k0 + ki) * o.ld + mi;
+        const int n = kAcross ? (mi < o.hi ? depth - ki : 0) : (ki < depth ? o.hi - mi : 0);
+        if (n >= 4 && o.vec) {
+          asm volatile("ld.global.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+                       : "l"(src));
+        } else if (n > 0) {
+          r.x = src[0];
+          if (n > 1) r.y = src[1];
+          if (n > 2) r.z = src[2];
+          if (n > 3) r.w = src[3];
+        }
+      }
+      v[i] = r;
+    }
+  }
+
+  // Stores the runs into dst[kk][m] (rows of E + 4 floats).
+  __device__ __forceinline__ void store(int E, float* dst) const {
+    const int row = E + 4;
+#pragma unroll
+    for (int i = 0; i < kWideRuns; ++i) {
+      int mi, ki;
+      if (!at(i, E, mi, ki)) continue;
+      if (kAcross) {
+        float* d = dst + ki * row + mi;
+        d[0] = v[i].x;
+        d[row] = v[i].y;
+        d[2 * row] = v[i].z;
+        d[3 * row] = v[i].w;
+      } else {
+        *reinterpret_cast<float4*>(dst + ki * row + mi) = v[i];
+      }
+    }
+  }
+};
+
+// The outputs of a thread of an em x en tile: rows 4 t + i and em / 2 + 4 t
+// + i (i < 4), so that each operand is read as two float4 a step,
+// conflict-free across a warp.
+__device__ __forceinline__ int wide_row(int i, int t, int half) {
+  return (i < 4 ? 0 : half) + 4 * t + (i & 3);
+}
+
+// acc[i][j] += x[kk][row i] y[kk][column j] over the slab, in kk order; xs
+// and ys point at the thread's first row and column of the slab.
+__device__ __forceinline__ void wide_fma(const float* xs, const float* ys, int ldx, int ldy,
+                                         int hx, int hy, float (&acc)[8][8]) {
+#pragma unroll
+  for (int kk = 0; kk < kWideBK; ++kk) {
+    const float4 x0 = *reinterpret_cast<const float4*>(xs + kk * ldx);
+    const float4 x1 = *reinterpret_cast<const float4*>(xs + kk * ldx + hx);
+    const float4 y0 = *reinterpret_cast<const float4*>(ys + kk * ldy);
+    const float4 y1 = *reinterpret_cast<const float4*>(ys + kk * ldy + hy);
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+  }
+}
+
+// The skeleton of every streamed product: an em x en tile of acc, 8 x 8 a
+// thread (rows wide_row(i, ty, em / 2), columns wide_row(j, tx, en / 2)),
+// summed over `depth` steps from `first` of operands x (em rows) and y (en
+// rows), slab by slab: before slab t's FMAs, slab t + 1 (in registers since
+// the step before) goes into the other stage and slab t + 2 is loaded into
+// registers, so its loads run under the FMAs; one barrier a slab.
+// staged(rx) sees each slab of x in the thread's registers as it is stored
+// (the S_a sums add it up). Ends with every thread past its last slab, so
+// the caller may reuse the stages.
+template <bool kXAcross, bool kYAcross, class Hook>
+__device__ __forceinline__ void wide_stream(float* smem, const Operand& x, const Operand& y,
+                                            int em, int en, int first, int depth,
+                                            float (&acc)[8][8], const Hook& staged) {
+  const int ldx = em + 4, ldy = en + 4, stage = kWideBK * (ldx + ldy);
+  const int tpr = en >> 3, tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
+  const bool active = ty < (em >> 3);
+  const int T = static_cast<int>(cdiv(depth, kWideBK));
+  Staged<kXAcross> rx(em);
+  Staged<kYAcross> ry(en);
+  auto load = [&](int t) {
+    const int k0 = first + t * kWideBK, d = min(kWideBK, first + depth - k0);
+    rx.load(x, em, k0, d);
+    ry.load(y, en, k0, d);
+  };
+  auto store = [&](int t) {
+    float* st = smem + (t % kWideStages) * stage;
+    rx.store(em, st);
+    ry.store(en, st + kWideBK * ldx);
+    staged(rx);
+  };
+  if (T > 0) {
+    load(0);
+    store(0);
+  }
+  if (T > 1) load(1);
+  __syncthreads();
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) store(t + 1);           // its stage was freed by the last barrier
+    if (t + 2 < T) load(t + 2);
+    const float* st = smem + (t % kWideStages) * stage;
+    if (active)
+      wide_fma(st + 4 * ty, st + kWideBK * ldx + 4 * tx, ldx, ldy, em >> 1, en >> 1, acc);
     __syncthreads();
   }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+}
+
+// a[b, n, j] (j = h S + s) = sum over head h's columns c of x[b, n, c] y[b,
+// s, c]: the forward's logits (x = k, y = q) and the backward's da (x = v,
+// y = g_av). A block: em tokens x en slots [s0, s0 + en) of head h and one
+// piece of the head's columns. Fused (one head, the tile holds all S): the
+// epilogue writes the softmax (forward) or dl = a (da + g_a - sum (da +
+// g_a) a) (backward) to out. Otherwise it writes its raw products to out,
+// or where pieces > 1 to out + piece * B N H S.
+template <int kBwd>
+__global__ void __maxnreg__(kWideRegs)
+wide_pairs_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ g_a, const float* __restrict__ a,
+                  float* __restrict__ out, int B, int N, int S, int D, int H, int em, int en,
+                  int fused, int per, int pieces) {
+  extern __shared__ __align__(16) float wide_smem[];
+  const int hd = D / H, HS = H * S;
+  const int token_tiles = static_cast<int>(cdiv(N, em));
+  const int slot_tiles = static_cast<int>(cdiv(S, en));
+  long long t = blockIdx.x;
+  const int n0 = static_cast<int>(t % token_tiles) * em;
+  t /= token_tiles;
+  const int ct = static_cast<int>(t % (H * slot_tiles));
+  t /= H * slot_tiles;
+  const int piece = static_cast<int>(t % pieces), b = static_cast<int>(t / pieces);
+  const int h = ct / slot_tiles, s0 = ct % slot_tiles * en, cols = min(en, S - s0);
+  const int slabs = static_cast<int>(cdiv(hd, kWideBK));
+  const int k_lo = piece * per, k_n = min(slabs, k_lo + per) - k_lo;
+  const int rows = min(em, N - n0);
+  const long long row0 = static_cast<long long>(b) * N + n0;
+  const int ldy = en + 4;
+  const int tpr = en >> 3, tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
+  const bool active = ty < (em >> 3);
+  const bool vec = D % 4 == 0 && hd % 4 == 0;
+  const Operand xs{x + row0 * D + h * hd, D, rows, vec && aligned16(x)};
+  const Operand ys{y + (static_cast<long long>(b) * S + s0) * D + h * hd, D, cols,
+                   vec && aligned16(y)};
+  float acc[8][8] = {};
+  wide_stream<true, true>(wide_smem, xs, ys, em, en, k_lo * kWideBK,
+                          min(hd, (k_lo + k_n) * kWideBK) - k_lo * kWideBK, acc,
+                          [](const Staged<true>&) {});
+  const int j0 = h * S + s0;
+  if (!fused) {
+    if (!active) return;
+    float* o = out + static_cast<long long>(piece) * B * N * HS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (4 * ty + i >= rows_x) break;
-    const long long at = (row0 + 4 * ty + i) * HS + h * S + s0;
+    for (int i = 0; i < 8; ++i) {
+      const int m = wide_row(i, ty, em >> 1);
+      if (m >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = 4 * tx + j;
-      if (s < rows_y) out[at + s] = kAdd ? acc[i][j] + add[at + s] : acc[i][j];
+      for (int j = 0; j < 8; ++j) {
+        const int c = wide_row(j, tx, en >> 1);
+        if (c < cols) o[(row0 + m) * HS + j0 + c] = acc[i][j];
+      }
+    }
+    return;
+  }
+  // the fused epilogue: the tile through shared memory, then a warp a token
+  float* tile = wide_smem;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* r = tile + wide_row(i, ty, em >> 1) * ldy + 4 * tx;
+      *reinterpret_cast<float4*>(r) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(r + (en >> 1)) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int m = threadIdx.x >> 5; m < rows; m += warps) {
+    const float* r = tile + m * ldy;
+    const long long at = (row0 + m) * HS;
+    float val[kWideFusedMax / 32];
+    if (!kBwd) {
+      float mx = neg_inf(), sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWideFusedMax / 32; ++i) {
+        const int j = lane + 32 * i;
+        val[i] = j < HS ? r[j] : neg_inf();
+        mx = fmaxf(mx, val[i]);
+      }
+      mx = warp_max(mx);
+#pragma unroll
+      for (int i = 0; i < kWideFusedMax / 32; ++i) {
+        val[i] = lane + 32 * i < HS ? expf(val[i] - mx) : 0.f;
+        sum += val[i];
+      }
+      const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+      for (int i = 0; i < kWideFusedMax / 32; ++i) {
+        const int j = lane + 32 * i;
+        if (j < HS) out[at + j] = val[i] * inv;
+      }
+    } else {
+      float aj[kWideFusedMax / 32], inner = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWideFusedMax / 32; ++i) {
+        const int j = lane + 32 * i;
+        val[i] = j < HS ? r[j] + g_a[at + j] : 0.f;
+        aj[i] = j < HS ? a[at + j] : 0.f;
+        inner = fmaf(val[i], aj[i], inner);
+      }
+      inner = warp_sum(inner);
+#pragma unroll
+      for (int i = 0; i < kWideFusedMax / 32; ++i) {
+        const int j = lane + 32 * i;
+        if (j < HS) out[at + j] = aj[i] * (val[i] - inner);
+      }
     }
   }
 }
 
-// The softmax of each of `rows` rows of HS logits, in place; a warp a row.
-__global__ void __launch_bounds__(kWideThreads, 1)
-wide_softmax_kernel(float* __restrict__ a, long long rows, int HS) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWideRowsPerBlock + threadIdx.x / 32;
+// The rows the logits kernel did not finish: for each of `rows` rows of HS,
+// v = the sum of its `pieces` partials (parts + p piece_floats, in piece
+// order) plus g_a where given; out = softmax(v) (forward) or a (v - sum_j
+// v_j a_j) (backward). parts may be out (one piece, in place). A warp a row.
+template <int kBwd>
+__global__ void __launch_bounds__(kWideRowsPerBlock * 32)
+wide_rows_kernel(const float* parts, long long piece_floats, int pieces,
+                 const float* __restrict__ g_a, const float* __restrict__ a, float* out,
+                 long long rows, int HS) {
+  const long long row = static_cast<long long>(blockIdx.x) * kWideRowsPerBlock + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
-  float* p = a + row * HS;
-  float m = neg_inf();
-  for (int j = lane; j < HS; j += 32) m = fmaxf(m, p[j]);
+  const long long at = row * HS;
+  float m = neg_inf(), inner = 0.f;
+  for (int j = lane; j < HS; j += 32) {
+    float v = 0.f;
+    for (int p = 0; p < pieces; ++p) v += parts[p * piece_floats + at + j];
+    if (g_a != nullptr) v += g_a[at + j];
+    out[at + j] = v;
+    if (kBwd)
+      inner = fmaf(v, a[at + j], inner);
+    else
+      m = fmaxf(m, v);
+  }
+  if (kBwd) {
+    inner = warp_sum(inner);
+    for (int j = lane; j < HS; j += 32) out[at + j] = a[at + j] * (out[at + j] - inner);
+    return;
+  }
   m = warp_max(m);
   float sum = 0.f;
-  for (int j = lane; j < HS; j += 32) sum += expf(p[j] - m);
+  for (int j = lane; j < HS; j += 32) sum += expf(out[at + j] - m);
   sum = warp_sum(sum);
-  for (int j = lane; j < HS; j += 32) p[j] = expf(p[j] - m) / sum;
-}
-
-// dl = a (da - sum_j da_j a_j) over each of `rows` rows of HS, in place of
-// da; a warp a row.
-__global__ void __launch_bounds__(kWideThreads, 1)
-wide_dl_kernel(const float* __restrict__ a, float* __restrict__ da, long long rows, int HS) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWideRowsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const float* p = a + row * HS;
-  float* d = da + row * HS;
-  float inner = 0.f;
-  for (int j = lane; j < HS; j += 32) inner = fmaf(d[j], p[j], inner);
-  inner = warp_sum(inner);
-  for (int j = lane; j < HS; j += 32) d[j] = p[j] * (d[j] - inner);
+  for (int j = lane; j < HS; j += 32) out[at + j] = expf(out[at + j] - m) / sum;
 }
 
 // partial[(b segments + g) width + s D + h hd + c] = sum over the tokens n
 // of segment g of w[b, n, h S + s] x[b, n, h hd + c]: A_v (w = a, x = v) and
 // gq (w = dl, x = k) by segments. Where kSa, the blocks of the head's first
 // column tile also write partial[... + S D + h S + s] = sum over the
-// segment of w[b, n, h S + s] (S_a). A block: 64 slots x 64 columns of one
+// segment of w[b, n, h S + s] (S_a). A block: em slots x en columns of one
 // (batch row, segment, head).
 template <int kSa>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__global__ void __launch_bounds__(kWideMaxThreads, kWideMinBlocks)
 wide_sums_kernel(const float* __restrict__ w, const float* __restrict__ x,
-                 float* __restrict__ partial, int N, int S, int D, int H, int segments,
-                 int width) {
-  __shared__ __align__(16) WideSlab ws;
-  __shared__ __align__(16) WideSlab xs;
+                 float* __restrict__ partial, int N, int S, int D, int H, int em, int en,
+                 int segments, int width) {
+  extern __shared__ __align__(16) float wide_smem[];
   const int hd = D / H, HS = H * S;
-  const int col_tiles = wide_tiles(hd), slot_tiles = wide_tiles(S);
-  int t = blockIdx.x;
-  const int c0 = t % col_tiles * kWideTile;
+  const int col_tiles = static_cast<int>(cdiv(hd, en)), slot_tiles = static_cast<int>(cdiv(S, em));
+  long long t = blockIdx.x;
+  const int c0 = static_cast<int>(t % col_tiles) * en;
   t /= col_tiles;
-  const int s0 = t % slot_tiles * kWideTile;
+  const int s0 = static_cast<int>(t % slot_tiles) * em;
   t /= slot_tiles;
-  const int h = t % H;
+  const int h = static_cast<int>(t % H);
   t /= H;
-  const int g = t % segments, b = t / segments;
-  const long long seg = (static_cast<long long>(N) + segments - 1) / segments;
+  const int g = static_cast<int>(t % segments), b = static_cast<int>(t / segments);
+  const long long seg = cdiv(N, segments);
   const int n_begin = static_cast<int>(min(static_cast<long long>(N), g * seg));
   const int n_end = static_cast<int>(min(static_cast<long long>(N), n_begin + seg));
   const float* wb = w + static_cast<long long>(b) * N * HS + h * S + s0;
   const float* xb = x + static_cast<long long>(b) * N * D + h * hd + c0;
-  const int rows_w = min(kWideTile, S - s0), rows_x = min(kWideTile, hd - c0);
-  const bool sums = kSa && c0 == 0 && threadIdx.x < kWideTile;
-  float acc[4][4] = {};
-  float sa = 0.f;
-  for (int n0 = n_begin; n0 < n_end; n0 += kWideSlab) {
-    const int depth = min(kWideSlab, n_end - n0);
-    stage_along(ws, wb + static_cast<long long>(n0) * HS, HS, rows_w, depth);
-    stage_along(xs, xb + static_cast<long long>(n0) * D, D, rows_x, depth);
-    __syncthreads();
-    slab_product(ws, xs, acc);
-    if (sums) {
-      for (int kk = 0; kk < kWideSlab; ++kk) sa += ws[kk][threadIdx.x];
-    }
-    __syncthreads();
-  }
-  float* pb = partial + (static_cast<long long>(b) * segments + g) * width;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int rows_w = min(em, S - s0), rows_x = min(en, hd - c0);
+  const bool vec_w = HS % 4 == 0 && (h * S + s0) % 4 == 0 && aligned16(w);
+  const bool vec_x = D % 4 == 0 && (h * hd + c0) % 4 == 0 && aligned16(x);
+  const int ldx = em + 4;
+  const int tpr = en >> 3, tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
+  const bool active = ty < (em >> 3);
+  // S_a: the head's first column tile adds up, in its registers, the runs
+  // of w it stages, then the runs' sums of each slot through shared memory
+  const bool sums = kSa && c0 == 0;
+  float acc[8][8] = {};
+  float4 sa[kWideRuns];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 4 * ty + i;
-    if (s >= rows_w) break;
+  for (int i = 0; i < kWideRuns; ++i) sa[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  wide_stream<false, false>(wide_smem, Operand{wb, HS, rows_w, vec_w},
+                            Operand{xb, D, rows_x, vec_x}, em, en, n_begin, n_end - n_begin,
+                            acc, [&](const Staged<false>& r) {
+                              if (!sums) return;
+#pragma unroll
+                              for (int i = 0; i < kWideRuns; ++i) {
+                                sa[i].x += r.v[i].x;
+                                sa[i].y += r.v[i].y;
+                                sa[i].z += r.v[i].z;
+                                sa[i].w += r.v[i].w;
+                              }
+                            });
+  float* pb = partial + (static_cast<long long>(b) * segments + g) * width;
+  if (sums) {
+    Staged<false> runs(em);
+#pragma unroll
+    for (int i = 0; i < kWideRuns; ++i) runs.v[i] = sa[i];
+    runs.store(em, wide_smem);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < rows_w) {
+      float total = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kWideBK; ++kk) total += wide_smem[kk * ldx + threadIdx.x];
+      pb[static_cast<long long>(S) * D + h * S + s0 + threadIdx.x] = total;
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = wide_row(i, ty, em >> 1);
+    if (s >= rows_w) continue;
     float* row = pb + static_cast<long long>(s0 + s) * D + h * hd + c0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (4 * tx + j < rows_x) row[4 * tx + j] = acc[i][j];
+    for (int j = 0; j < 8; ++j) {
+      const int c = wide_row(j, tx, en >> 1);
+      if (c < rows_x) row[c] = acc[i][j];
+    }
   }
-  if (sums && static_cast<int>(threadIdx.x) < rows_w)
-    pb[static_cast<long long>(S) * D + h * S + s0 + threadIdx.x] = sa;
 }
 
 // gv[b, n, h hd + c] = sum_s a[b, n, h S + s] g_av[b, s, h hd + c] and
-// gk[b, n, h hd + c] = sum_s dl[b, n, h S + s] q[b, s, h hd + c], in one
-// pass. A block: 64 tokens x 64 columns of one (batch row, head).
-__global__ void __launch_bounds__(kWideThreads, 1)
+// gk[b, n, h hd + c] = sum_s dl[b, n, h S + s] q[b, s, h hd + c]. A block:
+// em tokens x en columns of one (batch row, head) and one of the two.
+__global__ void __maxnreg__(kWideRegs)
 wide_tokens_kernel(const float* __restrict__ a, const float* __restrict__ g_av,
                    const float* __restrict__ dl, const float* __restrict__ q,
-                   float* __restrict__ gv, float* __restrict__ gk, int N, int S, int D,
-                   int H) {
-  __shared__ __align__(16) WideSlab as;
-  __shared__ __align__(16) WideSlab gs;
-  __shared__ __align__(16) WideSlab ds;
-  __shared__ __align__(16) WideSlab qs;
+                   float* __restrict__ gv, float* __restrict__ gk, int N, int S, int D, int H,
+                   int em, int en) {
+  extern __shared__ __align__(16) float wide_smem[];
   const int hd = D / H, HS = H * S;
-  const int token_tiles = wide_tiles(N), col_tiles = wide_tiles(hd);
-  int t = blockIdx.x;
-  const int n0 = t % token_tiles * kWideTile;
+  const int token_tiles = static_cast<int>(cdiv(N, em)), col_tiles = static_cast<int>(cdiv(hd, en));
+  long long t = blockIdx.x;
+  const int n0 = static_cast<int>(t % token_tiles) * em;
   t /= token_tiles;
-  const int c0 = t % col_tiles * kWideTile;
+  const int c0 = static_cast<int>(t % col_tiles) * en;
   t /= col_tiles;
-  const int h = t % H, b = t / H;
+  const int h = static_cast<int>(t % H);
+  t /= H;
+  const int which = static_cast<int>(t % 2), b = static_cast<int>(t / 2);
+  const float* w = which ? dl : a;
+  const float* y = which ? q : g_av;
+  float* out = which ? gk : gv;
   const long long row0 = static_cast<long long>(b) * N + n0;
-  const float* ab = a + row0 * HS + h * S;
-  const float* db = dl + row0 * HS + h * S;
-  const long long col = static_cast<long long>(b) * S * D + h * hd + c0;
-  const float* gb = g_av + col;
-  const float* qb = q + col;
-  const int rows_n = min(kWideTile, N - n0), rows_c = min(kWideTile, hd - c0);
-  float acc_v[4][4] = {}, acc_k[4][4] = {};
-  for (int s0 = 0; s0 < S; s0 += kWideSlab) {
-    const int depth = min(kWideSlab, S - s0);
-    stage_across(as, ab + s0, HS, rows_n, depth);
-    stage_across(ds, db + s0, HS, rows_n, depth);
-    stage_along(gs, gb + static_cast<long long>(s0) * D, D, rows_c, depth);
-    stage_along(qs, qb + static_cast<long long>(s0) * D, D, rows_c, depth);
-    __syncthreads();
-    slab_product(as, gs, acc_v);
-    slab_product(ds, qs, acc_k);
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int rows = min(em, N - n0), cols = min(en, hd - c0);
+  const bool vec_w = HS % 4 == 0 && (h * S) % 4 == 0 && aligned16(w);
+  const bool vec_y = D % 4 == 0 && (h * hd + c0) % 4 == 0 && aligned16(y);
+  const float* wb = w + row0 * HS + h * S;
+  const float* yb = y + static_cast<long long>(b) * S * D + h * hd + c0;
+  const int tpr = en >> 3, tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
+  const bool active = ty < (em >> 3);
+  float acc[8][8] = {};
+  wide_stream<true, false>(wide_smem, Operand{wb, HS, rows, vec_w},
+                           Operand{yb, D, cols, vec_y}, em, en, 0, S, acc,
+                           [](const Staged<true>&) {});
+  if (!active) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (4 * ty + i >= rows_n) break;
-    const long long at = (row0 + 4 * ty + i) * D + h * hd + c0;
+  for (int i = 0; i < 8; ++i) {
+    const int m = wide_row(i, ty, em >> 1);
+    if (m >= rows) continue;
+    float* row = out + (row0 + m) * D + h * hd + c0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (4 * tx + j < rows_c) {
-        gv[at + 4 * tx + j] = acc_v[i][j];
-        gk[at + 4 * tx + j] = acc_k[i][j];
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int c = wide_row(j, tx, en >> 1);
+      if (c < cols) row[c] = acc[i][j];
     }
   }
 }
@@ -2142,27 +2520,38 @@ reduce_segments(const float* __restrict__ partial, float* __restrict__ out0,
 
 // The streamed plan's shapes: any S >= 1, H dividing D, a batch within the
 // reduction's grid, and scratch rows (S D + H S floats) an int can index.
-bool wide_shape_ok(int B, int N, int S, int D, int H, int segments) {
+bool wide_shape_ok(int B, int N, int S, int D, int H, int sms) {
   return B > 0 && B <= 65535 && N > 0 && S >= 1 && H >= 1 && D > 0 && D % H == 0 &&
-         segments >= 1 &&
-         static_cast<long long>(S) * D + static_cast<long long>(H) * S < kMaxGrid;
+         sms >= 1 && static_cast<long long>(S) * D + static_cast<long long>(H) * S < kMaxGrid;
 }
 
-// Blocks of the tiled kernels and of the row kernels for one shape, or
-// false where one of them passes the grid's limit.
+// Blocks of each kernel of a plan, or false where one passes the grid's
+// limit.
 struct WideGrid {
   long long pairs, sums, tokens, rows;
-  WideGrid(int B, int N, int S, int D, int H, int segments) {
-    const long long hd_tiles = wide_tiles(D / H), slot_tiles = wide_tiles(S);
-    pairs = static_cast<long long>(B) * H * wide_tiles(N) * slot_tiles;
-    sums = static_cast<long long>(B) * segments * H * slot_tiles * hd_tiles;
-    tokens = static_cast<long long>(B) * H * wide_tiles(N) * hd_tiles;
-    rows = (static_cast<long long>(B) * N + kWideRowsPerBlock - 1) / kWideRowsPerBlock;
+  WideGrid(const WidePlan& p, int B, int N, int S, int D, int H) {
+    const long long hd = D / H;
+    pairs = static_cast<long long>(B) * p.pieces * cdiv(N, p.pairs_te) * H * cdiv(S, p.se);
+    sums = static_cast<long long>(B) * p.segments * H * cdiv(S, p.se) * cdiv(hd, p.ce);
+    tokens = 2LL * B * H * cdiv(N, p.tokens_te) * cdiv(hd, p.tokens_ce);
+    rows = cdiv(static_cast<long long>(B) * N, kWideRowsPerBlock);
   }
   bool ok() const {
     return pairs <= kMaxGrid && sums <= kMaxGrid && tokens <= kMaxGrid && rows <= kMaxGrid;
   }
 };
+
+// Launches kernel<<<blocks, threads, smem, stream>>>(args...) after raising
+// its dynamic shared memory limit to smem; returns the launch's error.
+template <class... Params, class... Args>
+cudaError_t wide_launch(void (*kernel)(Params...), long long blocks, int threads, long long smem,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem), stream>>>(args...);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_segments(const float* partial, float* out0, float* out1, int width,
                             int split, int rest, int B, int segments,
@@ -2170,6 +2559,25 @@ cudaError_t launch_segments(const float* partial, float* out0, float* out1, int 
   const dim3 grid((split + rest + kReduceThreads - 1) / kReduceThreads, B);
   reduce_segments<<<grid, kReduceThreads, 0, stream>>>(partial, out0, out1, width, split,
                                                        rest, segments);
+  return cudaGetLastError();
+}
+
+// The logits (forward) or da (backward) and, where the epilogue did not,
+// the row kernel: a (dl) written to out, parts of pieces in the scratch.
+template <int kBwd>
+cudaError_t launch_pairs(const WidePlan& p, const WideGrid& grid, const float* x,
+                         const float* y, const float* g_a, const float* a, float* out,
+                         float* scratch, int B, int N, int S, int D, int H, cudaStream_t st) {
+  float* parts = p.pieces > 1 ? scratch : out;
+  cudaError_t err = wide_launch(
+      wide_pairs_kernel<kBwd>, grid.pairs, wide_threads(p.pairs_te, p.se),
+      p.fused ? wide_fused_bytes(p.pairs_te, p.se) : wide_ring_bytes(p.pairs_te, p.se), st, x,
+      y, g_a, a, p.fused ? out : parts, B, N, S, D, H, p.pairs_te, p.se, p.fused, p.per,
+      p.pieces);
+  if (err != cudaSuccess || p.fused) return err;
+  wide_rows_kernel<kBwd><<<static_cast<unsigned>(grid.rows), kWideRowsPerBlock * 32, 0, st>>>(
+      parts, static_cast<long long>(B) * N * H * S, p.pieces, kBwd ? g_a : nullptr,
+      kBwd ? a : nullptr, out, static_cast<long long>(B) * N, H * S);
   return cudaGetLastError();
 }
 
@@ -2296,66 +2704,105 @@ extern "C" int slot_routing_heads_plan(int S, int D, int H, int* plan) {
 }
 
 // The streamed plan's forward: k, v: [B, N, D]; q: [B, S, D]; a: [B, N, H
-// S]; sa: [B, H S]; av: [B, S, D]; scratch: [B * segments, S * D + H S]. All
-// fp32, contiguous, on the current device (no alignment needed). k holds
-// each head's columns pre-scaled by (D / H)^-0.5. Any S >= 1, H dividing D,
-// segments >= 1 (each batch row's tokens cut into that many pieces); returns
-// the CUDA error code of the launches (0 = none).
+// S]; sa: [B, H S]; av: [B, S, D]; scratch: at least scratch_floats floats
+// of the plan's (slot_routing_wide_plan). All fp32, contiguous, on the
+// current device (no alignment needed). k holds each head's columns
+// pre-scaled by (D / H)^-0.5. Any S >= 1, H dividing D; sms is the card's
+// SM count, which the plan fills. Returns the CUDA error code of the
+// launches (0 = none), cudaErrorInvalidValue where the scratch is short.
 extern "C" int slot_routing_wide_fwd(const float* k, const float* v, const float* q,
                                      float* a, float* sa, float* av, float* scratch,
-                                     int B, int N, int S, int D, int H, int segments,
-                                     void* stream) {
-  if (!wide_shape_ok(B, N, S, D, H, segments))
+                                     int B, int N, int S, int D, int H, int sms,
+                                     long long scratch_floats, void* stream) {
+  if (!wide_shape_ok(B, N, S, D, H, sms)) return static_cast<int>(cudaErrorInvalidValue);
+  const WidePlan p = wide_plan(B, N, S, D, H, sms);
+  const WideGrid grid(p, B, N, S, D, H);
+  if (!grid.ok() || scratch_floats < p.scratch_fwd)
     return static_cast<int>(cudaErrorInvalidValue);
-  const WideGrid grid(B, N, S, D, H, segments);
-  if (!grid.ok()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HS = H * S, width = S * D + HS;
-  wide_pairs_kernel<0><<<static_cast<unsigned>(grid.pairs), kWideThreads, 0, st>>>(
-      k, q, nullptr, a, N, S, D, H);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_pairs<0>(p, grid, k, q, nullptr, nullptr, a, scratch, B, N, S, D,
+                                    H, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_softmax_kernel<<<static_cast<unsigned>(grid.rows), kWideThreads, 0, st>>>(
-      a, static_cast<long long>(B) * N, HS);
-  err = cudaGetLastError();
+  err = wide_launch(wide_sums_kernel<1>, grid.sums, wide_threads(p.se, p.ce),
+                    wide_ring_bytes(p.se, p.ce), st, a, v, scratch, N, S, D, H, p.se, p.ce,
+                    p.segments, width);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_sums_kernel<1><<<static_cast<unsigned>(grid.sums), kWideThreads, 0, st>>>(
-      a, v, scratch, N, S, D, H, segments, width);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_segments(scratch, av, sa, width, S * D, HS, B, segments, st));
+  return static_cast<int>(launch_segments(scratch, av, sa, width, S * D, HS, B, p.segments, st));
 }
 
 // The streamed plan's backward: k, v: [B, N, D]; a, g_a: [B, N, H S]; q,
-// g_av: [B, S, D]; gk, gv: [B, N, D]; gq: [B, S, D]; scratch: [B *
-// segments, S * D]; work: [B, N, H S] (da, then dl). As the streamed
-// forward for the rest; returns the CUDA error code of the launches.
+// g_av: [B, S, D]; gk, gv: [B, N, D]; gq: [B, S, D]; scratch: at least
+// scratch_floats floats of the plan's; work: [B, N, H S] (dl). As the
+// streamed forward for the rest; returns the CUDA error code of the
+// launches.
 extern "C" int slot_routing_wide_bwd(const float* k, const float* v, const float* a,
                                      const float* q, const float* g_av, const float* g_a,
                                      float* gk, float* gv, float* gq, float* scratch,
-                                     float* work, int B, int N, int S, int D, int H,
-                                     int segments, void* stream) {
-  if (!wide_shape_ok(B, N, S, D, H, segments))
+                                     float* work, int B, int N, int S, int D, int H, int sms,
+                                     long long scratch_floats, void* stream) {
+  if (!wide_shape_ok(B, N, S, D, H, sms)) return static_cast<int>(cudaErrorInvalidValue);
+  const WidePlan p = wide_plan(B, N, S, D, H, sms);
+  const WideGrid grid(p, B, N, S, D, H);
+  if (!grid.ok() || scratch_floats < p.scratch_bwd)
     return static_cast<int>(cudaErrorInvalidValue);
-  const WideGrid grid(B, N, S, D, H, segments);
-  if (!grid.ok()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  wide_pairs_kernel<1><<<static_cast<unsigned>(grid.pairs), kWideThreads, 0, st>>>(
-      v, g_av, g_a, work, N, S, D, H);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_pairs<1>(p, grid, v, g_av, g_a, a, work, scratch, B, N, S, D, H, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_dl_kernel<<<static_cast<unsigned>(grid.rows), kWideThreads, 0, st>>>(
-      a, work, static_cast<long long>(B) * N, H * S);
-  err = cudaGetLastError();
+  err = wide_launch(wide_tokens_kernel, grid.tokens, wide_threads(p.tokens_te, p.tokens_ce),
+                    wide_ring_bytes(p.tokens_te, p.tokens_ce), st, a, g_av, work, q, gv, gk, N,
+                    S, D, H, p.tokens_te, p.tokens_ce);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_tokens_kernel<<<static_cast<unsigned>(grid.tokens), kWideThreads, 0, st>>>(
-      a, g_av, work, q, gv, gk, N, S, D, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wide_sums_kernel<0><<<static_cast<unsigned>(grid.sums), kWideThreads, 0, st>>>(
-      work, k, scratch, N, S, D, H, segments, S * D);
-  err = cudaGetLastError();
+  err = wide_launch(wide_sums_kernel<0>, grid.sums, wide_threads(p.se, p.ce),
+                    wide_ring_bytes(p.se, p.ce), st, work, k, scratch, N, S, D, H, p.se, p.ce,
+                    p.segments, S * D);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_segments(scratch, gq, nullptr, S * D, S * D, 0, B,
-                                          segments, st));
+                                          p.segments, st));
+}
+
+// The plan the streamed entries choose for a shape on a card of sms SMs:
+// plan[0..12) slots and columns of a head a tile, fused (1: softmax / dl
+// in the logits' epilogue), pieces of the head's columns and slabs a
+// piece, tokens a tile of the logits and of gv / gk, columns a tile of gv /
+// gk, segments, and the blocks an SM each of the logits, gv / gk and the
+// token sums is assumed to reach; plan[12..15) the blocks an SM this
+// card's occupancy calculator gives those three kernels at the plan's
+// tiles. The wrapper mirrors plan[0..12) (ops/slot_routing.py
+// wide_plan). Returns the CUDA error code (cudaErrorInvalidValue, writing
+// nothing, where the entries refuse the shape).
+extern "C" int slot_routing_wide_plan(int B, int N, int S, int D, int H, int sms, int* plan) {
+  if (!wide_shape_ok(B, N, S, D, H, sms)) return static_cast<int>(cudaErrorInvalidValue);
+  const WidePlan p = wide_plan(B, N, S, D, H, sms);
+  const long long smem[3] = {p.fused ? wide_fused_bytes(p.pairs_te, p.se)
+                                     : wide_ring_bytes(p.pairs_te, p.se),
+                             wide_ring_bytes(p.tokens_te, p.tokens_ce),
+                             wide_ring_bytes(p.se, p.ce)};
+  const int threads[3] = {wide_threads(p.pairs_te, p.se),
+                          wide_threads(p.tokens_te, p.tokens_ce), wide_threads(p.se, p.ce)};
+  int occupancy[3];
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_pairs_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem[0]));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], wide_pairs_kernel<0>,
+                                                        threads[0], smem[0]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_tokens_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem[1]));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[1], wide_tokens_kernel,
+                                                        threads[1], smem[1]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_sums_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem[2]));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[2], wide_sums_kernel<1>,
+                                                        threads[2], smem[2]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int i = 0;
+  for (int x : {p.se, p.ce, p.fused, p.pieces, p.per, p.pairs_te, p.tokens_te, p.tokens_ce,
+                p.segments, p.pairs_bps, p.tokens_bps, p.sums_bps, occupancy[0], occupancy[1],
+                occupancy[2]})
+    plan[i++] = x;
+  return 0;
 }

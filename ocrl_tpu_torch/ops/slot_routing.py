@@ -36,12 +36,18 @@ memory it needs, and for the heads kernels the rest of its plan:
 keeps one partial of ``S_a`` and ``A_v`` per batch row it touches, in a
 scratch slot that the wrapper allocates (``scratch_rows``), and a second
 kernel of the same C entry sums each row's slots in block order. The
-streamed plan runs each step as its own tiled kernel (logits, softmax, the
-token sums by segments of tokens, ``wide_segments``, in a scratch the
-wrapper allocates, and their sum in segment order), so nothing in its
-shared memory grows with S or D. No plan uses atomics: bitwise equal from
-run to run. On CUDA the gradient is the backward kernel of the same plan,
-as ``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
+streamed plan runs each product as its own tiled kernel, 8 x 8 outputs a
+thread from slabs staged through registers into shared memory: the logits
+with the softmax (dl) in their epilogue where one tile holds a token's
+logits, else a row kernel; gv and gk; the token sums by segments of
+tokens in a scratch the wrapper allocates, and their sum in segment order.
+Its C entry chooses the tiles, the epilogue, a cut of the columns into
+pieces where tokens are few, and the segments for the card's SM count;
+``wide_plan`` mirrors the choice, ``wide_scratch`` sizes the scratch for
+it and ``card_wide_plan`` asks the C entry. Nothing in its shared memory
+grows with S or D. No plan uses atomics: bitwise equal from run to run.
+On CUDA the gradient is the backward kernel of the same plan, as
+``torch.autograd.Function``: it takes the saved (k, v, q, a) and the
 cotangents, with that of ``S_a`` folded into that of ``a`` first, and writes
 gk, gv and gq the same way (ocrl_tpu/ops/slot_routing.py:142-164).
 
@@ -83,6 +89,7 @@ HEADS_BWD_KERNEL = "slot_routing_heads_bwd"
 HEADS_PLAN = "slot_routing_heads_plan"
 WIDE_KERNEL = "slot_routing_wide_fwd"
 WIDE_BWD_KERNEL = "slot_routing_wide_bwd"
+WIDE_PLAN = "slot_routing_wide_plan"
 FAST_SLOTS, FAST_WIDTH = 16, 256   # one head: one feature column per consumer thread
 MAX_SLOTS = 32                     # the heads kernels: up to 4 blocks of 8 slots
 # The heads kernels' plan (csrc/slot_routing.cu heads_plan): tiles, stages,
@@ -95,10 +102,42 @@ SLOT_BLOCK = 8
 NARROW_LANES, WIDE_LANES, NARROW_HEAD = 4, 32, 16
 CONSUMERS, MAX_GROUPS = 256, 16
 SMEM_LIMIT = 232448
-# The streamed plan (csrc/slot_routing.cu, kWideTile): 64 x 64 outputs a
-# block; its token sums cut each batch row into segments of at least
-# WIDE_MIN_SEGMENT tokens, about WIDE_BLOCKS_PER_SM blocks an SM in all.
-WIDE_TILE, WIDE_MIN_SEGMENT, WIDE_BLOCKS_PER_SM = 64, 256, 4
+# The streamed plan (csrc/slot_routing.cu, kWide*): slabs of WIDE_BK, two
+# stages of them in shared memory, 8 x 8 outputs a thread, at least
+# WIDE_MIN_THREADS threads a block; tile extents of slots and columns from
+# WIDE_EXTENTS (the least ceil(n / e) (e + WIDE_TILE_COST)), of tokens from
+# WIDE_TOKEN_EXTENTS, gv / gk's columns at most WIDE_TOKENS_COLS; the
+# softmax / dl in the logits' epilogue at one head up to S =
+# WIDE_FUSED_MAX; segments of at least WIDE_MIN_SEGMENT tokens; an SM's
+# shared memory and what the system reserves of it a block.
+WIDE_BK, WIDE_STAGES, WIDE_MIN_THREADS = 8, 2, 128
+# registers a thread of the logits and gv / gk kernels (__maxnreg__) and of
+# the token sums (__launch_bounds__ of 256 threads, 2 blocks)
+WIDE_REGS, WIDE_SUMS_REGS = 168, 128
+WIDE_EXTENTS, WIDE_TOKEN_EXTENTS = (16, 32, 48, 64, 96, 128), (128, 64)
+WIDE_FUSED_MAX, WIDE_TILE_COST, WIDE_MIN_SEGMENT, WIDE_TOKENS_COLS = 128, 32, 64, 64
+WIDE_SMEM_PER_SM, WIDE_SMEM_RESERVED = 233472, 1024
+
+
+class WidePlan(NamedTuple):
+    """What the streamed C entries choose for a shape (csrc: wide_plan):
+    slots and columns of a head a tile, fused (1: softmax / dl in the logits
+    kernel's epilogue), pieces of the head's columns and slabs a piece,
+    tokens a tile of the logits and of gv / gk, columns a tile of gv / gk,
+    segments of each batch row's tokens in the token sums, and the blocks an
+    SM the logits, gv / gk and token-sum kernels are assumed to reach."""
+    slot_extent: int
+    col_extent: int
+    fused: int
+    pieces: int
+    per: int
+    pairs_tokens: int
+    tokens_tokens: int
+    tokens_cols: int
+    segments: int
+    pairs_blocks: int
+    tokens_blocks: int
+    sums_blocks: int
 
 
 class HeadsPlan(NamedTuple):
@@ -247,13 +286,119 @@ def sweep_plan(S: int, D: int, H: int = 1) -> str:
     return "wide"
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wide_extent(n: int) -> int:
+    """The tile extent of WIDE_EXTENTS that covers n at the least cost
+    ceil(n / e) (e + WIDE_TILE_COST), the larger on a tie: 33 slots -> 48,
+    64 -> 64, 65 -> 96, a head of 192 columns -> 96."""
+    return min(WIDE_EXTENTS, key=lambda e: (_cdiv(n, e) * (e + WIDE_TILE_COST), -e))
+
+
+def wide_threads(em: int, en: int) -> int:
+    """Threads of an em x en tile: one a tile's 8 x 8 outputs, at least
+    WIDE_MIN_THREADS (the others only stage slabs)."""
+    return max(em * en // 64, WIDE_MIN_THREADS)
+
+
+def wide_ring_bytes(em: int, en: int) -> int:
+    """Shared memory of the two stages of [WIDE_BK][em + 4] and
+    [WIDE_BK][en + 4]."""
+    return 4 * WIDE_STAGES * WIDE_BK * (em + 4 + en + 4)
+
+
+def wide_fused_bytes(em: int, en: int) -> int:
+    """The logits kernel with its epilogue: the stages, or the [em, en + 4]
+    tile it stages in the same memory, whichever is larger."""
+    return max(wide_ring_bytes(em, en), 4 * em * (en + 4))
+
+
+def wide_blocks_per_sm(threads: int, regs: int, smem: int) -> int:
+    """Blocks an SM holds of a streamed kernel of ``threads`` threads,
+    ``regs`` registers a thread and ``smem`` bytes."""
+    return max(1, min(32, 2048 // threads, 65536 // (threads * regs),
+                      WIDE_SMEM_PER_SM // (smem + WIDE_SMEM_RESERVED)))
+
+
+def _fuller(blocks: int, cap: int, best: int, best_cap: int) -> bool:
+    """Whether ``blocks`` on ``cap`` places fill their last wave better than
+    ``best`` on ``best_cap`` (exactly, in integers)."""
+    return blocks * (_cdiv(best, best_cap) * best_cap) > best * (_cdiv(blocks, cap) * cap)
+
+
+def _token_extent(N: int, other: int, en: int, size, sms: int) -> tuple[int, int]:
+    """(tokens a tile, blocks an SM) of a grid of other x ceil(N / te)
+    blocks: the first of WIDE_TOKEN_EXTENTS whose grid fills the card's first
+    wave, else the last."""
+    for te in WIDE_TOKEN_EXTENTS:
+        per_sm = wide_blocks_per_sm(wide_threads(te, en), WIDE_REGS, size(te, en))
+        if other * _cdiv(N, te) >= per_sm * sms:
+            break
+    return te, per_sm
+
+
+@functools.cache
+def wide_plan(B: int, N: int, S: int, D: int, H: int, sms: int) -> WidePlan:
+    """The plan of the streamed C entries on a card of ``sms`` SMs, as
+    csrc/slot_routing.cu wide_plan chooses it (slot_routing_wide_plan reports
+    it; chip_smoke.py holds the two equal):
+
+    - tile extents: ``wide_extent`` of a head's slots and of its columns;
+    - pieces: where the logits' (token tile of 128, slot tile) blocks are
+      fewer than the SMs, the head's columns are cut into about SMs / blocks
+      pieces of whole slabs (their partials within 4 x the size of k);
+    - fused at one head where one tile holds all S logits and the columns
+      are whole;
+    - tokens a tile of the logits and of gv / gk: 128, or 64 where 128
+      leaves the card's first wave short; columns a tile of gv / gk at most
+      WIDE_TOKENS_COLS;
+    - segments: the fewest whose token-sum grid fills 90 % of its last wave,
+      else the fullest, each at least WIDE_MIN_SEGMENT tokens, their
+      partials no larger than the rows they sum."""
+    hd, HS = D // H, H * S
+    se, ce = wide_extent(S), wide_extent(hd)
+    slabs = _cdiv(hd, WIDE_BK)
+    tiles = B * _cdiv(N, 128) * H * _cdiv(S, se)
+    pieces = max(1, min(_cdiv(sms, tiles), 4 * D // HS, slabs)) if tiles < sms else 1
+    per = _cdiv(slabs, pieces)
+    pieces = _cdiv(slabs, per)
+    fused = int(H == 1 and S <= WIDE_FUSED_MAX and pieces == 1)
+    pairs_te, pairs_bps = _token_extent(N, B * H * _cdiv(S, se) * pieces, se,
+                                        wide_fused_bytes if fused else wide_ring_bytes, sms)
+    tokens_ce = min(ce, WIDE_TOKENS_COLS)
+    tokens_te, tokens_bps = _token_extent(N, 2 * B * H * _cdiv(hd, tokens_ce), tokens_ce,
+                                          wide_ring_bytes, sms)
+    sums_bps = wide_blocks_per_sm(wide_threads(se, ce), WIDE_SUMS_REGS, wide_ring_bytes(se, ce))
+    cap = sums_bps * sms
+    sum_tiles = B * H * _cdiv(S, se) * _cdiv(hd, ce)
+    most = max(1, min(_cdiv(N, WIDE_MIN_SEGMENT), N * (HS + D) // (S * D + HS)))
+    segments = 1
+    for g in range(1, most + 1):
+        blocks = sum_tiles * g
+        if 10 * blocks >= 9 * _cdiv(blocks, cap) * cap:
+            segments = g
+            break
+        if _fuller(blocks, cap, sum_tiles * segments, cap):
+            segments = g
+    return WidePlan(se, ce, fused, pieces, per, pairs_te, tokens_te, tokens_ce, segments,
+                    pairs_bps, tokens_bps, sums_bps)
+
+
+def wide_scratch(plan: WidePlan, B: int, N: int, S: int, D: int, H: int, fwd: bool) -> int:
+    """Floats of the streamed entries' scratch: the partials of the pieces
+    (B N H S each) where the columns are cut, or the token sums' partials
+    (B x segments rows of S D, + H S in the forward), whichever is larger."""
+    parts = plan.pieces * B * N * H * S if plan.pieces > 1 else 0
+    return max(parts, B * plan.segments * (S * D + (H * S if fwd else 0)))
+
+
 def wide_segments(B: int, N: int, S: int, D: int, H: int, sms: int) -> int:
-    """Segments of each batch row's tokens in the streamed plan's token sums:
-    enough (row, head, slot tile, column tile, segment) blocks for about
-    WIDE_BLOCKS_PER_SM an SM, with segments of at least WIDE_MIN_SEGMENT
-    tokens; the scratch holds B x segments partials of S D + H S floats."""
-    tiles = B * H * -(-S // WIDE_TILE) * -(-(D // H) // WIDE_TILE)
-    return max(1, min(-(-WIDE_BLOCKS_PER_SM * sms // tiles), -(-N // WIDE_MIN_SEGMENT)))
+    """Segments of each batch row's tokens in the streamed plan's token sums
+    (``wide_plan``); the scratch holds B x segments partials of S D (+ H S
+    in the forward) floats."""
+    return wide_plan(B, N, S, D, H, sms).segments
 
 
 def _check(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, heads: int) -> None:
@@ -298,9 +443,13 @@ _ARGTYPES = {   # pointers, then B, N, S, D (and H), max_blocks, then the stream
     HEADS_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     HEADS_BWD_KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     HEADS_PLAN: [ctypes.c_int] * 3 + [ctypes.c_void_p],   # S, D, H, the 14 ints out
-    # pointers (the backward's last the workspace), B, N, S, D, H, segments
-    WIDE_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    WIDE_BWD_KERNEL: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    # pointers (the backward's last the workspace), B, N, S, D, H, the SM
+    # count, the scratch's floats
+    WIDE_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                ctypes.c_void_p],
+    WIDE_BWD_KERNEL: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                     ctypes.c_void_p],
+    WIDE_PLAN: [ctypes.c_int] * 6 + [ctypes.c_void_p],   # B, N, S, D, H, sms, the 15 ints out
 }
 
 
@@ -324,6 +473,20 @@ def card_plans(S: int, D: int, H: int, device: torch.device | None = None):
     if err:
         raise ValueError(f"route_sweep: the heads kernels refuse S={S}, D={D}, heads={H}")
     return HeadsPlan(*out[:6]), HeadsPlan(*out[6:12]), out[12], out[13]
+
+
+def card_wide_plan(B: int, N: int, S: int, D: int, H: int, device: torch.device | None = None):
+    """(the plan the streamed C entries choose on ``device``'s card, the
+    blocks an SM its occupancy calculator gives the logits, gv / gk and
+    token-sum kernels at that plan's tiles) (csrc: slot_routing_wide_plan)."""
+    out = (ctypes.c_int * 15)()
+    with torch.cuda.device(device):
+        sms = _num_sms(torch.cuda.current_device())
+        err = _entry(WIDE_PLAN)(B, N, S, D, H, sms, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"route_sweep: the streamed kernels refuse B={B}, N={N}, S={S}, "
+                         f"D={D}, heads={H} (CUDA error {err})")
+    return WidePlan(*out[:12]), tuple(out[12:])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -351,12 +514,11 @@ def _sweep_fwd(k, v, q, heads=1, plan=None):
     sa = torch.empty((B, HS), dtype=torch.float32, device=k.device)
     av = torch.empty((B, S, D), dtype=torch.float32, device=k.device)
     if plan == "wide":
-        segments = wide_segments(B, N, S, D, heads, sms)
-        scratch = torch.empty((B * segments, S * D + HS), dtype=torch.float32,
-                              device=k.device)
+        floats = wide_scratch(wide_plan(B, N, S, D, heads, sms), B, N, S, D, heads, True)
+        scratch = torch.empty(floats, dtype=torch.float32, device=k.device)
         _build.launch_on(k.device, WIDE_KERNEL, _entry(WIDE_KERNEL), k.data_ptr(),
                          v.data_ptr(), q.data_ptr(), a.data_ptr(), sa.data_ptr(),
-                         av.data_ptr(), scratch.data_ptr(), B, N, S, D, heads, segments)
+                         av.data_ptr(), scratch.data_ptr(), B, N, S, D, heads, sms, floats)
         return sa, av, a
     _check_aligned(k=k, v=v, q=q)
     scratch = torch.empty((scratch_rows(B, N, sms), S * D + _padded(HS)),
@@ -384,11 +546,11 @@ def _sweep_bwd(k, v, q, a, g_av, g_a, heads=1, plan=None):
     pointers = (k.data_ptr(), v.data_ptr(), a.data_ptr(), q.data_ptr(), g_av.data_ptr(),
                 g_a.data_ptr(), gk.data_ptr(), gv.data_ptr(), gq.data_ptr())
     if plan == "wide":
-        segments = wide_segments(B, N, S, D, heads, sms)
-        scratch = torch.empty((B * segments, S * D), dtype=torch.float32, device=k.device)
-        work = torch.empty_like(a)     # da, then dl
+        floats = wide_scratch(wide_plan(B, N, S, D, heads, sms), B, N, S, D, heads, False)
+        scratch = torch.empty(floats, dtype=torch.float32, device=k.device)
+        work = torch.empty_like(a)     # dl
         _build.launch_on(k.device, WIDE_BWD_KERNEL, _entry(WIDE_BWD_KERNEL), *pointers,
-                         scratch.data_ptr(), work.data_ptr(), B, N, S, D, heads, segments)
+                         scratch.data_ptr(), work.data_ptr(), B, N, S, D, heads, sms, floats)
         return gk, gv, gq
     _check_aligned(k=k, v=v, q=q, a=a)
     scratch = torch.empty((scratch_rows(B, N, sms), S * D), dtype=torch.float32,

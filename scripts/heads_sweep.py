@@ -6,6 +6,7 @@ side by side on one NVIDIA GPU.
     python3 scripts/heads_sweep.py parent=OTHER/slot_routing.cu \\
         change=ocrl_tpu_torch/ops/csrc/slot_routing.cu
     python3 scripts/heads_sweep.py --phases change=...   # also where the time goes
+    python3 scripts/heads_sweep.py --streamed parent=... change=...   # B3'' / B4'' only
 
 Each source (LABEL=PATH, with the C entries of
 ``ocrl_tpu_torch/ops/csrc/slot_routing.cu``) is built by nvcc into
@@ -22,7 +23,13 @@ torch.profiler) is taken in ROUNDS
 rounds that visit the sources forwards and backwards in turn, beside the
 plain version's and the bound (``chip_smoke.sweep_bound_ms``,
 ``sweep_bwd_bound_ms``). Where a source has ``slot_routing_heads_plan``, the
-plan its heads entries choose is printed for each heads shape. With
+plan its heads entries choose is printed for each heads shape. At every
+shape of ``chip_smoke.WIDE_SHAPES`` the streamed entries (B3'' and B4'')
+run the same way, each source through its own C signature (a source
+without ``slot_routing_wide_plan`` takes the segment count that its
+wrapper computed, ``parent_segments``), with the device ms of each of
+their kernels beside the whole call's; ``--streamed`` runs those shapes
+alone. With
 ``--phases`` each source is also built with a clock64 mark at every phase
 boundary of the heads kernels' consumer loops (``with_phases``: waiting for
 a tile, the logits, the softmax or dl, the barrier, the columns, a
@@ -55,7 +62,16 @@ OUT = ROOT / "build" / "heads_sweep"
 SINGLE_FWD = [(16, 4096, 5, 1, 192), (24, 4096, 5, 1, 192), (256, 4096, 5, 1, 192)]
 SINGLE_BWD = [(24, 4096, 5, 1, 192), (256, 4096, 5, 1, 192)]
 ROUNDS, REPS = 5, 20
-PHASES_FLAG = "--phases"
+PHASES_FLAG, STREAMED_FLAG = "--phases", "--streamed"
+FLAGS = (PHASES_FLAG, STREAMED_FLAG)
+# the streamed entries' kernels, in either source's version
+WIDE_PARTS = ("wide_pairs_kernel", "wide_softmax_kernel", "wide_dl_kernel", "wide_rows_kernel",
+              "wide_tokens_kernel", "wide_sums_kernel", "reduce_segments")
+# The C signature of the streamed entries before slot_routing_wide_plan: the
+# pointers, B, N, S, D, H, segments, the stream.
+OLD_WIDE_ARGTYPES = {
+    tsr.WIDE_KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    tsr.WIDE_BWD_KERNEL: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
 
 
 PHASES = ("row and loop", "wait for the tile", "logits", "softmax or dl", "barrier",
@@ -131,8 +147,8 @@ def build(sources: dict[str, Path]) -> dict[str, Path]:
             raise SystemExit(f"nvcc failed on {label}:\n{log}")
         usage = _build.ptxas_usage(log)
         heads = {k: (u["registers"], u["spill_stores"] + u["spill_loads"])
-                 for k, u in usage.items() if k.startswith("heads_")}
-        print(f"  nvcc {label}: {time.perf_counter() - t0:.2f} s; heads kernels "
+                 for k, u in usage.items() if k.startswith(("heads_", "wide_"))}
+        print(f"  nvcc {label}: {time.perf_counter() - t0:.2f} s; heads and streamed kernels "
               f"(registers, spill bytes): {heads}; stack frames: "
               f"{sorted(set(re.findall(r'(\d+) bytes stack frame', log)))}", flush=True)
         sass_counts(label, lib)
@@ -149,7 +165,7 @@ def sass_counts(label: str, lib: Path) -> None:
                           text=True).stdout
     for part in sass.split("Function : ")[1:]:
         name = _build._short_name(part.split()[0])
-        if not name.startswith("heads_"):
+        if not name.startswith(("heads_", "wide_")):
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
         kinds = {k: sum(op.split(".")[0] == k for op in ops)
@@ -161,13 +177,71 @@ def sass_counts(label: str, lib: Path) -> None:
 def entries(lib: Path) -> dict:
     dll = ctypes.CDLL(str(lib))
     fns = {"dll": dll}
+    planned = hasattr(dll, tsr.WIDE_PLAN)
     for name in (tsr.KERNEL, tsr.BWD_KERNEL, tsr.HEADS_KERNEL, tsr.HEADS_BWD_KERNEL,
-                 tsr.HEADS_PLAN):
+                 tsr.HEADS_PLAN, tsr.WIDE_KERNEL, tsr.WIDE_BWD_KERNEL, tsr.WIDE_PLAN):
         fn = getattr(dll, name, None)
         if fn is not None:
-            fn.argtypes, fn.restype = tsr._ARGTYPES[name], ctypes.c_int
+            fn.argtypes = (OLD_WIDE_ARGTYPES[name] if name in OLD_WIDE_ARGTYPES and not planned
+                           else tsr._ARGTYPES[name])
+            fn.restype = ctypes.c_int
             fns[name] = fn
     return fns
+
+
+def parent_segments(B: int, N: int, S: int, D: int, H: int, sms: int) -> int:
+    """The segment count the wrapper passed to streamed entries that take
+    one (64 x 64 tiles, segments of at least 256 tokens, about 4 blocks an
+    SM)."""
+    tiles = B * H * -(-S // 64) * -(-(D // H) // 64)
+    return max(1, min(-(-4 * sms // tiles), -(-N // 256)))
+
+
+def wide_call(fns, shape, x, fwd: bool):
+    """One launch of a source's streamed forward (sa, av, a) or backward
+    (gk, gv, gq) entry, through its own C signature."""
+    B, N, S, H, D = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    HS = H * S
+    if tsr.WIDE_PLAN in fns:
+        floats = tsr.wide_scratch(tsr.wide_plan(B, N, S, D, H, sms), B, N, S, D, H, fwd)
+        tail = (sms, floats)
+    else:
+        segments = parent_segments(B, N, S, D, H, sms)
+        floats = B * segments * (S * D + (HS if fwd else 0))
+        tail = (segments,)
+    scratch = torch.empty(floats, device="cuda")
+    if fwd:
+        outs = (torch.empty(B, HS, device="cuda"), torch.empty(B, S, D, device="cuda"),
+                torch.empty(B, N, HS, device="cuda"))
+        ptrs = [x["k"], x["v"], x["q"], outs[2], outs[0], outs[1], scratch]
+    else:
+        outs = (torch.empty_like(x["k"]), torch.empty_like(x["v"]), torch.empty_like(x["q"]))
+        ptrs = [x["k"], x["v"], x["a"], x["q"], x["g_av"], x["g_af"], *outs, scratch,
+                torch.empty(B, N, HS, device="cuda")]
+    fn = fns[tsr.WIDE_KERNEL if fwd else tsr.WIDE_BWD_KERNEL]
+
+    def call():
+        err = fn(*(t.data_ptr() for t in ptrs), B, N, S, D, H, *tail,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"streamed {'forward' if fwd else 'backward'} at {shape}: CUDA "
+                             f"error {err}")
+        return outs
+    return call
+
+
+def parts_ms(fn, reps: int = REPS) -> tuple[float, dict[str, float]]:
+    """(device ms a call of all of fn's kernels, of each WIDE_PARTS kernel
+    it ran), by torch.profiler; a profile that saw no kernel is taken once
+    more, then CUDA events give the whole and no parts."""
+    for _ in range(2):
+        _, averages = chip_smoke.profiled(fn, reps)
+        total = chip_smoke.device_ms(averages)
+        if total is not None:
+            parts = {p: chip_smoke.device_ms(averages, p) for p in WIDE_PARTS}
+            return total / reps, {p: ms / reps for p, ms in parts.items() if ms is not None}
+    return chip_smoke.wall_ms(fn, reps), {}
 
 
 def inputs(shape, seed: int) -> dict:
@@ -271,6 +345,51 @@ def phase_report(label: str, what: str, shape, fns, call) -> dict:
     return dict(zip(PHASES, per.tolist()))
 
 
+def streamed_case(fns, what: str, shape, bw: float, flops: float, seed: int) -> dict:
+    """Every source's streamed entry at one shape: checked against the plain
+    version, then timed in ROUNDS rounds that visit the sources forwards and
+    backwards in turn, each kernel's device ms beside the call's."""
+    B, N, S, H, D = shape
+    x = inputs(shape, seed)
+    if what == "fwd":
+        plain = lambda: tsr.route_sweep_reference(x["k"], x["v"], x["q"], H)  # noqa: E731
+        bound_ms, bound_by = chip_smoke.sweep_bound_ms(B, N, S, D, bw, flops, H)
+    else:
+        leaves = [x[n].clone().requires_grad_() for n in ("k", "v", "q")]
+        outs = tsr.route_sweep_reference(*leaves, H)
+        plain = lambda: torch.autograd.grad(  # noqa: E731
+            outs, leaves, (x["g_sa"], x["g_av"], x["g_a"]), retain_graph=True)
+        bound_ms, bound_by = chip_smoke.sweep_bwd_bound_ms(B, N, S, D, bw, flops, H)
+    want = [t.detach() for t in plain()]
+    calls = {label: wide_call(f, shape, x, what == "fwd") for label, f in fns.items()
+             if tsr.WIDE_KERNEL in f and not label.endswith("-phases")}
+    errs = {label: check(label, f"streamed {what}", shape, call, want)
+            for label, call in calls.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"    plan (wrapper's mirror): {tsr.wide_plan(B, N, S, D, H, sms)._asdict()}",
+          flush=True)
+    times = {label: [] for label in calls}
+    parts = {label: [] for label in calls}
+    for r in range(ROUNDS):
+        for label in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            ms, split = parts_ms(calls[label])
+            times[label].append(ms)
+            parts[label].append(split)
+    plain_ms = chip_smoke.per_call_ms(plain, reps=REPS)[0]
+    row = dict(what=f"streamed {what}", shape=list(shape), bound_ms=bound_ms,
+               bound_by=bound_by, plain_ms=plain_ms, sources={})
+    for label, ms in times.items():
+        med = statistics.median(ms)
+        split = {p: statistics.median(d.get(p, 0.0) for d in parts[label])
+                 for p in WIDE_PARTS if any(p in d for d in parts[label])}
+        row["sources"][label] = dict(ms=ms, median=med, parts=split, max_abs_err=errs[label])
+        print(f"    {label} streamed {what} {list(shape)}: device ms {min(ms):.4f}-{max(ms):.4f} "
+              f"(median {med:.4f}; {100 * bound_ms / med:.1f} % of the bound {bound_ms:.4f}, "
+              f"{bound_by}); plain {plain_ms:.4f}; by kernel (medians): "
+              + ", ".join(f"{p} {v:.4f}" for p, v in split.items()), flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -280,12 +399,13 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _, bw, flops = chip_smoke.card_rates(torch.cuda.get_device_name(0))
-    sources = dict(arg.split("=", 1) for arg in sys.argv[1:] if arg != PHASES_FLAG) or {
+    sources = dict(arg.split("=", 1) for arg in sys.argv[1:] if arg not in FLAGS) or {
         "change": str(ROOT / "ocrl_tpu_torch/ops/csrc/slot_routing.cu")}
     fns = {label: entries(lib) for label, lib in
            build({k: Path(v) for k, v in sources.items()}).items()}
     result = {"card": card, "shapes": []}
-    cases = [("fwd", s) for s in chip_smoke.HEADS_SHAPES + SINGLE_FWD] + \
+    cases = [] if STREAMED_FLAG in sys.argv else \
+        [("fwd", s) for s in chip_smoke.HEADS_SHAPES + SINGLE_FWD] + \
         [("bwd", s) for s in chip_smoke.HEADS_SHAPES + SINGLE_BWD]
     for i, (what, shape) in enumerate(cases):
         B, N, S, H, D = shape
@@ -336,6 +456,9 @@ def main() -> int:
                   f"{bound_ms:.4f}, {bound_by}; {kernel} alone "
                   f"{statistics.median(alone[label]):.4f}); plain {plain_ms:.4f}", flush=True)
         result["shapes"].append(row)
+    for i, (what, shape) in enumerate([("fwd", s) for s in chip_smoke.WIDE_SHAPES] +
+                                      [("bwd", s) for s in chip_smoke.WIDE_SHAPES]):
+        result["shapes"].append(streamed_case(fns, what, shape, bw, flops, seed=100 + i))
     print(json.dumps(result), flush=True)
     return 0
 

@@ -298,9 +298,11 @@ def test_heads_plans_launch_every_tile_and_variant_on_the_card(cuda, S, H, D):
         assert torch.equal(g, y)
 
 
-# chip_smoke.WIDE_SHAPES, [B, N, S, H, D]: past 32 slots, past shared memory
+# chip_smoke.WIDE_SHAPES, [B, N, S, H, D]: past 32 slots, past shared
+# memory, the widest H S of the logits' epilogue and one past it, 96 slots
 WIDE_SHAPES = [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192), (2, 333, 32, 8, 2048),
-               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35)]
+               (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35), (24, 4096, 128, 1, 192),
+               (24, 4096, 129, 1, 192), (24, 4096, 96, 1, 192)]
 
 
 def _sweep_inputs(shape, seed):
@@ -339,6 +341,35 @@ def test_streamed_plan_matches_plain_on_the_card(cuda, shape):
     for g, w, y in zip((*outs, *got), (*want_outs, *want), again):
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()
         assert torch.equal(g, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 64, 1, 192), (3, 200, 33, 1, 96)])
+def test_streamed_epilogues_agree_on_the_card(cuda, shape, monkeypatch):
+    """At one shape, the streamed entries on the card's SM count (few
+    blocks: the columns cut into pieces, the softmax and dl in the row
+    kernels) and planned for one SM (the softmax and dl in the logits'
+    epilogue) give outputs and gradients within 1e-5 of each other's and
+    the plain version's largest entries."""
+    B, N, S, H, D = shape
+    inputs, cot = _sweep_inputs(shape, 15)
+    g_a = (cot[2] + cot[0][:, None, :]).contiguous()
+    sms = tsr._num_sms(torch.cuda.current_device())
+    plans = [tsr.wide_plan(B, N, S, D, H, n) for n in (sms, 1)]
+    assert [(p.fused, p.pieces > 1) for p in plans] == [(0, True), (1, False)]
+    outs = []
+    for n in (sms, 1):
+        monkeypatch.setattr(tsr, "_num_sms", lambda index, n=n: n)
+        fwd = tsr._sweep_fwd(*inputs, H, plan="wide")
+        outs.append((*fwd, *tsr._sweep_bwd(*inputs, fwd[2], cot[1], g_a, H, plan="wide")))
+    leaves = [x.clone().requires_grad_() for x in inputs]
+    want = tsr.route_sweep_reference(*leaves, H)
+    want = (*want, *torch.autograd.grad(want[1:], leaves, (cot[1], g_a)))
+    torch.cuda.synchronize()
+    for rows, epilogue, w in zip(*outs, want):
+        scale = w.abs().max()
+        assert (rows - epilogue).abs().max() <= 1e-5 * scale
+        assert (rows - w).abs().max() <= 1e-5 * scale
 
 
 @pytest.mark.cuda

@@ -168,23 +168,131 @@ def test_sweep_plan_mirrors_the_entries():
         ["fast", "heads", "heads", "wide", "wide", "wide", "wide"]
 
 
-@pytest.mark.parametrize("B,N,S,H,D", [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192),
-                                       (2, 333, 32, 8, 2048), (2, 40, 5, 1, 8192),
-                                       (3, 37, 65, 5, 35), (1, 5, 1, 1, 1)])
+# chip_smoke.WIDE_SHAPES [B, N, S, H, D] and corners of the streamed plan:
+# one token, deep rows over few tokens, more than 128 slots, odd widths,
+# many rows
+WIDE_PLAN_SHAPES = [(24, 4096, 64, 1, 192), (24, 4096, 33, 1, 192), (2, 333, 32, 8, 2048),
+                    (2, 40, 5, 1, 8192), (3, 37, 65, 5, 35), (24, 4096, 128, 1, 192),
+                    (24, 4096, 129, 1, 192), (24, 4096, 96, 1, 192), (1, 5, 1, 1, 1),
+                    (1, 1, 300, 3, 3), (64, 9000, 17, 1, 64), (2, 100, 33, 1, 192)]
+
+
+@pytest.mark.parametrize("B,N,S,H,D", WIDE_PLAN_SHAPES[:5] + [(1, 5, 1, 1, 1)])
 def test_wide_segments_fill_the_card(B, N, S, H, D):
     """The streamed plan's token sums: between one segment and one per
-    WIDE_MIN_SEGMENT tokens, at least WIDE_BLOCKS_PER_SM blocks an SM
-    where the rows allow it, and every token in exactly one segment (csrc:
-    wide_sums_kernel cuts a row into pieces of ceil(N / segments))."""
+    WIDE_MIN_SEGMENT tokens (and no more partials than the rows they sum),
+    the fewest whose grid fills 90 % of its last wave at the blocks an SM the
+    token-sum kernel holds, else the fullest; every token in exactly one
+    segment (csrc: wide_sums_kernel cuts a row into pieces of
+    ceil(N / segments))."""
+    from fractions import Fraction
+
     sms = 132
+    plan = tsr.wide_plan(B, N, S, D, H, sms)
     segments = tsr.wide_segments(B, N, S, D, H, sms)
-    tiles = B * H * -(-S // tsr.WIDE_TILE) * -(-(D // H) // tsr.WIDE_TILE)
-    most = max(1, -(-N // tsr.WIDE_MIN_SEGMENT))
+    assert segments == plan.segments
+    tiles = B * H * -(-S // plan.slot_extent) * -(-(D // H) // plan.col_extent)
+    cap = plan.sums_blocks * sms
+    most = max(1, min(-(-N // tsr.WIDE_MIN_SEGMENT), N * (H * S + D) // (S * D + H * S)))
     assert 1 <= segments <= most
-    assert tiles * segments >= tsr.WIDE_BLOCKS_PER_SM * sms or segments == most
+
+    def fill(g):
+        return Fraction(tiles * g, -(-tiles * g // cap) * cap)
+    if fill(segments) >= Fraction(9, 10):
+        assert all(fill(g) < Fraction(9, 10) for g in range(1, segments))
+    else:
+        assert all(fill(g) <= fill(segments) for g in range(1, most + 1))
     seg = -(-N // segments)
     covered = [t for g in range(segments) for t in range(min(N, g * seg), min(N, g * seg + seg))]
     assert covered == list(range(N))
+
+
+@pytest.mark.parametrize("B,N,S,H,D", WIDE_PLAN_SHAPES)
+def test_wide_plan_mirrors_each_choice(B, N, S, H, D):
+    """Each choice of the streamed plan's mirror (csrc: wide_plan): tile
+    extents at the least cost; the head's columns cut into pieces of whole
+    slabs only where the logits' blocks are fewer than the SMs, their
+    partials within 4 x the size of k; the softmax / dl in the logits'
+    epilogue exactly at one head, S <= WIDE_FUSED_MAX and uncut columns;
+    128 tokens a tile unless that leaves the first wave short; gv / gk's
+    columns at most WIDE_TOKENS_COLS; the blocks an SM each kernel holds at
+    its registers and shared memory; a scratch for the partials."""
+    sms, hd = 132, D // H
+    plan = tsr.wide_plan(B, N, S, D, H, sms)
+
+    def cost(n, e):
+        return (-(-n // e) * (e + tsr.WIDE_TILE_COST), -e)
+    assert plan.slot_extent == min(tsr.WIDE_EXTENTS, key=lambda e: cost(S, e))
+    assert plan.col_extent == min(tsr.WIDE_EXTENTS, key=lambda e: cost(hd, e))
+    se, ce = plan.slot_extent, plan.col_extent
+    slabs = -(-hd // tsr.WIDE_BK)
+    assert (plan.pieces - 1) * plan.per < slabs <= plan.pieces * plan.per
+    if plan.pieces > 1:
+        assert B * -(-N // 128) * H * -(-S // se) < sms
+        assert plan.pieces * B * N * H * S <= 4 * B * N * D
+    assert plan.fused == int(H == 1 and S <= tsr.WIDE_FUSED_MAX and plan.pieces == 1)
+    assert plan.tokens_cols == min(ce, tsr.WIDE_TOKENS_COLS)
+    for te, other, en, size, blocks in (
+            (plan.pairs_tokens, B * H * -(-S // se) * plan.pieces, se,
+             tsr.wide_fused_bytes if plan.fused else tsr.wide_ring_bytes, plan.pairs_blocks),
+            (plan.tokens_tokens, 2 * B * H * -(-hd // plan.tokens_cols), plan.tokens_cols,
+             tsr.wide_ring_bytes, plan.tokens_blocks)):
+        assert blocks == tsr.wide_blocks_per_sm(tsr.wide_threads(te, en), tsr.WIDE_REGS,
+                                                size(te, en))
+        per_128 = tsr.wide_blocks_per_sm(tsr.wide_threads(128, en), tsr.WIDE_REGS,
+                                         size(128, en))
+        assert te == (128 if other * -(-N // 128) >= per_128 * sms else 64)
+        assert tsr.wide_threads(te, en) >= max(te * en // 64, te, en)   # every run staged
+    assert plan.sums_blocks == tsr.wide_blocks_per_sm(
+        tsr.wide_threads(se, ce), tsr.WIDE_SUMS_REGS, tsr.wide_ring_bytes(se, ce))
+    for fwd in (True, False):
+        floats = tsr.wide_scratch(plan, B, N, S, D, H, fwd)
+        assert floats >= B * plan.segments * (S * D + (H * S if fwd else 0))
+        assert floats >= (plan.pieces * B * N * H * S if plan.pieces > 1 else 0)
+
+
+def test_wide_plan_mirror_matches_the_c_plan(tmp_path):
+    """The streamed plan's host code, cut from csrc/slot_routing.cu and built
+    with the host's C++ compiler, chooses what ``wide_plan`` and
+    ``wide_scratch`` mirror at WIDE_PLAN_SHAPES and 400 shapes drawn from a
+    seed, on cards of 132, 114, 78, 8 and 1 SMs."""
+    import shutil
+    import subprocess
+
+    text = (Path(tsr.__file__).parent / "csrc" / "slot_routing.cu").read_text()
+    start = text.index("constexpr int kWideBK")
+    end = text.index("__device__ __forceinline__ bool aligned16", start)
+    source = tmp_path / "plan.cpp"
+    source.write_text(
+        "#include <cstdio>\n#define __host__\n#define __device__\n" + text[start:end] +
+        "int main() {\n  int B, N, S, D, H, sms;\n"
+        "  while (std::scanf(\"%d %d %d %d %d %d\", &B, &N, &S, &D, &H, &sms) == 6) {\n"
+        "    const WidePlan p = wide_plan(B, N, S, D, H, sms);\n"
+        "    std::printf(\"%d %d %d %d %d %d %d %d %d %d %d %d %lld %lld\\n\", p.se, p.ce, "
+        "p.fused, p.pieces, p.per, p.pairs_te, p.tokens_te, p.tokens_ce, p.segments, "
+        "p.pairs_bps, p.tokens_bps, p.sums_bps, p.scratch_fwd, p.scratch_bwd);\n  }\n}\n")
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler is needed (the native rasterizer is built with it too)"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plan"), str(source)],
+                   check=True)
+    rng = np.random.default_rng(22)
+    shapes = [(B, N, S, D, H, sms) for B, N, S, H, D in WIDE_PLAN_SHAPES
+              for sms in (132, 114, 78, 8, 1)]
+    for _ in range(400):
+        H = int(rng.choice([1, 1, 2, 3, 4, 5, 8]))
+        shapes.append((int(rng.integers(1, 65)), int(rng.choice([1, 7, 40, 333, 4096,
+                                                                 int(rng.integers(1, 9000))])),
+                       int(rng.integers(1, 301)), H * int(rng.integers(1, 401)), H,
+                       int(rng.choice([132, 114, 78, 8, 1]))))
+    out = subprocess.run([str(tmp_path / "plan")], input="\n".join(
+        " ".join(map(str, s)) for s in shapes), capture_output=True, text=True,
+        check=True).stdout.split("\n")
+    for shape, line in zip(shapes, out):
+        B, N, S, D, H, sms = shape
+        plan = tsr.wide_plan(B, N, S, D, H, sms)
+        mirrored = [*plan, tsr.wide_scratch(plan, B, N, S, D, H, True),
+                    tsr.wide_scratch(plan, B, N, S, D, H, False)]
+        assert [int(x) for x in line.split()] == mirrored, shape
 
 
 def block_range(g: int, G: int, BN: int) -> tuple[int, int]:
@@ -362,19 +470,21 @@ def test_plan_shapes_cover_every_choice_of_the_plan():
     assert {k[1] for k in every if k[0] == "fwd" and len(k) == 3} == set(tsr.HEADS_TILES)
 
 
-_CTYPE_OF = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+_CTYPE_OF = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
 
 
 def _c_signatures(source: str) -> dict[str, list[str]]:
     """extern "C" functions of a .cu source: name -> kind of each parameter
-    (ptr, int or float)."""
+    (ptr, int, long long or float)."""
     text = (Path(tsr.__file__).parent / "csrc" / source).read_text()
     out = {}
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
         kinds = []
         for p in params.split(","):
             p = p.strip()
-            kinds.append("ptr" if "*" in p else "float" if p.startswith("float") else "int")
+            kinds.append("ptr" if "*" in p else "float" if p.startswith("float")
+                         else "long long" if p.startswith("long long") else "int")
         out[name] = kinds
     return out
 
@@ -383,7 +493,7 @@ def _c_signatures(source: str) -> dict[str, list[str]]:
     (tsr, "slot_routing.cu", tsr.KERNEL), (tsr, "slot_routing.cu", tsr.BWD_KERNEL),
     (tsr, "slot_routing.cu", tsr.HEADS_KERNEL), (tsr, "slot_routing.cu", tsr.HEADS_BWD_KERNEL),
     (tsr, "slot_routing.cu", tsr.HEADS_PLAN), (tsr, "slot_routing.cu", tsr.WIDE_KERNEL),
-    (tsr, "slot_routing.cu", tsr.WIDE_BWD_KERNEL),
+    (tsr, "slot_routing.cu", tsr.WIDE_BWD_KERNEL), (tsr, "slot_routing.cu", tsr.WIDE_PLAN),
     (tgumbel, "gumbel.cu", tgumbel.SOFT_KERNEL), (tgumbel, "gumbel.cu", tgumbel.IDS_KERNEL)])
 def test_ctypes_argtypes_match_the_c_signatures(module, source, name):
     """A wrong ctypes argtype shows only on the card (a pointer cut to 32

@@ -9,7 +9,10 @@ features; the pooling, head and loss in float64) clears PRETRAIN_SURE of its
 leaf's largest and STEP_GRAD_FLOOR of the model's, and the fp32 gradient
 lies within half of it (``chip_smoke.sure_entries``). Every other entry is
 held to Adam's bound lr. The float64 replays must give the steps' own
-gradients (to 1e-4 of each leaf's largest entry, fp32 against float64)."""
+gradients (to 1e-4 of each leaf's largest entry, fp32 against float64). The
+property head's leaky-ReLU inputs within KINK_TOL of their kink are taken on
+both sides: an entry either side moves is held to Adam's bound, and one
+that the fp32 step's side keeps is not counted as moved."""
 
 import numpy as np
 import pytest
@@ -61,6 +64,20 @@ def test_sure_entries_follow_the_float64_gradient():
     assert chip_smoke.moved_line({"w": 1, "b": 0}, {"w": 100, "b": 2})[1]
 
 
+def test_sure_entries_take_each_kinks_side():
+    """With a kink's other side: an entry it moves is no longer sure; one
+    that only the kink's side keeps (the fp32 step took that side) is out
+    of the sure ones but not counted as moved; one that no side keeps is."""
+    g32 = {"w": np.array([1.0, 0.5, 0.9, -0.8], np.float32)}
+    g64 = {"w": np.array([1.0, 0.5, 0.05, 0.8])}
+    side = {"w": np.array([1.0, 0.01, 0.9, 0.8])}
+    sure, moved = chip_smoke.sure_entries(g32, g64)
+    assert sure["w"].tolist() == [True, True, False, False] and moved == {"w": 2}
+    sure, moved = chip_smoke.sure_entries(g32, g64, [side])
+    assert sure["w"].tolist() == [True, False, False, False] and moved == {"w": 1}
+    assert chip_smoke.sure_entries(g32, g64, [])[1] == {"w": 2}
+
+
 def _grads32(named, optimizer) -> dict:
     """The step's fp32 gradient as the checks read it: mu / (1 - b1)."""
     side = chip_smoke.adam_side(named, optimizer)
@@ -93,7 +110,8 @@ def test_float64_replays_give_the_steps_gradient(probe):
         init = {n: p.detach().numpy().copy() for n, p in named}
         matched = []
         model.update(batch, 0, noise={"rep": torch.from_numpy(noise)}, matched=matched)
-        grads64 = chip_smoke.property_grads64(model, init, batch, noise, matched[0])
+        kinks = []
+        grads64 = chip_smoke.property_grads64(model, init, batch, noise, matched[0], kinks)
     else:
         model = train_classifier.Classifier(Pooling(ocr, cfg.pooling, seed=0), ocr, 16, 4,
                                             1e-4, seed=0)
@@ -102,6 +120,7 @@ def test_float64_replays_give_the_steps_gradient(probe):
         init = {n: p.detach().numpy().copy() for n, p in named}
         model.step(batch, noise={"rep": torch.from_numpy(noise)})
         grads64 = chip_smoke.classifier_grads64(model, init, batch, noise)
+        kinks = []
     grads = _grads32(named, model.optimizer)
     assert grads64.keys() == grads.keys() == init.keys()
     top = max(np.abs(g).max() for g in grads64.values())
@@ -109,5 +128,51 @@ def test_float64_replays_give_the_steps_gradient(probe):
         assert grads64[name].dtype == np.float64 and grads64[name].shape == g.shape
         scale = 1e-4 * np.abs(grads64[name]).max() + 1e-6 * top
         assert np.abs(g - grads64[name]).max() <= scale, name
-    _, moved = chip_smoke.sure_entries(grads, grads64)
+    for variant in kinks:
+        assert variant.keys() == grads64.keys()
+        assert all(variant[n].shape == g.shape for n, g in grads64.items())
+    _, moved = chip_smoke.sure_entries(grads, grads64, kinks)
     assert chip_smoke.moved_line(moved, {n: v.size for n, v in init.items()})[1]
+
+
+def test_property_replay_takes_a_kink_within_rounding_on_both_sides():
+    """A leaky-ReLU input of the property head planted at its kink (the
+    first unit's bias set to minus its input's dot product, so that float64
+    puts it within rounding of 0): among the kinks the replay takes on both
+    sides, one changes that unit's row of the first layer's gradient and
+    nothing else beyond 1e-6 of a leaf's largest entry; an fp32 step that
+    took that side counts no moved entry, where the rule without the kinks'
+    sides counts some."""
+    rng = np.random.default_rng(6)
+    batch = {"obss": rng.integers(0, 256, (B, 16, 16, 3), dtype=np.uint8),
+             "objs": np.concatenate([rng.integers(0, 7, (B, 4, 1)), rng.integers(0, 4, (B, 4, 1)),
+                                     rng.integers(0, 2, (B, 4, 1)), rng.random((B, 4, 2))],
+                                    -1).astype(np.float32)}
+    cfg = tcfg.compose(tcfg.TrainPropertyPredictorConfig(), ARGV)
+    ocr = create_ocr(cfg.ocr, cfg.dataset, seed=0, device="cpu")
+    noise = chip_smoke.slot_noise(cfg, B, 16)
+    model = tpp.PropertyPredictor(ocr, cfg.property_predictor, cfg.dataset, seed=0)
+    obs, _ = model._batch(batch)
+    with torch.no_grad():
+        row = ocr.rep(obs, noise={"rep": torch.from_numpy(noise)})[0, 0].double()
+        first = model.head.dense[0]
+        first.bias[0] = -(first.weight[0].double() @ row)
+    init = {n: p.detach().numpy().copy() for n, p in model.head.named_parameters()}
+    matched, kinks = [], []
+    model.update(batch, 0, noise={"rep": torch.from_numpy(noise)}, matched=matched)
+    grads64 = chip_smoke.property_grads64(model, init, batch, noise, matched[0], kinks)
+    w0 = grads64["dense.0.weight"]
+    rows = [np.abs(v["dense.0.weight"] - w0) for v in kinks]
+    planted = [v for v, d in zip(kinks, rows) if d[0].max() > 1e-3 * np.abs(w0).max()
+               and d[1:].max() <= 1e-6 * np.abs(w0).max()]
+    assert len(planted) == 1
+    side = planted[0]
+    for name in grads64:
+        if not name.startswith("dense.0."):
+            assert np.abs(side[name] - grads64[name]).max() <= 1e-6 * np.abs(grads64[name]).max()
+    as_fp32 = {n: v.astype(np.float32) for n, v in side.items()}
+    assert sum(chip_smoke.sure_entries(as_fp32, grads64)[1].values()) > 0
+    assert sum(chip_smoke.sure_entries(as_fp32, grads64, kinks)[1].values()) == 0
+    sure, _ = chip_smoke.sure_entries(_grads32(list(model.head.named_parameters()),
+                                               model.optimizer), grads64, kinks)
+    assert not sure["dense.0.bias"][0]

@@ -211,25 +211,25 @@ def test_vmap_rules_serve_the_streamed_plan(monkeypatch):
     """The vmap rules fold the seeds into the batch for the streamed plan's
     C entries as for the others: at 33 slots in 3 heads, vmap over V seeds
     launches slot_routing_wide_fwd once at V * B rows, vmap(grad) one
-    forward and one backward, each given the segments wide_segments chooses
-    for V * B rows, with the plain sweep's values. The entries are host
-    twins that read and write the wrapper's CPU tensors through the
-    pointers, ints and argument order the wrapper passes."""
+    forward and one backward, each given the SM count and a scratch of the
+    floats wide_scratch gives V * B rows, with the plain sweep's values. The
+    entries are host twins that read and write the wrapper's CPU tensors
+    through the pointers, ints and argument order the wrapper passes."""
     from torch.func import grad, vmap
 
     seen = []
 
-    def wide_fwd(k, v, q, a, sa, av, scratch, B, N, S, D, H, segments, stream):
-        seen.append(("fwd", B, segments))
+    def wide_fwd(k, v, q, a, sa, av, scratch, B, N, S, D, H, sms, floats, stream):
+        seen.append(("fwd", B, sms, floats))
         want = tsr.route_sweep_reference(*(_host(p, s) for p, s in (
             (k, (B, N, D)), (v, (B, N, D)), (q, (B, S, D)))), H)
         for p, shape, w in zip((sa, av, a), ((B, H * S), (B, S, D), (B, N, H * S)), want):
             _host(p, shape).copy_(w)
         return 0
 
-    def wide_bwd(k, v, a, q, g_av, g_a, gk, gv, gq, scratch, work, B, N, S, D, H, segments,
+    def wide_bwd(k, v, a, q, g_av, g_a, gk, gv, gq, scratch, work, B, N, S, D, H, sms, floats,
                  stream):
-        seen.append(("bwd", B, segments))
+        seen.append(("bwd", B, sms, floats))
         shapes = ((B, N, D), (B, N, D), (B, S, D))
         leaves = [_host(p, s).clone().requires_grad_() for p, s in zip((k, v, q), shapes)]
         with torch.enable_grad():
@@ -247,7 +247,8 @@ def test_vmap_rules_serve_the_streamed_plan(monkeypatch):
                         lambda device, kernel, fn, *args: _build.launch(kernel, fn, *args, None))
     V, B, N, S, H, D = 3, 2, 10, 33, 3, 21
     assert tsr.sweep_plan(S, D, H) == "wide"
-    segments = tsr.wide_segments(V * B, N, S, D, H, 132)
+    plan = tsr.wide_plan(V * B, N, S, D, H, 132)
+    floats = {fwd: tsr.wide_scratch(plan, V * B, N, S, D, H, fwd) for fwd in (True, False)}
     k, v = (torch.from_numpy(rand(V, B, N, D, seed=s)) for s in (11, 12))
     q = torch.from_numpy(rand(V, B, S, D, seed=13))
 
@@ -256,12 +257,12 @@ def test_vmap_rules_serve_the_streamed_plan(monkeypatch):
 
     reset_launches()
     outs = vmap(tsr._RouteSweep.apply, in_dims=(0, 0, 0, None))(k, v, q, H)
-    assert LAUNCHES == {tsr.WIDE_KERNEL: 1} and seen == [("fwd", V * B, segments)]
+    assert LAUNCHES == {tsr.WIDE_KERNEL: 1} and seen == [("fwd", V * B, 132, floats[True])]
     reset_launches()
     seen.clear()
     grads = vmap(grad(loss(tsr._RouteSweep.apply), argnums=(0, 1, 2)))(k, v, q)
     assert LAUNCHES == {tsr.WIDE_KERNEL: 1, tsr.WIDE_BWD_KERNEL: 1}
-    assert seen == [("fwd", V * B, segments), ("bwd", V * B, segments)]
+    assert seen == [("fwd", V * B, 132, floats[True]), ("bwd", V * B, 132, floats[False])]
     want = vmap(lambda k, v, q: tsr.route_sweep_reference(k, v, q, H))(k, v, q)
     want_grads = vmap(grad(loss(tsr.route_sweep_reference), argnums=(0, 1, 2)))(k, v, q)
     for g, w in zip((*outs, *grads), (*want, *want_grads)):
@@ -431,7 +432,8 @@ def test_past_the_kernels_range():
 def test_source_constants_match_the_wrapper():
     """ops.slot_routing mirrors the C entries' rules: the tiles, stage
     counts, slot blocks, lanes, token groups and limits of
-    csrc/slot_routing.cu's heads kernels and their plan."""
+    csrc/slot_routing.cu's heads kernels and their plan, and the slabs,
+    extents, registers and limits of the streamed plan."""
     text = (Path(tsr.__file__).parent / "csrc" / "slot_routing.cu").read_text()
 
     def const(name):
@@ -449,7 +451,16 @@ def test_source_constants_match_the_wrapper():
     assert int(const("kConsumers")) == tsr.CONSUMERS
     assert const("kFwdTiles") == "{64, 48, 32, 24, 16, 8}"
     assert int(const("kHeaderBytes")) == 128
-    assert int(const("kWideTile")) == tsr.WIDE_TILE
+    assert (int(const("kWideBK")), int(const("kWideStages"))) == (tsr.WIDE_BK, tsr.WIDE_STAGES)
+    assert const("kWideExtents") == "{" + ", ".join(map(str, tsr.WIDE_EXTENTS)) + "}"
+    assert const("kWideTokenExtents") == "{" + ", ".join(map(str, tsr.WIDE_TOKEN_EXTENTS)) + "}"
+    assert [int(const(n)) for n in ("kWideFusedMax", "kWideTileCost", "kWideMinSegment",
+                                    "kWideTokensCols", "kWideMinThreads", "kWideRegs",
+                                    "kWideSmemPerSM", "kWideSmemReserved")] == [
+        tsr.WIDE_FUSED_MAX, tsr.WIDE_TILE_COST, tsr.WIDE_MIN_SEGMENT, tsr.WIDE_TOKENS_COLS,
+        tsr.WIDE_MIN_THREADS, tsr.WIDE_REGS, tsr.WIDE_SMEM_PER_SM, tsr.WIDE_SMEM_RESERVED]
+    assert 65536 // (int(const("kWideMaxThreads")) * int(const("kWideMinBlocks"))) == \
+        tsr.WIDE_SUMS_REGS
 
 
 # -- (iii) one SLATE update with heads, and with 20 slots ----------------------
