@@ -7,7 +7,9 @@ inf-norm (SLATE) or the 2-norm (IODINE), then the optimizer; an OCR with
 no clip reports no ``norm``. ``update_many`` takes k such steps in a Python
 loop on the device, where JAX scans them in one program. Random state is
 one ``torch.Generator`` on the model's device, seeded from ``seed``.
-``MultiGroupAdam`` is the optimizer of every OCR that trains.
+``MultiGroupAdam`` is the optimizer of every OCR that trains. A step marks
+its phases on a profiler's trace (``utils.tracing``: ``ocrl.step`` around
+``ocrl.forward``, ``ocrl.backward`` and ``ocrl.optimizer``).
 
 Under data parallelism (``parallel.shard_ocr``, the counterpart of the five
 step functions that ocrl_tpu/parallel/mesh.py re-jits) each rank passes its
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import gather_rows, mean_over_ranks
+from ..utils import tracing
 from .common import randn
 
 
@@ -127,18 +130,22 @@ class OCR:
 
     def _step(self, obs: torch.Tensor, masks: torch.Tensor | None, step: int,
               noise: dict | None) -> dict:
-        self.module.train()
-        self.optimizer.zero_grad()
-        loss, metrics = self.module.loss(obs, masks, step, True,
-                                         generator=self.generator, noise=noise)
-        loss.backward()
-        if self.shard is not None:
-            grads = [p.grad for p in self.module.parameters() if p.grad is not None]
-            metrics = self._mean_over_ranks(metrics, grads)
-        if self.clip is not None:
-            metrics["norm"] = clip_by_total_norm(list(self.module.parameters()), self.clip,
-                                                 self.clip_ord)
-        self.optimizer.step()
+        with tracing.span("step"):
+            self.module.train()
+            self.optimizer.zero_grad()
+            with tracing.span("forward"):
+                loss, metrics = self.module.loss(obs, masks, step, True,
+                                                 generator=self.generator, noise=noise)
+            with tracing.span("backward"):
+                loss.backward()
+            if self.shard is not None:
+                grads = [p.grad for p in self.module.parameters() if p.grad is not None]
+                metrics = self._mean_over_ranks(metrics, grads)
+            with tracing.span("optimizer"):
+                if self.clip is not None:
+                    metrics["norm"] = clip_by_total_norm(list(self.module.parameters()),
+                                                         self.clip, self.clip_ord)
+                self.optimizer.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else v
                 for k, v in metrics.items()}
 

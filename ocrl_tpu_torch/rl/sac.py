@@ -30,7 +30,10 @@ samples from the algorithm's ``torch.Generator`` on its device, or given
 (``noise=``: ``slots`` / ``eps`` for a policy call; ``slots``,
 ``slots_next``, ``eps_next``, ``eps_pi`` for an update). Observations stay
 uint8 in the host buffer (``np.empty``: pages are touched as they fill) and
-become float32 / 255 on the device after the upload.
+become float32 / 255 on the device after the upload. A profiler's trace
+shows the phases of a vector step (``utils.tracing``): ``ocrl.sample``,
+``ocrl.upload``, ``ocrl.update`` around its ``ocrl.optimizer``, and the vec
+env's ``ocrl.env_wait``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from torch import nn
 
 from ..config import SACConfig
 from ..device import resolve_device
+from ..utils import tracing
 from .ac_nets import _dense
 from .ppo import OnPolicyAlgo, OptaxChain
 
@@ -266,11 +270,12 @@ class SAC:
 
     def upload(self, batch: dict) -> dict:
         """A sampled batch on the device, observations float32 (/ 255)."""
-        data = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
-        for key in ("obs", "next_obs"):
-            data[key] = data[key].to(torch.float32)
-            if self.is_image_obs:
-                data[key] = data[key] / 255.0
+        with tracing.span("upload"):
+            data = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+            for key in ("obs", "next_obs"):
+                data[key] = data[key].to(torch.float32)
+                if self.is_image_obs:
+                    data[key] = data[key] / 255.0
         return data
 
     @staticmethod
@@ -283,6 +288,10 @@ class SAC:
         the critic and actor losses, both Adam steps, the Polyak update of
         the target, then, with ``auto``, the entropy coefficient's step.
         Returns the metrics as device tensors."""
+        with tracing.span("update"):
+            return self._update(data, noise)
+
+    def _update(self, data: dict, noise: dict | None) -> dict:
         cfg, policy = self.cfg, self.policy
         B = data["obs"].shape[0]
         slots_next = self._given(noise, "slots_next", lambda: self._slot_noise(B))
@@ -314,18 +323,19 @@ class SAC:
             actor_loss = (alpha * logp_pi - torch.minimum(q1_pi, q2_pi)).mean()
             actor_grads = torch.autograd.grad(actor_loss, actor_params, allow_unused=True)
 
-        self.optimizers["critic"].step(critic_grads)
-        self.optimizers["actor"].step(actor_grads)
-        self.polyak()
         metrics = {"critic_loss": critic_loss.detach(), "actor_loss": actor_loss.detach(),
                    "alpha": alpha, "entropy": -logp_pi.detach().mean()}
-        if self.auto_alpha:
-            log_alpha = self.log_alpha.detach().requires_grad_(True)
-            with torch.enable_grad():
-                alpha_loss = -(log_alpha * (logp_pi.detach() + self.target_entropy)).mean()
-                (alpha_grad,) = torch.autograd.grad(alpha_loss, log_alpha)
-            self.alpha_optimizer.step([alpha_grad])
-            metrics["alpha_loss"] = alpha_loss.detach()
+        with tracing.span("optimizer"):
+            self.optimizers["critic"].step(critic_grads)
+            self.optimizers["actor"].step(actor_grads)
+            self.polyak()
+            if self.auto_alpha:
+                log_alpha = self.log_alpha.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    alpha_loss = -(log_alpha * (logp_pi.detach() + self.target_entropy)).mean()
+                    (alpha_grad,) = torch.autograd.grad(alpha_loss, log_alpha)
+                self.alpha_optimizer.step([alpha_grad])
+                metrics["alpha_loss"] = alpha_loss.detach()
         return metrics
 
     @torch.no_grad()
@@ -382,7 +392,8 @@ class SAC:
             if self.num_timesteps >= cfg.learning_starts and vec_steps % cfg.train_freq == 0:
                 t1 = time.perf_counter()
                 for _ in range(cfg.gradient_steps):
-                    batch = buffer.sample(min(cfg.batch_size, len(buffer)), self.np_rng)
+                    with tracing.span("sample"):
+                        batch = buffer.sample(min(cfg.batch_size, len(buffer)), self.np_rng)
                     metrics = self.update(self.upload(batch))
                 host = {k: float(v) for k, v in metrics.items()}
                 update_s = time.perf_counter() - t1

@@ -6,7 +6,9 @@ goes into ``info["terminal_observation"]``). ``step_indices`` steps only
 some of the envs (the pipelined rollouts step one bucket while another's
 policy call is in flight) and ``render_frame`` returns the first env's RGB
 frame (the video recorder). ``make_multi_seed_vec_env`` lays out S seeds'
-env groups in one vec env (ocrl_tpu/rl/vec_env.py:175-185).
+env groups in one vec env (ocrl_tpu/rl/vec_env.py:175-185). A step's wait
+on its envs is the span ``ocrl.env_wait`` on a profiler's trace
+(``utils.tracing``).
 
 Fork safety: the port forks its workers after CUDA is up (``chip_smoke.py``
 has used the card before it builds an env, and ``train_sb3`` builds its vec
@@ -29,6 +31,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from .. import native
+from ..utils import tracing
 
 
 def coerce_action(action_space, act):
@@ -65,13 +68,17 @@ class VecEnv:
 
     def step(self, actions):
         """-> (obs [E, ...], rewards [E] float32, dones [E] bool, infos)."""
-        return _stacked([_step(env, self.action_space, act)
-                         for env, act in zip(self.envs, actions)])
+        with tracing.span("env_wait"):
+            results = [_step(env, self.action_space, act)
+                       for env, act in zip(self.envs, actions)]
+        return _stacked(results)
 
     def step_indices(self, indices, actions):
         """``step`` of the envs at ``indices`` alone, in that order."""
-        return _stacked([_step(self.envs[i], self.action_space, act)
-                         for i, act in zip(indices, actions)])
+        with tracing.span("env_wait"):
+            results = [_step(self.envs[i], self.action_space, act)
+                       for i, act in zip(indices, actions)]
+        return _stacked(results)
 
     def render_frame(self) -> np.ndarray:
         """The first env's RGB frame."""
@@ -161,15 +168,19 @@ class SubprocVecEnv:
         return np.stack([r.recv() for r in self.remotes])
 
     def step(self, actions):
-        for r, act in zip(self.remotes, actions):
-            r.send(("step", act))
-        return _stacked([r.recv() for r in self.remotes])
+        with tracing.span("env_wait"):
+            for r, act in zip(self.remotes, actions):
+                r.send(("step", act))
+            results = [r.recv() for r in self.remotes]
+        return _stacked(results)
 
     def step_indices(self, indices, actions):
         """``step`` of the envs at ``indices`` alone; they step at once."""
-        for i, act in zip(indices, actions):
-            self.remotes[i].send(("step", act))
-        return _stacked([self.remotes[i].recv() for i in indices])
+        with tracing.span("env_wait"):
+            for i, act in zip(indices, actions):
+                self.remotes[i].send(("step", act))
+            results = [self.remotes[i].recv() for i in indices]
+        return _stacked(results)
 
     def render_frame(self) -> np.ndarray:
         self.remotes[0].send(("render", None))

@@ -20,7 +20,12 @@ logs sample images of the last batch; then it writes the checkpoints
 ``load.resume_checkpoint``, ``load.resume_run_path`` or its own
 ``run_dir``'s latest file, JAX's or the port's. ``max_steps`` stops the run
 mid-epoch and evaluates and saves once more. ``profile_dir`` writes a
-torch.profiler trace of steps 10 to 15 + superbatch there.
+torch.profiler trace of steps 10 to 15 + superbatch there, which carries
+the program's own ranges beside the ops (``utils.tracing``: ``ocrl.step``
+and its forward, backward and optimizer). The printed images/s is the rate
+over the steps since the previous print (or since the epoch's first
+superbatch or the last evaluation), so neither the loader's start nor an
+evaluation is counted in it.
 
 Two behaviours of the reference are kept as they are (ROADMAP.md, suspected
 faults of the reference): a resumed run builds its train loader afresh, so
@@ -133,9 +138,10 @@ def train(config: TrainOCRConfig, device=None) -> dict:
     max_steps = None if config.max_steps is None else int(float(config.max_steps))
     profile_dir, profiler = config.profile_dir, None
     while epoch < config.max_epochs and (max_steps is None or step < max_steps):
-        t0, imgs = time.time(), 0
+        since, imgs = None, 0
         for batch in prefetch_to_device(train_dl, device, size=2, superbatch=superbatch,
                                         yield_whole=True):
+            since = since or time.time()
             if profile_dir and profiler is None and step >= 10:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -163,11 +169,13 @@ def train(config: TrainOCRConfig, device=None) -> dict:
                 loss = metrics.get("loss", 0.0)
                 loss = float(torch.as_tensor(loss).reshape(-1)[-1])
                 print(f"epoch {epoch} step {step} loss {loss:.4f} "
-                      f"({imgs / (time.time() - t0):.1f} imgs/s)", flush=True)
+                      f"({imgs / (time.time() - since):.1f} imgs/s)", flush=True)
+                since, imgs = time.time(), 0
             if step // eval_interval != prev_step // eval_interval:
                 flush_pending()
                 best_val_loss = eval_and_save(model, val_dl, epoch, step, best_val_loss,
                                               config, run)
+                since, imgs = time.time(), 0
             if max_steps is not None and step >= max_steps:
                 break
         epoch += 1
